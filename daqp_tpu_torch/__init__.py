@@ -1,0 +1,24 @@
+"""daqp_tpu_torch: the PyTorch / CUDA port of daqp_tpu's batched QP path.
+
+The cold, hard-constrained batch path of ``daqp_tpu`` (transform, slot
+active-set solver, stream entry) with its two TPU kernels rewritten for
+Hopper in CUDA C++ (``ops/csrc``).  Tensors on the CPU run each kernel's
+plain PyTorch twin; CUDA tensors launch the kernels.
+
+TF32 is switched off here: it keeps ~3 decimal digits and would corrupt
+the f32 solver math, as bf16 does on the TPU.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+from .types import (  # noqa: E402
+    ACTIVE, LOWER, IMMUTABLE, SOFT, BINARY, DAQP_INF, EXIT_OPTIMAL,
+    EXIT_INFEASIBLE, EXIT_CYCLE, EXIT_ITERLIMIT, EXIT_NONCONVEX,
+    EXIT_UNSUPPORTED, EXIT_RUNNING, EXIT_REFACTOR, Settings,
+    default_settings_f32, as_settings)
+from .batch import (  # noqa: E402
+    BatchResult, solve_batch_kernel, solve_batch_kernel_stream,
+    kkt_residuals)

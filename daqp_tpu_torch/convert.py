@@ -1,0 +1,59 @@
+"""Carry state from the JAX package over to the port, and back.
+
+The functions read JAX objects only through ``np.asarray`` and field
+access, so this module (like the rest of the package) never imports
+jax.  They let a test feed one state to a JAX function and to its
+counterpart here: JAX keeps slot state lanes-last ((m, B), (1, B)), the
+port batch-leading ((B, m), (B,)).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.slot import SlotState
+from .transform import LDPData
+from .types import Settings
+
+# per-lane scalars: (1, B) in JAX, (B,) here
+_SCALARS = ("fbound", "pend", "plam", "plo", "pid", "pdd", "fval",
+            "best_fval", "cycle", "repaired", "iterations", "status")
+
+
+def settings_from_jax(st) -> Settings:
+    """A JAX ``Settings`` read field by field as Python scalars."""
+    return Settings(**{
+        name: type(default)(np.asarray(getattr(st, name)).item())
+        for name, default in Settings._field_defaults.items()})
+
+
+def slot_state_from_jax(s, device="cpu") -> SlotState:
+    """JAX lanes-last ``SlotState`` -> the port's batch-leading state.
+
+    JAX's padded shapes (m, n, K multiples of 8; padded rows immutable
+    with +-INF bounds) carry over as they are: the caller passes the true
+    n as ``n_true`` to ``run_slot_round``."""
+    fields = {}
+    for name in SlotState._fields:
+        a = np.moveaxis(np.asarray(getattr(s, name)), -1, 0)
+        if name in _SCALARS:
+            a = a[:, 0]
+        dtype = torch.int32 if name == "status" else torch.float32
+        fields[name] = torch.as_tensor(np.array(a), device=device).to(dtype)
+    return SlotState(**fields)
+
+
+def slot_state_to_numpy(s: SlotState) -> dict:
+    """The port's state as numpy arrays in JAX's lanes-last layout."""
+    out = {}
+    for name in SlotState._fields:
+        a = getattr(s, name).detach().cpu().numpy()
+        out[name] = a[None, :] if name in _SCALARS else np.moveaxis(a, 0, -1)
+    return out
+
+
+def ldp_from_jax(ldpd, device="cpu") -> LDPData:
+    """A batched (vmapped, batch-leading) JAX ``LDPData`` -> the port's."""
+    return LDPData(**{
+        name: torch.as_tensor(np.array(getattr(ldpd, name)), device=device)
+        for name in LDPData._fields})

@@ -1,0 +1,569 @@
+"""K2: the slot-space dual active-set round, and the host loop around it.
+
+Counterpart of ``daqp_tpu/ops/pallas_slot.py``: ``:63 SlotState``,
+``:663 run_slot_round`` (the TPU kernel ``_kernel_body`` ->
+``_solve_tile_live``, :102-661), ``:2004 slot_init``, ``:2044
+_slot_gram``, ``:2054 slot_activate``, ``:2110 exact_repair``, ``:2137
+repair_needed``, ``:2142 newton_refresh``, ``:2167 polish``, ``:2209
+slot_solve``, ``:2333 slot_duals_dense``; and of
+``daqp_tpu/ops/pallas_batch.py:904 _batched_gram_inverse`` (its XLA
+path).
+
+The state is batch-leading: (B, m, n), (B, K, K), (B, K), (B,).  The
+TPU workarounds stay behind: no 8-aligned padding (K = n_true + 1
+exactly; the ``kcnt >= n_true`` gate caps the table at n_true slots, so
+one spare slot is enough), no 128-lane tiles, no one-hot mask algebra.
+A state carried over from JAX (``convert.slot_state_from_jax``) may keep
+its padded shapes: padded rows are immutable with +-INF bounds, and
+``n_true`` is passed separately.
+
+``run_slot_round`` launches the CUDA kernel (``csrc/slot_round.cu``) on
+CUDA tensors and runs ``run_slot_round_plain`` on CPU tensors.  The
+rounds, ``exact_repair`` and the two polish cycles run on the host, each
+masked per lane, so a lane's result depends on that lane alone.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from . import _build, host_any
+from ..types import (Settings, DAQP_INF, EXIT_CYCLE, EXIT_INFEASIBLE,
+                     EXIT_ITERLIMIT, EXIT_OPTIMAL, EXIT_REFACTOR,
+                     EXIT_RUNNING, PRICING_BLAND)
+
+launches = 0        # kernel launches of run_slot_round (reset by the caller)
+STEPS = 192         # iterations per kernel round
+MAX_ROUNDS = 16     # live rounds per lane
+# status of a RUNNING lane kept out of one round (iteration or round
+# budget spent); restored to RUNNING right after the round
+_HELD = 98
+
+
+class SlotState(NamedTuple):
+    """Slot-space batched solver state, batch-leading, f32."""
+    # problem data (const)
+    M: torch.Tensor          # (B, m, n)
+    dupper: torch.Tensor     # (B, m)
+    dlower: torch.Tensor     # (B, m)
+    scaling: torch.Tensor    # (B, m)
+    immut: torch.Tensor      # (B, m) 0/1
+    fbound: torch.Tensor     # (B,) LDP-space dual objective bound
+    # m-space activation masks
+    act_up: torch.Tensor     # (B, m) 0/1
+    act_lo: torch.Tensor     # (B, m) 0/1
+    # slot table
+    W: torch.Tensor          # (B, K, n) active rows by slot
+    E: torch.Tensor          # (B, K, K) inverse Gram on used slots
+    dsl: torch.Tensor        # (B, K) active-side bound value per slot
+    used: torch.Tensor       # (B, K) 0/1
+    sid: torch.Tensor        # (B, K) constraint id (-1 = free)
+    slo: torch.Tensor        # (B, K) side (1 = lower)
+    simm: torch.Tensor       # (B, K) immutable slot
+    lam: torch.Tensor        # (B, K)
+    lam_star: torch.Tensor   # (B, K)
+    # pending singular addition (held out of the table)
+    pend: torch.Tensor       # (B,) 0/1
+    prow: torch.Tensor       # (B, n)
+    plam: torch.Tensor       # (B,)
+    plo: torch.Tensor        # (B,)
+    pid: torch.Tensor        # (B,) constraint id
+    pdd: torch.Tensor        # (B,) bound value
+    # iterates / control
+    u: torch.Tensor          # (B, n)
+    fval: torch.Tensor       # (B,)
+    best_fval: torch.Tensor  # (B,)
+    cycle: torch.Tensor      # (B,)
+    repaired: torch.Tensor   # (B,)
+    iterations: torch.Tensor  # (B,)
+    status: torch.Tensor     # (B,) int32
+
+
+# argument order of the CUDA entry (slot_round.cu, enum Ptr)
+CONST = ("M", "dupper", "dlower", "scaling", "immut", "simm", "fbound")
+STATE = ("act_up", "act_lo", "W", "E", "dsl", "used", "sid", "slo", "lam",
+         "lam_star", "pend", "prow", "plam", "plo", "pid", "pdd", "u",
+         "fval", "best_fval", "cycle", "repaired", "iterations", "status")
+
+
+def _first_min(cand: torch.Tensor):
+    """Lowest-index argmin along dim 1 (``jnp.argmin``'s tie rule):
+    (index (B, 1), value (B, 1))."""
+    idx = torch.argmin(cand, dim=1, keepdim=True)
+    return idx, cand.gather(1, idx)
+
+
+def run_slot_round_plain(s: SlotState, st: Settings, n_true: int,
+                         steps: int = STEPS) -> SlotState:
+    """Up to ``steps`` masked iterations per lane in torch ops: the step
+    of ``_solve_tile_live`` (pallas_slot.py:256-612) vectorized over the
+    batch.  A masked step on a terminal lane is a no-op, so the loop
+    stops once every lane is terminal."""
+    f32 = torch.float32
+    B, m, n = s.M.shape
+    K = s.E.shape[1]
+    dev = s.M.device
+    BIG = DAQP_INF
+    dtol, ptol, pivtol = st.dual_tol, st.primal_tol, st.pivot_tol
+    singtol, progtol, cyctol = st.sing_tol, st.progress_tol, st.cycle_tol
+    iota_m = torch.arange(m, device=dev, dtype=f32)[None, :]
+    iota_K = torch.arange(K, device=dev, dtype=f32)[None, :]
+
+    M, du, dl, sc, im, simm = (s.M, s.dupper, s.dlower, s.scaling, s.immut,
+                               s.simm)
+    fb = s.fbound[:, None]
+    au, al, W, E = s.act_up, s.act_lo, s.W, s.E
+    dsl, used, sid, slo, lam, ls = (s.dsl, s.used, s.sid, s.slo, s.lam,
+                                    s.lam_star)
+    prow, u = s.prow, s.u
+    pd, plm, plo, pid, pdd, fv, bf, cy, rp, it = (
+        x[:, None] for x in (s.pend, s.plam, s.plo, s.pid, s.pdd, s.fval,
+                             s.best_fval, s.cycle, s.repaired,
+                             s.iterations))
+    stt = s.status[:, None]
+
+    def mv(A, x):                 # out[b, i] = sum_j A[b, i, j] x[b, j]
+        return torch.einsum('bij,bj->bi', A, x)
+
+    def mtv(A, x):                # out[b, j] = sum_i A[b, i, j] x[b, i]
+        return torch.einsum('bij,bi->bj', A, x)
+
+    # round-start prefix from the stored E (pallas_slot.py:616-617)
+    lam_star = -mv(E, dsl * used)
+    a_p = mv(E, mv(W, prow) * used)
+
+    for step in range(steps):
+        if step % 8 == 0 and not bool((stt == EXIT_RUNNING).any()):
+            break
+        run = (stt == EXIT_RUNNING).to(f32)
+        sgn_p = 1.0 - 2.0 * plo
+        sdir = -a_p * sgn_p
+
+        # blocking min-ratio line search (auxiliary.c:276-311)
+        delta = pd * sdir + (1.0 - pd) * (lam_star - lam)
+        signv = pd * sdir + (1.0 - pd) * lam_star
+        infeas = slo * (signv > dtol).to(f32) \
+            + (1.0 - slo) * (signv < -dtol).to(f32)
+        elig = infeas * used * (1.0 - simm)
+        ratio = -lam / delta
+        ratio = torch.where(torch.isfinite(ratio),
+                            torch.clamp(ratio, min=0.0), 0.0)
+        cand = torch.where(elig > 0, ratio, BIG)
+        rm, rmin = _first_min(cand)
+        oh_rm = (iota_K == rm).to(f32)
+        do_rm0 = run * (rmin < BIG).to(f32)
+        rm_id = sid.gather(1, rm)
+        rm_lo = slo.gather(1, rm)
+
+        # primal + pricing
+        u_new = -mtv(W, lam_star * used)
+        fv_new = (u_new * u_new).sum(1, keepdim=True)
+        mu = mv(M, u_new)
+        bound = -ptol * sc
+        v_up = du - mu
+        v_lo = mu - dl
+        pblock = pd * (iota_m == pid).to(f32)
+        blocked = ((au + al) > 0) | (im > 0) | (pblock > 0)
+        up_ok = (v_up < bound) & ~blocked
+        lo_ok = (v_lo < bound) & ~blocked & ~up_ok
+        cand2 = torch.where(up_ok, v_up, torch.where(lo_ok, v_lo, BIG))
+        if int(st.pricing) == PRICING_BLAND:
+            cand2 = torch.where(up_ok | lo_ok, iota_m - BIG, BIG)
+        jr, vmin = _first_min(cand2)
+        oh_j = (iota_m == jr).to(f32)
+        found = (vmin < 0).to(f32)
+        j_lo = lo_ok.gather(1, jr).to(f32)
+        d_j = j_lo * dl.gather(1, jr) + (1.0 - j_lo) * du.gather(1, jr)
+
+        # add candidate: pending retry after a removal, or pricing winner
+        retry = pd * do_rm0
+        price0 = run * (1.0 - do_rm0) * (1.0 - pd)
+        padd0 = price0 * found
+        mj = M.gather(1, jr[:, :, None].expand(B, 1, n))[:, 0]
+        add_row = retry * prow + padd0 * mj
+        add_lo = retry * plo + padd0 * j_lo
+        add_lam = retry * plm + padd0 * (1.0 - 2.0 * j_lo)
+        add_id = retry * pid + padd0 * jr.to(f32)
+        add_d = retry * pdd + padd0 * d_j
+        g = mv(W, add_row) * used
+        g_k = g * (1.0 - oh_rm * do_rm0)
+
+        # removed column + Schur vector; deletion pivot guard
+        e = E.gather(2, rm[:, :, None].expand(B, K, 1))[:, :, 0]
+        a_pre = mv(E, g_k)
+        err = e.gather(1, rm)
+        bad = (do_rm0 > 0) & (err < pivtol * e.abs().amax(1, keepdim=True))
+        err_s = torch.where(err != 0, err, 1.0)
+        ec = (e * g_k).sum(1, keepdim=True) / err_s
+        stt = torch.where(bad, EXIT_REFACTOR, stt)
+        do_rm = do_rm0 * (1.0 - bad.to(f32))
+        keep = 1.0 - oh_rm * do_rm
+        a_post = keep * (a_pre - do_rm * e * ec)
+
+        # line-search dual update + masked removal bookkeeping
+        alpha = do_rm * torch.where(rmin < BIG, rmin, 0.0)
+        lam = (lam + alpha * delta * used) * keep
+        plm = plm + alpha * sgn_p * pd
+        used = used * keep
+        dsl = dsl * keep
+        slo = slo * keep
+        sid = sid * keep - (1.0 - keep)
+        oh_rm_m = (iota_m == rm_id).to(f32) * do_rm
+        au = au * (1.0 - oh_rm_m * (1.0 - rm_lo))
+        al = al * (1.0 - oh_rm_m * rm_lo)
+
+        # exits: stuck pending, dominance cut, optimal, cycle guard
+        stuck = (stt == EXIT_RUNNING) & (pd > 0) & (do_rm == 0) & (run > 0)
+        stt = torch.where(stuck, torch.where(rp > 0, EXIT_INFEASIBLE,
+                                             EXIT_CYCLE), stt)
+        cut = (price0 > 0) & (stt == EXIT_RUNNING) & (fv_new > fb)
+        stt = torch.where(cut, EXIT_INFEASIBLE, stt)
+        price = price0 * (stt == EXIT_RUNNING).to(f32)
+        stt = torch.where((price > 0) & (found == 0), EXIT_OPTIMAL, stt)
+        no_prog = (fv_new - bf < progtol * (1.0 + fv_new.abs())).to(f32)
+        cy = price * (no_prog * (cy + 1.0)) + (1.0 - price) * cy
+        bf = torch.where((price > 0) & (no_prog == 0), fv_new, bf)
+        stt = torch.where((price > 0) & (cy > cyctol)
+                          & (stt == EXIT_RUNNING), EXIT_CYCLE, stt)
+
+        u = torch.where(price > 0, u_new, u)
+        fv = torch.where(price > 0, fv_new, fv)
+        ls = torch.where(run > 0, lam_star, ls)
+        padd = padd0 * (stt == EXIT_RUNNING).to(f32)
+        lam = torch.where(padd > 0, lam_star * used, lam)
+
+        # Schur complement and the relative singularity gate
+        dii = (add_row * add_row).sum(1, keepdim=True)
+        sval = dii - (g_k * a_post).sum(1, keepdim=True)
+        kcnt = used.sum(1, keepdim=True)
+        gate = torch.clamp(1e-4 * dii, min=singtol)
+        sing = ((sval < gate) | (kcnt >= n_true)).to(f32)
+        do_add = retry * (1.0 - bad.to(f32)) + padd
+        ok = do_add * (1.0 - sing)
+
+        free, _ = _first_min(iota_K + used * BIG)
+        oh_free = (iota_K == free).to(f32)
+        w = a_post * used - oh_free
+        c_del = -do_rm / err_s
+        c_add = ok / torch.where(sval != 0, sval, 1.0)
+
+        W = W * keep[:, :, None] + (ok * oh_free)[:, :, None] \
+            * add_row[:, None, :]
+        mk_pend = do_add * sing
+        used = torch.clamp(used + ok * oh_free, max=1.0)
+        sid = sid + ok * oh_free * (add_id + 1.0)
+        slo = slo + ok * oh_free * add_lo
+        dsl = dsl + ok * oh_free * add_d
+        lam = lam + ok * oh_free * add_lam
+        add_oh_m = retry * (iota_m == pid).to(f32) + padd * oh_j
+        au = torch.clamp(au + ok * add_oh_m * (1.0 - add_lo), max=1.0)
+        al = torch.clamp(al + ok * add_oh_m * add_lo, max=1.0)
+        pd = torch.clamp((1.0 - retry) * pd + mk_pend, max=1.0)
+        prow = torch.where(mk_pend > 0, add_row, prow)
+        plm = torch.where(mk_pend > 0, add_lam, plm)
+        plo = torch.where(mk_pend > 0, add_lo, plo)
+        pid = torch.where(mk_pend > 0, add_id, pid)
+        pdd = torch.where(mk_pend > 0, add_d, pdd)
+
+        # E update and the next step's CSP / pending direction
+        E = (E + c_del[:, :, None] * e[:, :, None] * e[:, None, :]) \
+            * keep[:, :, None] * keep[:, None, :] \
+            + c_add[:, :, None] * w[:, :, None] * w[:, None, :]
+        lam_star = -mv(E, dsl * used)
+        a_p = mv(E, mv(W, prow) * used)
+        it = it + run
+
+    return s._replace(
+        act_up=au, act_lo=al, W=W, E=E, dsl=dsl, used=used, sid=sid,
+        slo=slo, lam=lam, lam_star=ls, pend=pd[:, 0], prow=prow,
+        plam=plm[:, 0], plo=plo[:, 0], pid=pid[:, 0], pdd=pdd[:, 0], u=u,
+        fval=fv[:, 0], best_fval=bf[:, 0], cycle=cy[:, 0],
+        repaired=rp[:, 0], iterations=it[:, 0],
+        status=stt[:, 0].to(torch.int32))
+
+
+def run_slot_round(s: SlotState, st: Settings, n_true: int,
+                   steps: int = STEPS) -> SlotState:
+    """K2 wrapper: one round of ``steps`` iterations per lane; the CUDA
+    kernel for CUDA tensors (f32 state, int32 status, contiguous), the
+    plain twin for CPU tensors."""
+    global launches
+    dev = s.M.device
+    if dev.type == "cpu":
+        return run_slot_round_plain(s, st, n_true, steps)
+    if dev.type != "cuda":
+        raise ValueError(f"run_slot_round: unsupported device {dev}")
+    B, m, n = s.M.shape
+    K = s.E.shape[1]
+    shapes = dict(M=(B, m, n), W=(B, K, n), E=(B, K, K), prow=(B, n),
+                  u=(B, n))
+    shapes.update((k, (B, m)) for k in ("dupper", "dlower", "scaling",
+                                        "immut", "act_up", "act_lo"))
+    shapes.update((k, (B, K)) for k in ("simm", "dsl", "used", "sid", "slo",
+                                        "lam", "lam_star"))
+    for name in CONST + STATE:
+        x = getattr(s, name)
+        want = shapes.get(name, (B,))
+        dtype = torch.int32 if name == "status" else torch.float32
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != want \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"run_slot_round: {name} must be a contiguous {dtype} "
+                f"{want} on {dev}, got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}")
+    outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
+    if B == 0:
+        return s
+    ptrs = [getattr(s, name).data_ptr() for name in CONST + STATE] \
+        + [outs[name].data_ptr() for name in STATE]
+    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    lib = _build.library()
+    rc = lib.slot_round_f32(
+        ctypes.addressof(table), B, m, n, K, int(n_true), int(steps),
+        float(st.dual_tol), float(st.primal_tol), float(st.pivot_tol),
+        float(st.sing_tol), float(st.progress_tol), float(st.cycle_tol),
+        int(int(st.pricing) == PRICING_BLAND),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "slot_round_f32")
+    launches += 1
+    return s._replace(**outs)
+
+
+def slot_init(M, du, dl, sc, immut, n_true: int, fbound=None) -> SlotState:
+    """Cold slot state from batch-leading LDP data, cast to f32 as the
+    kernels take it; K = n_true + 1 slots."""
+    B, m, n = M.shape
+    f32 = torch.float32
+    dev = M.device
+    K = n_true + 1
+    if fbound is None:
+        fbound = torch.full((B,), DAQP_INF, dtype=f32, device=dev)
+
+    def z(*shape, fill=0.0):
+        return torch.full(shape, fill, dtype=f32, device=dev)
+
+    def c(x):
+        return x.to(f32).contiguous()
+
+    return SlotState(
+        M=c(M), dupper=c(du), dlower=c(dl), scaling=c(sc), immut=c(immut),
+        fbound=c(fbound), act_up=z(B, m), act_lo=z(B, m),
+        W=z(B, K, n), E=z(B, K, K), dsl=z(B, K), used=z(B, K),
+        sid=z(B, K, fill=-1.0), slo=z(B, K), simm=z(B, K), lam=z(B, K),
+        lam_star=z(B, K), pend=z(B), prow=z(B, n), plam=z(B), plo=z(B),
+        pid=z(B, fill=-1.0), pdd=z(B), u=z(B, n), fval=z(B),
+        best_fval=z(B, fill=-1.0), cycle=z(B), repaired=z(B),
+        iterations=z(B),
+        status=torch.full((B,), EXIT_RUNNING, dtype=torch.int32,
+                          device=dev))
+
+
+def _gram(W, used):
+    """G = W W' on used slots, identity on free slots; (B, K, K)."""
+    um = used[:, :, None] * used[:, None, :]
+    G = torch.matmul(W, W.transpose(1, 2)) * um
+    return G + torch.diag_embed(1.0 - used)
+
+
+def _batched_gram_inverse(G, st: Settings):
+    """(B, K, K) SPD -> (inverse, ok_lane) by Cholesky; a lane whose
+    factorization fails (or is nonfinite) gets ok_lane False and the
+    identity in its place.  Never raises.
+
+    Beyond the JAX XLA path, a lane also fails when a pivot L_kk^2 (the
+    Schur pivot of adding slot k after slots < k) is below the kernel's
+    own add gate max(sing_tol, 1e-4 G_kk): an f32 Cholesky of an exactly
+    singular Gram (n + 1 rows in R^n, as an over-capacity warm start
+    places them when K = n + 1) can succeed on a rounding-positive pivot,
+    and the E it yields led to lanes exiting OPTIMAL off by 2e-2 (the JAX
+    package shows the same at n = 7, where its padded K is n + 1)."""
+    K = G.shape[-1]
+    L, info = torch.linalg.cholesky_ex(G)
+    piv = torch.diagonal(L, dim1=1, dim2=2) ** 2
+    gate = torch.clamp(1e-4 * torch.diagonal(G, dim1=1, dim2=2),
+                       min=st.sing_tol)
+    ok = (info == 0) & torch.isfinite(L).all(dim=2).all(dim=1) \
+        & (piv >= gate).all(dim=1)
+    eye = torch.eye(K, dtype=G.dtype, device=G.device)
+    L = torch.where(ok[:, None, None], L, eye)
+    E = torch.cholesky_solve(eye.expand_as(G), L)
+    return E, ok & torch.isfinite(E).all(dim=2).all(dim=1)
+
+
+def slot_activate(s: SlotState, up_mask, lo_mask,
+                  st: Settings) -> SlotState:
+    """Bulk-activate a prescribed starting set (equalities, warm starts;
+    auxiliary.c:398-478): pack the flagged rows into the first slots and
+    build E with one batched (B, K, K) Cholesky.  Rows beyond the slot
+    capacity leave the table and the act masks; a lane whose set is
+    numerically dependent is parked EXIT_REFACTOR.  ``up_mask`` /
+    ``lo_mask`` are (B, m) 0/1; the initial duals are +-1 by side."""
+    f32 = torch.float32
+    B, m, _ = s.M.shape
+    K = s.E.shape[1]
+    dev = s.M.device
+    up = up_mask.to(f32)
+    lo = lo_mask.to(f32)
+    act = torch.clamp(up + lo, max=1.0)
+    rank = torch.cumsum(act, dim=1) - act
+    iota_K = torch.arange(K, dtype=f32, device=dev)
+    S = act[:, :, None] * (rank[:, :, None] == iota_K).to(f32)   # (B,m,K)
+    nact = act.sum(1)
+    W = torch.einsum('bmk,bmj->bkj', S, s.M)
+    d_m = up * s.dupper + lo * s.dlower
+
+    def pack(x):
+        return torch.einsum('bmk,bm->bk', S, x)
+
+    iota_m = torch.arange(m, dtype=f32, device=dev).expand(B, m)
+    used = (iota_K[None, :]
+            < torch.clamp(nact, max=K)[:, None]).to(f32)
+    sid = pack(iota_m) * used - (1.0 - used)
+    placed = S.sum(2)
+    up = up * placed
+    lo = lo * placed
+    s2 = s._replace(W=W, used=used, sid=sid, slo=pack(lo),
+                    simm=pack(s.immut), dsl=pack(d_m), act_up=up,
+                    act_lo=lo, lam=pack(up - lo))
+    E, ok = _batched_gram_inverse(_gram(W, used), st)
+    ok = ok & (nact <= K)
+    E = E * (used[:, :, None] * used[:, None, :])
+    status = torch.where(ok, s.status, EXIT_REFACTOR).to(torch.int32)
+    return s2._replace(E=E.contiguous(), status=status)
+
+
+def repair_needed(s: SlotState) -> torch.Tensor:
+    return (s.status == EXIT_REFACTOR) \
+        | ((s.status == EXIT_CYCLE) & (s.repaired == 0))
+
+
+def exact_repair(s: SlotState, st: Settings) -> SlotState:
+    """Exact refactorization of E for parked / cycling lanes (daqp.c:66-85),
+    a (B', K, K) Cholesky on just the lanes that need it."""
+    need = repair_needed(s)
+    idx = torch.nonzero(need).squeeze(1)
+    used = s.used[idx]
+    E_exact, ok = _batched_gram_inverse(_gram(s.W[idx], used), st)
+    parked = s.status[idx] == EXIT_REFACTOR
+    cyc = ~parked
+    E_i = torch.where(ok[:, None, None], E_exact, s.E[idx]) \
+        * (used[:, :, None] * used[:, None, :])
+    status = torch.where(ok, EXIT_RUNNING, s.status[idx])
+    status = torch.where(parked & ~ok, EXIT_CYCLE, status)
+    okf = ok.to(torch.float32)
+    drop = (cyc & ok).to(torch.float32)
+
+    def put(x, vals):
+        x = x.clone()
+        x[idx] = vals.to(x.dtype)
+        return x
+
+    return s._replace(
+        E=put(s.E, E_i), status=put(s.status, status),
+        pend=put(s.pend, s.pend[idx] * (1.0 - drop)),
+        repaired=put(s.repaired, torch.clamp(s.repaired[idx] + drop,
+                                             max=1.0)),
+        cycle=put(s.cycle, s.cycle[idx] * (1.0 - okf)),
+        best_fval=put(s.best_fval, torch.where(ok, -1.0,
+                                               s.best_fval[idx])))
+
+
+def newton_refresh(s: SlotState) -> SlotState:
+    """One Newton step E <- E (2I - G E) against the exactly rebuilt slot
+    Gram, on lanes inside the contraction basin ||G E - I|| < 1/2."""
+    um = s.used[:, :, None] * s.used[:, None, :]
+    Iu = torch.diag_embed(s.used)
+    P = torch.matmul(_gram(s.W, s.used), s.E)
+    resid = (P - Iu).abs().amax(dim=(1, 2))
+    E_new = torch.matmul(s.E, 2.0 * Iu - P) * um
+    return s._replace(E=torch.where((resid < 0.5)[:, None, None], E_new,
+                                    s.E).contiguous())
+
+
+def polish(s: SlotState, st: Settings) -> SlotState:
+    """One iterative-refinement step of (lam*, u) on optimal lanes after a
+    Newton refresh of E, and a primal / dual re-check that re-opens a
+    lane whose refined point is not optimal (auxiliary.c:497-588,
+    daqp.c:47-63)."""
+    s = newton_refresh(s)
+    is_opt = s.status == EXIT_OPTIMAL
+    r = (torch.einsum('bkj,bj->bk', s.W, s.u) - s.dsl) * s.used
+    dlam = torch.einsum('bij,bj->bi', s.E, r)
+    okl = is_opt & torch.isfinite(dlam).all(dim=1)
+    step = torch.where(okl[:, None], dlam * s.used, 0.0)
+    lam_star = s.lam_star + step
+    u2 = s.u - torch.einsum('bkj,bk->bj', s.W, step)
+    u2 = torch.where(okl[:, None], u2, s.u)
+    mu = torch.einsum('bij,bj->bi', s.M, u2)
+    blocked = ((s.act_up + s.act_lo) > 0) | (s.immut > 0)
+    viol = (((s.dupper - mu) < -st.primal_tol * s.scaling)
+            | ((mu - s.dlower) < -st.primal_tol * s.scaling)) & ~blocked
+    up_bad = (lam_star < -st.dual_tol).to(s.slo.dtype)
+    lo_bad = (lam_star > st.dual_tol).to(s.slo.dtype)
+    dual_bad = (((s.slo * lo_bad + (1.0 - s.slo) * up_bad)
+                 * s.used * (1.0 - s.simm)) > 0).any(dim=1)
+    reopen = okl & (viol.any(dim=1) | dual_bad)
+    return s._replace(
+        lam_star=torch.where(okl[:, None], lam_star, s.lam_star),
+        u=u2.contiguous(),
+        fval=torch.where(okl, (u2 * u2).sum(1), s.fval),
+        status=torch.where(reopen, EXIT_RUNNING, s.status).to(torch.int32))
+
+
+def slot_solve(s: SlotState, st: Settings, n_true: int) -> SlotState:
+    """Kernel rounds until every lane is terminal, exact repair between
+    rounds where a lane needs it, then two polish / re-open cycles;
+    finally a still-running lane exits ITERLIMIT (iterations spent) or
+    CYCLE.
+
+    ``iter_limit`` acts at round granularity, as in the JAX
+    ``slot_solve``, but per lane: a running lane whose iterations reached
+    the limit, or which has had ``MAX_ROUNDS`` live rounds, is held out of
+    further rounds (the JAX loop counts rounds for the whole batch and
+    keeps running every live lane while any lane is under the limit)."""
+    iter_limit = float(torch.tensor(min(float(st.iter_limit),
+                                        float(STEPS * MAX_ROUNDS)),
+                                    dtype=torch.float32))
+    lane_rounds = torch.zeros_like(s.iterations)
+    if host_any(repair_needed(s)):
+        s = exact_repair(s, st)
+
+    def rounds(s, lane_rounds):
+        while True:
+            running = s.status == EXIT_RUNNING
+            live = running & (s.iterations < iter_limit) \
+                & (lane_rounds < MAX_ROUNDS)
+            if not host_any(live):
+                return s, lane_rounds
+            held = running & ~live
+            s = s._replace(status=torch.where(held, _HELD, s.status)
+                           .to(torch.int32))
+            s = run_slot_round(s, st, n_true)
+            s = s._replace(status=torch.where(held, EXIT_RUNNING, s.status)
+                           .to(torch.int32))
+            lane_rounds = lane_rounds + live.to(lane_rounds.dtype)
+            if host_any(repair_needed(s)):
+                s = exact_repair(s, st)
+
+    s, lane_rounds = rounds(s, lane_rounds)
+    for _ in range(2):
+        s = polish(s, st)
+        s, lane_rounds = rounds(s, lane_rounds)
+
+    done_running = (s.status == EXIT_RUNNING) | (s.status == EXIT_REFACTOR)
+    status = torch.where(done_running & (s.iterations >= iter_limit),
+                         EXIT_ITERLIMIT,
+                         torch.where(done_running, EXIT_CYCLE, s.status))
+    return s._replace(status=status.to(torch.int32))
+
+
+def slot_duals_dense(s: SlotState) -> torch.Tensor:
+    """Slot duals scattered to a dense (B, m) dual, rescaled by the row
+    normalization (daqp.c:135-138, api.c:449-453)."""
+    m = s.M.shape[1]
+    iota_m = torch.arange(m, dtype=s.sid.dtype, device=s.sid.device)
+    oh = (s.sid[:, :, None] == iota_m).to(s.E.dtype)          # (B, K, m)
+    lam_m = torch.einsum('bkm,bk->bm', oh, s.lam_star * s.used)
+    return lam_m * s.scaling
