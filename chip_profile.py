@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Where the time goes: one profiled call of each of the port's cells on
+one GPU.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_profile.py
+
+For BASELINE config 2 (``solve_batch_kernel_stream``, chunk 256), config 3
+(``solve_mpc_scan_kernel_fused``, seg 10) and config 4
+(``solve_batch_prox_kernel``), at the data of ``chip_smoke.py``, it runs
+one warm-up call and then one call under ``torch.profiler`` (CPU and
+CUDA activities), and prints one JSON line per cell: the host wall of the
+profiled call, the device time summed over kernels, the device's busy and
+idle shares of the wall, the host syncs, and the kernels that took most
+device time with their launch counts.  The Chrome traces go to
+``chiprun_out/profile_<cell>.json``.  Without a CUDA device it exits 2.
+"""
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+import daqp_tpu_torch as dt
+from daqp_tpu_torch import ops
+
+OUT = Path(__file__).resolve().parent / "chiprun_out"
+
+
+def device_us(evt):
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, name):
+            return getattr(evt, name)
+    return 0.0
+
+
+def profiled(cell, fn, card):
+    fn()
+    torch.cuda.synchronize()
+    ops.host_syncs = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    syncs = ops.host_syncs
+    kernels = [e for e in prof.key_averages()
+               if e.device_type is not None
+               and str(e.device_type).endswith("CUDA")]
+    dev_ms = sum(device_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=device_us, reverse=True)[:8]
+    OUT.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(OUT / f"profile_{cell}.json"))
+    print(json.dumps({
+        "cell": cell, "wall_ms": 1e3 * wall, "device_ms": dev_ms,
+        "device_busy_share": dev_ms / (1e3 * wall),
+        "device_idle_share": 1.0 - dev_ms / (1e3 * wall),
+        "host_syncs": syncs,
+        "top_kernels": [{"name": e.key[:80], "ms": device_us(e) / 1e3,
+                         "count": e.count} for e in top],
+        "card": card}), flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    st = dt.as_settings({"iter_limit": 1000}, torch.float32)
+    gen = cs.load("daqp_test_gen", "tests/gen.py")
+    keys = ('H', 'f', 'A', 'bupper', 'blower', 'sense')
+
+    d = gen.generate_test_qp_batch(cs.B, cs.N, cs.M_ROWS, 0, cs.N_ACT,
+                                   cs.KAPPA, rng=cs.SEED, dtype=np.float32)
+    full = [torch.as_tensor(d[k], device=dev) for k in keys]
+    profiled("config2", lambda: dt.solve_batch_kernel_stream(
+        *full, st=st, chunk=256, sort_stream=True), card)
+    del full
+
+    d3 = cs.config3(gen)
+    args3 = [torch.as_tensor(d3[k], device=dev)
+             for k in ('H', 'A', 'f_seq', 'bu_seq', 'bl_seq')]
+    profiled("config3", lambda: dt.solve_mpc_scan_kernel_fused(
+        *args3, st, seg=cs.SEG3), card)
+
+    d4 = cs.config4()
+    args4 = [torch.as_tensor(d4[k], device=dev) for k in keys]
+    profiled("config4", lambda: dt.solve_batch_prox_kernel(*args4, st),
+             card)
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

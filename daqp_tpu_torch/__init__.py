@@ -1,9 +1,11 @@
-"""daqp_tpu_torch: the PyTorch / CUDA port of daqp_tpu's batched QP path.
+"""daqp_tpu_torch: the PyTorch / CUDA port of daqp_tpu's batched QP paths.
 
 The cold, hard-constrained batch path of ``daqp_tpu`` (transform, slot
-active-set solver, stream entry) with its two TPU kernels rewritten for
-Hopper in CUDA C++ (``ops/csrc``).  Tensors on the CPU run each kernel's
-plain PyTorch twin; CUDA tensors launch the kernels.
+active-set solver, stream entry), the warm MPC horizon (``mpc``) and the
+semidefinite proximal batch, with their TPU kernels rewritten for Hopper
+in CUDA C++ (``ops/csrc``).  Entry points run on the card unless asked
+for the CPU (CPU tensors or ``device="cpu"``), where each kernel's plain
+PyTorch twin runs.
 
 TF32 is switched off here: it keeps ~3 decimal digits and would corrupt
 the f32 solver math, as bf16 does on the TPU.
@@ -21,4 +23,6 @@ from .types import (  # noqa: E402
     default_settings_f32, as_settings)
 from .batch import (  # noqa: E402
     BatchResult, solve_batch_kernel, solve_batch_kernel_stream,
-    kkt_residuals)
+    solve_batch_prox_kernel, kkt_residuals)
+from .mpc import (  # noqa: E402
+    MPCStep, solve_mpc_scan_kernel, solve_mpc_scan_kernel_fused)

@@ -3,7 +3,13 @@
 Counterpart of ``daqp_tpu/batch.py``: ``:56 BatchResult``, ``:248
 solve_batch_pallas_jit``, ``:315 solve_batch_pallas_stream_jit``, ``:428
 _difficulty_nviol``, ``:451 _pallas_batch_core`` (its hard branch,
-:609-694) and ``:2582 kkt_residuals``.
+:609-694), ``:699 solve_batch_prox_pallas_jit`` and ``:2582
+kkt_residuals``.
+
+Every entry point runs where its inputs are: tensors keep their device
+(inputs on mixed devices raise) and other inputs (numpy arrays, lists) go
+to ``device``, which defaults to ``"cuda"``.  The CPU is used only when
+asked for, with CPU tensors or ``device="cpu"``.
 
 The path: K1 factors every H (``ops.chol.batched_rinv_regularized``),
 ``transform.build_ldp`` builds the LDP data, ``ops.slot`` runs K2 rounds
@@ -23,8 +29,10 @@ import torch
 
 from . import transform
 from .ops import chol, host_any, slot
+from .prox import auto_eta
 from .types import (ACTIVE, IMMUTABLE, LOWER, SOFT, DAQP_INF,
-                    EXIT_NONCONVEX, EXIT_UNSUPPORTED, Settings)
+                    EXIT_ITERLIMIT, EXIT_NONCONVEX, EXIT_OPTIMAL,
+                    EXIT_RUNNING, EXIT_UNSUPPORTED, Settings)
 
 
 class BatchResult(NamedTuple):
@@ -52,9 +60,32 @@ def _unported(has_soft, deadline, sw, guess_cap) -> None:
             "slice (ROADMAP A5)")
 
 
-def _tensors(H, f, A, bupper, blower, sense):
-    """The inputs as tensors on H's device, in H's float type."""
-    dev = H.device if isinstance(H, torch.Tensor) else torch.device("cpu")
+def resolve_device(inputs, device=None) -> torch.device:
+    """The device an entry point runs on: that of its tensor inputs, else
+    ``device`` (default ``"cuda"``).  Tensors on mixed devices, or on
+    another device than an explicit ``device``, raise ValueError; a CUDA
+    target on a machine without a CUDA device raises RuntimeError."""
+    devs = {x.device for x in inputs if isinstance(x, torch.Tensor)}
+    if len(devs) > 1:
+        raise ValueError(
+            f"inputs on mixed devices: {sorted(map(str, devs))}")
+    want = torch.device("cuda" if device is None else device)
+    if devs:
+        (have,) = devs
+        if device is not None and (have.type != want.type or (
+                want.index is not None and have.index != want.index)):
+            raise ValueError(f"inputs on {have}, but device={want}")
+        return have
+    if want.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card; pass CPU tensors "
+            "or device='cpu' to run the plain twins on the host")
+    return want
+
+
+def _tensors(H, f, A, bupper, blower, sense, device=None):
+    """The inputs as tensors on the resolved device, in H's float type."""
+    dev = resolve_device((H, f, A, bupper, blower, sense), device)
     H = torch.as_tensor(H, device=dev)
     out = [H] + [torch.as_tensor(x, device=dev).to(H.dtype)
                  for x in (f, A, bupper, blower)]
@@ -116,15 +147,15 @@ def _kernel_batch_core(H, f, A, bupper, blower, sense, st: Settings,
 def solve_batch_kernel(H, f, A, bupper, blower, sense, st: Settings,
                        ms: int = 0, has_soft: Optional[bool] = None,
                        deadline=None, sw=None,
-                       guess_cap=None) -> BatchResult:
+                       guess_cap=None, device=None) -> BatchResult:
     """Batched strictly convex QP solve on the kernel path, one call for
-    the whole batch (``solve_batch_pallas_jit``).  Tensors on a CUDA
-    device launch K1 and K2; CPU tensors run their plain twins.
+    the whole batch (``solve_batch_pallas_jit``).  On a CUDA device it
+    launches K1 and K2; on the CPU their plain twins run.
     ``has_soft=None`` detects soft rows from ``sense``; soft batches are
     not ported yet.  With ``has_soft=False`` a lane carrying soft rows
     exits ``EXIT_UNSUPPORTED``."""
     H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
-                                              sense)
+                                              sense, device)
     if has_soft is None:
         has_soft = host_any((sense & SOFT) > 0)
     _unported(has_soft, deadline, sw, guess_cap)
@@ -135,7 +166,7 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
                               st: Settings, ms: int = 0, chunk: int = 256,
                               has_soft: bool = False, deadline=None,
                               sw=None, sort_stream: bool = False,
-                              guess_cap=None) -> BatchResult:
+                              guess_cap=None, device=None) -> BatchResult:
     """Streaming solve (``solve_batch_pallas_stream_jit``): one global
     factorization of the whole batch through K1, then ``chunk``-lane
     solves that reuse it.  ``sort_stream`` orders the stream by the
@@ -144,7 +175,7 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
     shape the waves; outputs come back in input order."""
     _unported(has_soft, deadline, sw, guess_cap)
     H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
-                                              sense)
+                                              sense, device)
     B = H.shape[0]
     fact = chol.batched_rinv_regularized(H, st)
     order = None
@@ -165,6 +196,151 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
         unsort = torch.argsort(order)
         out = BatchResult(*(x[unsort] for x in out))
     return out
+
+
+PSEG = 8            # proximal passes per B4 launch
+PROX_STEPS = 64     # inner iterations per proximal pass
+prox_resumed_lanes = 0  # lanes resumed on the per-pass path after B4
+
+
+def prox_init(H, f, A, bupper, blower, sense, st: Settings, ms: int = 0):
+    """The proximal driver's set-up, f32: K1's regularized factorization,
+    the LDP, the shift eps per lane (0 where H is PD), the fixed-point
+    tolerance eta / eps, the cold slot state and the scaled user bounds.
+    Returns ``(Rinv, ok, ldpd, eps, tol_stat, s, bu_s, bl_s)``."""
+    f32 = torch.float32
+    H, f, A, bupper, blower = (x.to(f32) for x in (H, f, A, bupper, blower))
+    n = H.shape[-1]
+    Rinv, okl, regl, eps_l = chol.batched_rinv_regularized(H, st)
+    ldpd = transform.build_ldp(f, A, bupper, blower, sense, ms, st,
+                               Rinv=Rinv)
+    eps = torch.where(regl, eps_l, 0.0).to(f32)
+    tol_stat = torch.tensor(auto_eta(st), dtype=f32, device=H.device) \
+        / torch.clamp(eps, min=1e-30)
+    immut = ((ldpd.sense & IMMUTABLE) > 0).to(f32)
+    s = slot.slot_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling, immut,
+                       n_true=n)
+    return (Rinv, okl, ldpd, eps, tol_stat, s,
+            (bupper * ldpd.scaling).contiguous(),
+            (blower * ldpd.scaling).contiguous())
+
+
+def solve_batch_prox_kernel(H, f, A, bupper, blower, sense, st: Settings,
+                            ms: int = 0, max_outer: int = 200,
+                            fused: bool = True, device=None) -> BatchResult:
+    """Batched semidefinite-H QP solve: the proximal-point outer loop
+    (``daqp_prox.c`` full-shift regime) over the slot tier, as
+    ``solve_batch_prox_pallas_jit``.
+
+    K1 factors every H with the retry-doubling shift
+    (``chol.batched_rinv_regularized``); lanes that needed it iterate
+    x <- argmin of the shifted QP centred at x until ||x_new - x||_inf <
+    eta / eps (with stagnation acceptance and 1.5x over-relaxation), the
+    others converge after one pass.  ``fused=True`` runs ``PSEG`` passes
+    per B4 launch (``ops.slot.run_prox_segment``; its twin on the CPU),
+    resumes the lanes that failed inside a segment on the per-pass path
+    (the other lanes keep their segment results), Newton-refreshes E per
+    segment and ends with one hygiene pass with the full repair and
+    polish.
+    ``fused=False`` runs every pass as a warm ``slot_solve`` on K2.
+    Hard constraints only; lanes the factorization rejects exit
+    NONCONVEX, lanes still running after ``max_outer`` passes
+    ITERLIMIT."""
+    global prox_resumed_lanes
+    H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
+                                              sense, device)
+    f32 = torch.float32
+    H, f = H.to(f32), f.to(f32)
+    B, n = H.shape[0], H.shape[-1]
+    dev = H.device
+    Rinv, okl, ldpd, eps, tol_stat, s, bu_s, bl_s = prox_init(
+        H, f, A, bupper, blower, sense, st, ms)
+
+    def v_of(x):
+        return torch.einsum('bji,bj->bi', Rinv, f - eps[:, None] * x)
+
+    def carry_solve(s, v, lane_run):
+        Mv = torch.einsum('bmj,bj->bm', s.M, v)
+        s = slot.reset_control(slot.slot_refresh_bounds(s, bu_s + Mv,
+                                                        bl_s + Mv), lane_run)
+        return slot.slot_solve(s, st, n_true=n, steps=PROX_STEPS)
+
+    def passes(budget, s, x, lane_run, stall, best_diff, lane_flag, tot):
+        """The per-pass outer loop (``batch.py:806-857``) on K2."""
+        for _ in range(budget):
+            if not host_any(lane_run):
+                break
+            v = v_of(x)
+            s = carry_solve(s, v, lane_run)
+            tot = tot + torch.where(lane_run, s.iterations, 0.0)
+            inner_ok = s.status > 0
+            x_new = torch.einsum('bij,bj->bi', Rinv, s.u - v)
+            max_diff = (x_new - x).abs().amax(1)
+            improved = max_diff < 0.9 * best_diff
+            best_diff = torch.minimum(max_diff, best_diff)
+            stall = torch.where(improved | ~lane_run, 0, stall + 1)
+            converged = (eps == 0) | (max_diff < tol_stat) | (stall >= 8)
+            froze = (s.iterations <= 1) & ~converged & inner_ok
+            x = torch.where(lane_run[:, None],
+                            torch.where(froze[:, None],
+                                        x + 1.5 * (x_new - x), x_new), x)
+            done = lane_run & (converged | ~inner_ok)
+            lane_flag = torch.where(
+                done, torch.where(inner_ok, EXIT_OPTIMAL, s.status),
+                lane_flag).to(torch.int32)
+            lane_run = lane_run & ~done
+        return s, x, lane_run, stall, best_diff, lane_flag, tot
+
+    x = torch.zeros((B, n), dtype=f32, device=dev)
+    lane_flag = torch.where(okl, EXIT_RUNNING, EXIT_NONCONVEX).to(torch.int32)
+    stall = torch.zeros(B, dtype=f32, device=dev)
+    best_diff = torch.full((B,), float("inf"), dtype=f32, device=dev)
+    tot = torch.zeros(B, dtype=f32, device=dev)
+    if not fused:
+        s, x, lane_run, _, _, lane_flag, tot = passes(
+            max_outer, s, x, okl, stall, best_diff, lane_flag, tot)
+    else:
+        lr = okl.to(f32)
+        for _ in range(0, max_outer, PSEG):
+            if not host_any(lr > 0):
+                break
+            s, x, lr, stall, best_diff, lane_flag, tot, failed = \
+                slot.run_prox_segment(s, x, lr, stall, best_diff, lane_flag,
+                                      tot, Rinv, f, bu_s, bl_s, eps,
+                                      tol_stat, st, n, P=PSEG,
+                                      steps=PROX_STEPS)
+            failed = failed > 0
+            if host_any(failed):
+                prox_resumed_lanes += int(failed.sum())
+                # per-lane resume of the lanes that froze in the segment
+                r = passes(PSEG, s, x, failed, stall, best_diff, lane_flag,
+                           tot)
+                s = slot.select_lanes(failed, r[0], s)
+                x, lr, stall, best_diff, lane_flag, tot = (
+                    torch.where(failed.view((-1,) + (1,) * (a.dim() - 1)),
+                                a.to(b.dtype), b)
+                    for a, b in zip(r[1:], (x, lr, stall, best_diff,
+                                            lane_flag, tot)))
+            s = slot.newton_refresh(s)
+        lane_run = lr > 0
+        # final hygiene pass: the in-kernel passes run without the
+        # between-round polish, so one warm pass with the full repair and
+        # polish at the final v tightens the last inner solve
+        fin = lane_flag == EXIT_OPTIMAL
+        v_fin = v_of(x)
+        s = carry_solve(s, v_fin, fin)
+        ok_fin = fin & (s.status > 0)
+        x_fin = torch.einsum('bij,bj->bi', Rinv, s.u - v_fin)
+        x = torch.where(ok_fin[:, None], x_fin, x)
+        tot = tot + torch.where(fin, s.iterations, 0.0)
+    lane_flag = torch.where(lane_run, EXIT_ITERLIMIT, lane_flag)
+    lane_flag = torch.where(ldpd.error < 0, ldpd.error, lane_flag)
+    fval = 0.5 * torch.einsum('bi,bij,bj->b', x, H, x) \
+        + torch.einsum('bi,bi->b', f, x)
+    return BatchResult(x=x, lam=slot.slot_duals_dense(s), fval=fval,
+                       exitflag=lane_flag.to(torch.int32),
+                       iterations=tot.to(torch.int32),
+                       soft_slack=torch.zeros(B, dtype=f32, device=dev))
 
 
 def _np(x):

@@ -52,6 +52,19 @@ def slot_state_to_numpy(s: SlotState) -> dict:
     return out
 
 
+def from_lanes_last(a, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """One lanes-last JAX segment operand -> batch-leading: the lane axis
+    moves to the front and a (1, B) carry becomes (B,).  Covers the
+    operands of ``run_mpc_segment`` (duq / dlq (P, m, B) -> (B, P, m);
+    its (P, B) outputs -> (B, P)) and ``run_prox_segment`` (Rinv_l
+    (n, n, B), fz_l / x (n, B), bus_l / bls_l (m, B), the (1, B)
+    carries)."""
+    a = np.moveaxis(np.asarray(a), -1, 0)
+    if a.ndim == 2 and a.shape[1] == 1:
+        a = a[:, 0]
+    return torch.as_tensor(np.array(a), device=device).to(dtype)
+
+
 def ldp_from_jax(ldpd, device="cpu") -> LDPData:
     """A batched (vmapped, batch-leading) JAX ``LDPData`` -> the port's."""
     return LDPData(**{

@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels with nvcc and bind them by ctypes.
 
-All ``csrc/*.cu`` files compile in one nvcc call into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds).
-The library lands in ``<checkout>/build/daqp_tpu_torch/``, keyed by a
-hash of the sources and flags, and is built at first use.  There is no
-fallback: a missing nvcc or a failed build raises.
+Each ``csrc/*.cu`` file compiles in its own nvcc process, all started
+together, and one more nvcc call links the objects into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds).  The library lands in ``<checkout>/build/daqp_tpu_torch/``,
+keyed by a hash of the sources (``*.cu`` and ``*.cuh``) and flags, and is
+built at first use.  There is no fallback: a missing nvcc or a failed
+build raises.
 """
 from __future__ import annotations
 
@@ -17,9 +19,9 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "daqp_tpu_torch"
-# no --use_fast_math: the slot kernel relies on isfinite and IEEE division
+# no --use_fast_math: the slot kernels rely on isfinite and IEEE division
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +35,14 @@ _SIGNATURES = {
     #  bland, stream)
     "slot_round_f32": [_P, _I, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _F, _F, _I, _P],
+    # (host array of 58 device pointers, S, m, n, K, n_true, steps, P,
+    #  the six tolerances, bland, stream)
+    "mpc_segment_f32": [_P, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _F, _F, _F, _F, _F, _I, _P],
+    # (host array of 70 device pointers, B, m, n, K, n_true, steps, P,
+    #  the six tolerances, bland, stream)
+    "prox_segment_f32": [_P, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _F, _I, _P],
 }
 
 _lib = None
@@ -62,13 +72,25 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libdaqp_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc, tag = _nvcc(), f"{h.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               *map(str, srcs)],
-                              capture_output=True, text=True)
-        (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + proc.stderr[-4000:])
+        link = None
+        if all(proc.returncode == 0 for proc in procs):
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o",
+                                   str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+        (BUILD_DIR / "nvcc.log").write_text("".join(logs))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if link is None or link.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + "".join(logs)[-4000:])
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

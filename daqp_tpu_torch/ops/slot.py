@@ -19,8 +19,16 @@ its padded shapes: padded rows are immutable with +-INF bounds, and
 
 ``run_slot_round`` launches the CUDA kernel (``csrc/slot_round.cu``) on
 CUDA tensors and runs ``run_slot_round_plain`` on CPU tensors.  The
-rounds, ``exact_repair`` and the two polish cycles run on the host, each
+rounds, ``exact_repair`` and the polish cycles run on the host, each
 masked per lane, so a lane's result depends on that lane alone.
+
+The two segment kernels run K2's step (``csrc/slot_step.cuh``) inside
+an outer loop: ``run_mpc_segment`` (B3, ``csrc/mpc_segment.cu``,
+replacing ``pallas_slot.py:1866``) runs P warm MPC horizon steps and
+``run_prox_segment`` (B4, ``csrc/prox_segment.cu``, replacing
+``pallas_slot.py:1110``) runs P proximal passes, each with a plain twin
+for CPU tensors.  In both, a lane that stops (frozen, done) is left as it
+is for the rest of the segment, in the kernel and the twin alike.
 """
 from __future__ import annotations
 
@@ -34,7 +42,11 @@ from ..types import (Settings, DAQP_INF, EXIT_CYCLE, EXIT_INFEASIBLE,
                      EXIT_ITERLIMIT, EXIT_OPTIMAL, EXIT_REFACTOR,
                      EXIT_RUNNING, PRICING_BLAND)
 
-launches = 0        # kernel launches of run_slot_round (reset by the caller)
+# kernel launches of run_slot_round (K2), run_mpc_segment (B3) and
+# run_prox_segment (B4); the caller resets them
+launches = 0
+mpc_launches = 0
+prox_launches = 0
 STEPS = 192         # iterations per kernel round
 MAX_ROUNDS = 16     # live rounds per lane
 # status of a RUNNING lane kept out of one round (iteration or round
@@ -81,11 +93,13 @@ class SlotState(NamedTuple):
     status: torch.Tensor     # (B,) int32
 
 
-# argument order of the CUDA entry (slot_round.cu, enum Ptr)
+# argument order of the CUDA entries (enum Ptr of slot_round.cu,
+# mpc_segment.cu and prox_segment.cu)
 CONST = ("M", "dupper", "dlower", "scaling", "immut", "simm", "fbound")
 STATE = ("act_up", "act_lo", "W", "E", "dsl", "used", "sid", "slo", "lam",
          "lam_star", "pend", "prow", "plam", "plo", "pid", "pdd", "u",
          "fval", "best_fval", "cycle", "repaired", "iterations", "status")
+SEG_CONST = ("M", "scaling", "immut", "simm", "fbound")
 
 
 def _first_min(cand: torch.Tensor):
@@ -284,6 +298,54 @@ def run_slot_round_plain(s: SlotState, st: Settings, n_true: int,
         status=stt[:, 0].to(torch.int32))
 
 
+def _state_shapes(B, m, n, K) -> dict:
+    shapes = dict(M=(B, m, n), W=(B, K, n), E=(B, K, K), prow=(B, n),
+                  u=(B, n))
+    shapes.update((k, (B, m)) for k in ("dupper", "dlower", "scaling",
+                                        "immut", "act_up", "act_lo"))
+    shapes.update((k, (B, K)) for k in ("simm", "dsl", "used", "sid", "slo",
+                                        "lam", "lam_star"))
+    return shapes
+
+
+def _cuda_device(fn: str, dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {dev}")
+
+
+def _check(fn: str, dev, items) -> None:
+    """Raise unless every (name, tensor, shape, dtype) of ``items`` is a
+    contiguous tensor of that dtype and shape on ``dev``."""
+    for name, x, want, dtype in items:
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != want \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"{fn}: {name} must be a contiguous {dtype} {want} on "
+                f"{dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _state_items(s: SlotState, names):
+    B, m, n = s.M.shape
+    shapes = _state_shapes(B, m, n, s.E.shape[1])
+    return [(name, getattr(s, name), shapes.get(name, (B,)),
+             torch.int32 if name == "status" else torch.float32)
+            for name in names]
+
+
+def _launch(entry: str, tensors, dims, st: Settings, dev) -> None:
+    """Call the C entry ``entry`` with a host table of the tensors'
+    device pointers, the int ``dims``, the tolerances and the stream."""
+    ptrs = [x.data_ptr() for x in tensors]
+    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    rc = getattr(_build.library(), entry)(
+        ctypes.addressof(table), *map(int, dims),
+        float(st.dual_tol), float(st.primal_tol), float(st.pivot_tol),
+        float(st.sing_tol), float(st.progress_tol), float(st.cycle_tol),
+        int(int(st.pricing) == PRICING_BLAND),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, entry)
+
+
 def run_slot_round(s: SlotState, st: Settings, n_true: int,
                    steps: int = STEPS) -> SlotState:
     """K2 wrapper: one round of ``steps`` iterations per lane; the CUDA
@@ -293,40 +355,17 @@ def run_slot_round(s: SlotState, st: Settings, n_true: int,
     dev = s.M.device
     if dev.type == "cpu":
         return run_slot_round_plain(s, st, n_true, steps)
-    if dev.type != "cuda":
-        raise ValueError(f"run_slot_round: unsupported device {dev}")
+    _cuda_device("run_slot_round", dev)
     B, m, n = s.M.shape
     K = s.E.shape[1]
-    shapes = dict(M=(B, m, n), W=(B, K, n), E=(B, K, K), prow=(B, n),
-                  u=(B, n))
-    shapes.update((k, (B, m)) for k in ("dupper", "dlower", "scaling",
-                                        "immut", "act_up", "act_lo"))
-    shapes.update((k, (B, K)) for k in ("simm", "dsl", "used", "sid", "slo",
-                                        "lam", "lam_star"))
-    for name in CONST + STATE:
-        x = getattr(s, name)
-        want = shapes.get(name, (B,))
-        dtype = torch.int32 if name == "status" else torch.float32
-        if x.device != dev or x.dtype != dtype or tuple(x.shape) != want \
-                or not x.is_contiguous():
-            raise ValueError(
-                f"run_slot_round: {name} must be a contiguous {dtype} "
-                f"{want} on {dev}, got {x.dtype} {tuple(x.shape)} on "
-                f"{x.device}")
+    _check("run_slot_round", dev, _state_items(s, CONST + STATE))
     outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
     if B == 0:
         return s
-    ptrs = [getattr(s, name).data_ptr() for name in CONST + STATE] \
-        + [outs[name].data_ptr() for name in STATE]
-    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    lib = _build.library()
-    rc = lib.slot_round_f32(
-        ctypes.addressof(table), B, m, n, K, int(n_true), int(steps),
-        float(st.dual_tol), float(st.primal_tol), float(st.pivot_tol),
-        float(st.sing_tol), float(st.progress_tol), float(st.cycle_tol),
-        int(int(st.pricing) == PRICING_BLAND),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "slot_round_f32")
+    _launch("slot_round_f32",
+            [getattr(s, name) for name in CONST + STATE]
+            + [outs[name] for name in STATE],
+            (B, m, n, K, n_true, steps), st, dev)
     launches += 1
     return s._replace(**outs)
 
@@ -512,19 +551,21 @@ def polish(s: SlotState, st: Settings) -> SlotState:
         status=torch.where(reopen, EXIT_RUNNING, s.status).to(torch.int32))
 
 
-def slot_solve(s: SlotState, st: Settings, n_true: int) -> SlotState:
-    """Kernel rounds until every lane is terminal, exact repair between
-    rounds where a lane needs it, then two polish / re-open cycles;
-    finally a still-running lane exits ITERLIMIT (iterations spent) or
-    CYCLE.
+def slot_solve(s: SlotState, st: Settings, n_true: int,
+               steps: int = STEPS, max_rounds: int = MAX_ROUNDS) -> SlotState:
+    """Kernel rounds of ``steps`` iterations until every lane is
+    terminal, exact repair between rounds where a lane needs it, then two
+    polish / re-open cycles; finally a still-running lane exits ITERLIMIT
+    (iterations spent) or CYCLE.
 
-    ``iter_limit`` acts at round granularity, as in the JAX
-    ``slot_solve``, but per lane: a running lane whose iterations reached
-    the limit, or which has had ``MAX_ROUNDS`` live rounds, is held out of
-    further rounds (the JAX loop counts rounds for the whole batch and
-    keeps running every live lane while any lane is under the limit)."""
+    ``iter_limit`` (capped at ``steps * max_rounds``) acts at round
+    granularity, as in the JAX ``slot_solve``, but per lane: a running
+    lane whose iterations reached the limit, or which has had
+    ``max_rounds`` live rounds, is held out of further rounds (the JAX
+    loop counts rounds for the whole batch and keeps running every live
+    lane while any lane is under the limit)."""
     iter_limit = float(torch.tensor(min(float(st.iter_limit),
-                                        float(STEPS * MAX_ROUNDS)),
+                                        float(steps * max_rounds)),
                                     dtype=torch.float32))
     lane_rounds = torch.zeros_like(s.iterations)
     if host_any(repair_needed(s)):
@@ -534,13 +575,13 @@ def slot_solve(s: SlotState, st: Settings, n_true: int) -> SlotState:
         while True:
             running = s.status == EXIT_RUNNING
             live = running & (s.iterations < iter_limit) \
-                & (lane_rounds < MAX_ROUNDS)
+                & (lane_rounds < max_rounds)
             if not host_any(live):
                 return s, lane_rounds
             held = running & ~live
             s = s._replace(status=torch.where(held, _HELD, s.status)
                            .to(torch.int32))
-            s = run_slot_round(s, st, n_true)
+            s = run_slot_round(s, st, n_true, steps)
             s = s._replace(status=torch.where(held, EXIT_RUNNING, s.status)
                            .to(torch.int32))
             lane_rounds = lane_rounds + live.to(lane_rounds.dtype)
@@ -551,12 +592,265 @@ def slot_solve(s: SlotState, st: Settings, n_true: int) -> SlotState:
     for _ in range(2):
         s = polish(s, st)
         s, lane_rounds = rounds(s, lane_rounds)
+    # A lane the second polish re-opened ended on kernel steps with no
+    # refinement after them; f32 drift of E there left semidefinite prox
+    # lanes OPTIMAL with their active rows not met (f64 KKT violation up
+    # to 7.9e-3 on config 4).  One more polish refines every optimal
+    # lane, and a lane it re-opens exits loud below instead of optimal.
+    s = polish(s, st)
 
     done_running = (s.status == EXIT_RUNNING) | (s.status == EXIT_REFACTOR)
     status = torch.where(done_running & (s.iterations >= iter_limit),
                          EXIT_ITERLIMIT,
                          torch.where(done_running, EXIT_CYCLE, s.status))
     return s._replace(status=status.to(torch.int32))
+
+
+def slot_refresh_bounds(s: SlotState, dupper, dlower) -> SlotState:
+    """Replace the bounds ((B, m)) and re-derive the slot table's
+    active-side bound values ``dsl`` from ``sid``/``slo``: the slot
+    analogue of the reference's UPDATE_d re-update (utils.c:410-455), as
+    ``pallas_slot.py:2317``; working set, rows and E persist."""
+    m = dupper.shape[1]
+    idx = s.sid.to(torch.int64)
+    hit = (idx >= 0) & (idx < m) & (idx.to(s.sid.dtype) == s.sid)
+    idx = idx.clamp(0, m - 1)
+    du_sel = torch.where(hit, dupper.gather(1, idx), 0.0)
+    dl_sel = torch.where(hit, dlower.gather(1, idx), 0.0)
+    dsl = (s.slo * dl_sel + (1.0 - s.slo) * du_sel) * s.used
+    return s._replace(dupper=dupper.contiguous(), dlower=dlower.contiguous(),
+                      dsl=dsl.contiguous())
+
+
+def reset_control(s: SlotState, run=None) -> SlotState:
+    """The per-solve control reset of a warm re-solve (``mpc.py:105-111``
+    with ``run`` None: every lane; ``batch.py:788-795`` with a (B,) bool
+    ``run``): status RUNNING and the pending row dropped where ``run``,
+    iterations, cycle and repaired zeroed and best_fval -1 on every
+    lane."""
+    if run is None:
+        run = torch.ones_like(s.pend, dtype=torch.bool)
+    return s._replace(
+        status=torch.where(run, EXIT_RUNNING, s.status).to(torch.int32),
+        iterations=torch.zeros_like(s.iterations),
+        cycle=torch.zeros_like(s.cycle),
+        repaired=torch.zeros_like(s.repaired),
+        best_fval=torch.full_like(s.best_fval, -1.0),
+        pend=torch.where(run, 0.0, s.pend))
+
+
+def select_lanes(mask, a: SlotState, b: SlotState) -> SlotState:
+    """Per lane: ``a`` where the (B,) bool ``mask`` holds, else ``b``."""
+    def pick(x, y):
+        return torch.where(mask.view((-1,) + (1,) * (x.dim() - 1)), x, y)
+    return SlotState(*(pick(x, y) for x, y in zip(a, b)))
+
+
+def _in_trouble(status) -> torch.Tensor:
+    """A lane the between-round repair would have to fix: still RUNNING
+    at the step cap, CYCLE or REFACTOR."""
+    return (status == EXIT_RUNNING) | (status == EXIT_CYCLE) \
+        | (status == EXIT_REFACTOR)
+
+
+def _solve_retry_plain(s: SlotState, st: Settings, n_true: int,
+                       steps: int) -> SlotState:
+    """The segment kernels' warm solve in torch ops: ``steps`` iterations,
+    then on CYCLE / REFACTOR the cold retry (``pallas_slot.py:834-870``):
+    the lane's table, E, W, lam, u and fval are cleared and the step runs
+    again, on those lanes alone.  ``iterations`` counts both attempts."""
+    s = run_slot_round_plain(s, st, n_true, steps)
+    cyc = (s.status == EXIT_CYCLE) | (s.status == EXIT_REFACTOR)
+    if not host_any(cyc):
+        return s
+    c = cyc.to(s.E.dtype)
+    keep = 1.0 - c
+    cold = s._replace(
+        used=s.used * keep[:, None], act_up=s.act_up * keep[:, None],
+        act_lo=s.act_lo * keep[:, None], dsl=s.dsl * keep[:, None],
+        slo=s.slo * keep[:, None], sid=s.sid * keep[:, None] - c[:, None],
+        lam=s.lam * keep[:, None], lam_star=s.lam_star * keep[:, None],
+        pend=s.pend * keep, u=s.u * keep[:, None], fval=s.fval * keep,
+        best_fval=torch.where(cyc, -1.0, s.best_fval),
+        cycle=s.cycle * keep, E=s.E * keep[:, None, None],
+        W=s.W * keep[:, None, None],
+        status=torch.where(cyc, EXIT_RUNNING, s.status).to(torch.int32))
+    return select_lanes(cyc, run_slot_round_plain(cold, st, n_true, steps), s)
+
+
+def run_mpc_segment_plain(s: SlotState, duq, dlq, st: Settings,
+                          n_true: int, steps: int = 64):
+    """B3's twin in torch ops: P = duq.shape[1] warm horizon steps.  Per
+    step each live lane refreshes dsl from the step's bounds, resets its
+    control state, solves with the cold retry and records (u, fval,
+    iterations, status); a lane that ends a step RUNNING, CYCLE or
+    REFACTOR freezes: it raises ``failed`` and does no further step."""
+    S, P, _ = duq.shape
+    failed = torch.zeros(S, dtype=torch.bool, device=duq.device)
+    useq, fvseq, itseq, stseq = [], [], [], []
+    for p in range(P):
+        live = ~failed
+        s1 = reset_control(slot_refresh_bounds(s, duq[:, p], dlq[:, p]))
+        s1 = _solve_retry_plain(s1, st, n_true, steps)
+        failed = failed | (live & _in_trouble(s1.status))
+        s = select_lanes(live, s1, s)
+        useq.append(s.u)
+        fvseq.append(s.fval)
+        itseq.append(s.iterations)
+        stseq.append(s.status)
+    s = s._replace(dupper=duq[:, -1].contiguous(),
+                   dlower=dlq[:, -1].contiguous())
+    return (s, torch.stack(useq, 1), torch.stack(fvseq, 1),
+            torch.stack(itseq, 1), torch.stack(stseq, 1),
+            failed.to(duq.dtype))
+
+
+def run_mpc_segment(s: SlotState, duq, dlq, st: Settings, n_true: int,
+                    steps: int = 64):
+    """B3 wrapper: P = duq.shape[1] warm MPC horizon steps in one launch.
+
+    ``duq``/``dlq`` (S, P, m) are the per-step bounds in LDP space.
+    Returns ``(s', useq (S, P, n), fvseq (S, P), itseq (S, P),
+    stseq (S, P) int32, failed (S,) f32)``, with the last step's bounds in
+    ``s'.dupper``/``s'.dlower``.  A lane with ``failed > 0`` froze
+    mid-segment; the driver redoes the segment on the per-step path.  The
+    CUDA kernel runs on CUDA tensors, the plain twin on CPU tensors."""
+    global mpc_launches
+    dev = s.M.device
+    if dev.type == "cpu":
+        return run_mpc_segment_plain(s, duq, dlq, st, n_true, steps)
+    _cuda_device("run_mpc_segment", dev)
+    S, m, n = s.M.shape
+    K = s.E.shape[1]
+    P = duq.shape[1]
+    f32 = torch.float32
+    _check("run_mpc_segment", dev,
+           _state_items(s, SEG_CONST + STATE)
+           + [("duq", duq, (S, P, m), f32), ("dlq", dlq, (S, P, m), f32)])
+    outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
+    useq = torch.empty((S, P, n), dtype=f32, device=dev)
+    fvseq = torch.empty((S, P), dtype=f32, device=dev)
+    itseq = torch.empty((S, P), dtype=f32, device=dev)
+    stseq = torch.empty((S, P), dtype=torch.int32, device=dev)
+    failed = torch.empty((S,), dtype=f32, device=dev)
+    if S:
+        _launch("mpc_segment_f32",
+                [getattr(s, name) for name in SEG_CONST] + [duq, dlq]
+                + [getattr(s, name) for name in STATE]
+                + [outs[name] for name in STATE]
+                + [useq, fvseq, itseq, stseq, failed],
+                (S, m, n, K, n_true, steps, P), st, dev)
+        mpc_launches += 1
+    s2 = s._replace(**outs, dupper=duq[:, -1].contiguous(),
+                    dlower=dlq[:, -1].contiguous())
+    return s2, useq, fvseq, itseq, stseq, failed
+
+
+# per-lane carries of the proximal segment, in the order of the CUDA
+# entry (prox_segment.cu, enum Ptr): x (B, n), lane_run, stall,
+# best_diff (B,) f32, lflag (B,) int32, tot (B,) f32
+PROX_LANE = ("x", "lane_run", "stall", "best_diff", "lflag", "tot")
+
+
+def run_prox_segment_plain(s: SlotState, x, lane_run, stall, best_diff,
+                           lflag, tot, Rinv, fz, bus, bls, eps, tst,
+                           st: Settings, n_true: int, P: int = 8,
+                           steps: int = 64):
+    """B4's twin in torch ops: up to P proximal passes.  Per pass, on the
+    lanes that run (``lane_run > 0`` and not failed): v = Rinv'(f - eps
+    x), d = b_s + M v, dsl refresh, control reset, warm solve with the
+    cold retry, x_new = Rinv (u - v), the fixed-point / stagnation /
+    over-relaxation rules (``pallas_slot.py:1056-1084``) and
+    ``tot += iterations``.  A lane whose solve stays in trouble raises
+    ``failed`` and keeps ``lane_run``; a lane that stops running is left
+    as it is."""
+    B = x.shape[0]
+    failed = torch.zeros(B, dtype=torch.bool, device=x.device)
+    du0, dl0 = s.dupper, s.dlower
+    for _ in range(P):
+        run = (lane_run > 0) & ~failed
+        if not host_any(run):
+            break
+        v = torch.einsum('bji,bj->bi', Rinv, fz - eps[:, None] * x)
+        Mv = torch.einsum('bmj,bj->bm', s.M, v)
+        s1 = reset_control(slot_refresh_bounds(s, bus + Mv, bls + Mv))
+        s1 = _solve_retry_plain(s1, st, n_true, steps)
+        bad = _in_trouble(s1.status)
+        run2 = ~bad
+        x_new = torch.einsum('bij,bj->bi', Rinv, s1.u - v)
+        max_diff = (x_new - x).abs().amax(1)
+        inner_ok = (s1.status > 0) & run2
+        improved = max_diff < 0.9 * best_diff
+        stall1 = torch.where(improved | ~run2, 0.0, stall + 1.0)
+        converged = (eps == 0.0) | (max_diff < tst) | (stall1 >= 8.0)
+        froze = (s1.iterations <= 1.0) & ~converged & inner_ok
+        x1 = torch.where((run2 & froze)[:, None], x + 1.5 * (x_new - x),
+                         torch.where(run2[:, None], x_new, x))
+        done = run2 & (converged | ~(s1.status > 0))
+        lflag1 = torch.where(done, torch.where(s1.status > 0, EXIT_OPTIMAL,
+                                               s1.status), lflag)
+        s = select_lanes(run, s1, s)
+        x = torch.where(run[:, None], x1, x)
+        stall = torch.where(run, stall1, stall)
+        best_diff = torch.where(run, torch.minimum(max_diff, best_diff),
+                                best_diff)
+        lflag = torch.where(run, lflag1, lflag).to(torch.int32)
+        lane_run = torch.where(run & done, 0.0, lane_run)
+        tot = torch.where(run, tot + s1.iterations, tot)
+        failed = failed | (run & bad)
+    return (s._replace(dupper=du0, dlower=dl0), x, lane_run, stall,
+            best_diff, lflag, tot, failed.to(x.dtype))
+
+
+def run_prox_segment(s: SlotState, x, lane_run, stall, best_diff, lflag,
+                     tot, Rinv, fz, bus, bls, eps, tst, st: Settings,
+                     n_true: int, P: int = 8, steps: int = 64):
+    """B4 wrapper: up to P proximal outer passes in one launch.
+
+    Batch-leading operands: ``x`` (B, n) outer iterate, ``lane_run``/
+    ``stall``/``best_diff``/``tot`` (B,) f32, ``lflag`` (B,) int32,
+    ``Rinv`` (B, n, n), ``fz`` (B, n), ``bus``/``bls`` (B, m) scaled user
+    bounds, ``eps``/``tst`` (B,).  Returns the updated ``(s, x, lane_run,
+    stall, best_diff, lflag, tot, failed)``; lanes with ``failed > 0``
+    froze mid-segment and continue on the driver's per-pass path.  The
+    CUDA kernel runs on CUDA tensors, the plain twin on CPU tensors."""
+    global prox_launches
+    dev = s.M.device
+    if dev.type == "cpu":
+        return run_prox_segment_plain(s, x, lane_run, stall, best_diff,
+                                      lflag, tot, Rinv, fz, bus, bls, eps,
+                                      tst, st, n_true, P, steps)
+    _cuda_device("run_prox_segment", dev)
+    B, m, n = s.M.shape
+    K = s.E.shape[1]
+    f32 = torch.float32
+    lane = dict(x=x, lane_run=lane_run, stall=stall, best_diff=best_diff,
+                lflag=lflag, tot=tot)
+    _check("run_prox_segment", dev,
+           _state_items(s, SEG_CONST + STATE)
+           + [("Rinv", Rinv, (B, n, n), f32), ("fz", fz, (B, n), f32),
+              ("bus", bus, (B, m), f32), ("bls", bls, (B, m), f32),
+              ("eps", eps, (B,), f32), ("tst", tst, (B,), f32)]
+           + [(k, v, (B, n) if k == "x" else (B,),
+               torch.int32 if k == "lflag" else f32)
+              for k, v in lane.items()])
+    outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
+    lane_out = {k: torch.empty_like(v) for k, v in lane.items()}
+    failed = torch.empty((B,), dtype=f32, device=dev)
+    if B:
+        _launch("prox_segment_f32",
+                [getattr(s, name) for name in SEG_CONST]
+                + [Rinv, fz, bus, bls, eps, tst]
+                + [getattr(s, name) for name in STATE]
+                + [lane[k] for k in PROX_LANE]
+                + [outs[name] for name in STATE]
+                + [lane_out[k] for k in PROX_LANE] + [failed],
+                (B, m, n, K, n_true, steps, P), st, dev)
+        prox_launches += 1
+    else:
+        lane_out = lane
+    return (s._replace(**outs),) + tuple(lane_out[k] for k in PROX_LANE) \
+        + (failed,)
 
 
 def slot_duals_dense(s: SlotState) -> torch.Tensor:

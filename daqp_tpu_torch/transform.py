@@ -1,10 +1,11 @@
-"""QP -> LDP transform, batched, for a given Rinv.
+"""QP -> LDP transform, batched.
 
-Counterpart of ``daqp_tpu/transform.py``: ``:42 LDPData``, ``:140
-build_ldp`` (its given-``Rinv`` branch, vmapped in ``batch.py:523``) and
-``:340 ldp_to_qp_solution``.  Batch-leading: (B, m, n), (B, m), (B,).
-The products are plain ``torch.matmul`` (XLA does them outside any
-kernel in the JAX package); TF32 is off package-wide.
+Counterpart of ``daqp_tpu/transform.py``: ``:42 LDPData``, ``:57
+factorize_hessian``, ``:140 build_ldp`` (vmapped in ``batch.py:523``),
+``:236 update_vd`` and ``:340 ldp_to_qp_solution``.  Batch-leading:
+(B, m, n), (B, m), (B,).  The factorization and the products are plain
+``torch.linalg`` / ``torch.matmul`` calls: the JAX package does this work
+in XLA, outside any Pallas kernel.  TF32 is off package-wide.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import NamedTuple
 
 import torch
 
-from .types import (ACTIVE, IMMUTABLE, SOFT, EXIT_INFEASIBLE, Settings)
+from .types import (ACTIVE, IMMUTABLE, SOFT, EXIT_INFEASIBLE,
+                    EXIT_NONCONVEX, Settings)
 
 
 class LDPData(NamedTuple):
@@ -30,17 +32,100 @@ class LDPData(NamedTuple):
     error: torch.Tensor      # (B,) int32: 0 ok, else an EXIT_* code
 
 
+def factorize_hessian(H: torch.Tensor, st: Settings):
+    """(B, n, n) -> ``(Rinv, prox_mask, n_prox, eps_used, error)`` per
+    lane with semi-proximal regularization (``daqp_update_Rinv``,
+    utils.c:137-297):
+
+    * diagonal H: only the (near-)singular directions are shifted by
+      eps0, recorded in ``prox_mask``;
+    * dense H: plain Cholesky; on failure or a pivot ratio below
+      sqrt(zero_tol), H + eps I with eps = eps0, then doubled, at most 16
+      attempts (full proximal shift).
+
+    eps0 = max(eps_prox, sqrt(zero_tol) max|diag H|)."""
+    B, n, _ = H.shape
+    dtype, dev = H.dtype, H.device
+    zero_tol = torch.tensor(st.zero_tol, dtype=dtype, device=dev)
+    sqrt_zt = torch.sqrt(zero_tol)
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    diag = torch.diagonal(H, dim1=1, dim2=2)
+    scale = diag.abs().amax(1)
+    if st.eps_prox > 0:
+        eps0 = torch.maximum(torch.tensor(st.eps_prox, dtype=dtype,
+                                          device=dev), sqrt_zt * scale)
+    else:
+        eps0 = torch.full((B,), st.eps_prox, dtype=dtype, device=dev)
+    is_diag = (H - torch.diag_embed(diag)).abs().amax((1, 2)) <= zero_tol
+
+    # diagonal path (utils.c:179-207)
+    dmask = diag <= (sqrt_zt * scale)[:, None]
+    d_reg = torch.where(dmask, diag + eps0[:, None], diag)
+    d_bad = (d_reg <= zero_tol).any(1)
+    R_diag = torch.diag_embed(1.0 / torch.sqrt(torch.maximum(d_reg,
+                                                             zero_tol)))
+    eps_diag = torch.where(dmask.any(1), eps0, 0.0)
+
+    # dense path (utils.c:253-283): attempts at 0, eps0, 2 eps0, ...
+    Hs = 0.5 * (H + H.transpose(1, 2))
+
+    def attempt(eps):
+        L, info = torch.linalg.cholesky_ex(Hs + eps[:, None, None] * eye)
+        L = torch.where((info == 0)[:, None, None], L, torch.nan)
+        piv = torch.diagonal(L, dim1=1, dim2=2) ** 2
+        ok = ~torch.isnan(L).any(dim=(1, 2)) \
+            & (piv.amin(1) > sqrt_zt * piv.amax(1))
+        return L, ok
+
+    L, ok = attempt(torch.zeros_like(eps0))
+    reg = ~ok
+    eps_used = torch.zeros_like(eps0)
+    eps = eps0.clone()
+    todo = reg.clone()
+    for _ in range(16):
+        if not bool(todo.any()):
+            break
+        L1, ok1 = attempt(eps)
+        L = torch.where(todo[:, None, None], L1, L)
+        eps_used = torch.where(todo, eps, eps_used)
+        ok = torch.where(todo, ok1, ok)
+        todo = todo & ~ok1
+        eps = eps * 2.0
+    L_safe = torch.where(torch.isnan(L) | (L == 0), eye, L)
+    R_dense = torch.linalg.solve_triangular(
+        L_safe.transpose(1, 2), eye.expand(B, n, n), upper=True)
+
+    Rinv = torch.where(is_diag[:, None, None], R_diag, R_dense)
+    prox_mask = torch.where(is_diag[:, None], dmask, reg[:, None].expand(B, n))
+    n_prox = torch.where(is_diag, dmask.sum(1),
+                         torch.where(reg, n, 0)).to(torch.int32)
+    eps_out = torch.where(is_diag, eps_diag, eps_used)
+    error = torch.where(is_diag, d_bad, ~ok)
+    error = torch.where(error, EXIT_NONCONVEX, 0).to(torch.int32)
+    return Rinv, prox_mask, n_prox, eps_out, error
+
+
 def build_ldp(f, A, bupper, blower, sense, ms: int, st: Settings,
-              Rinv: torch.Tensor) -> LDPData:
+              Rinv: torch.Tensor = None, H: torch.Tensor = None) -> LDPData:
     """M = [Rinv[:ms]; A Rinv], v, the bounds check with auto-equality,
     row normalization with zero rows, and d = b * scaling + M v
-    (``daqp_update_ldp``, utils.c:14-135)."""
+    (``daqp_update_ldp``, utils.c:14-135).  Rinv is the given factor, or
+    ``factorize_hessian(H)`` when none is given."""
+    fact_err = None
+    if Rinv is None:
+        Rinv, prox_mask, n_prox, eps_used, fact_err = factorize_hessian(
+            H, st)
     B, n, _ = Rinv.shape
     dtype, dev = Rinv.dtype, Rinv.device
     mg = A.shape[1]
     m = ms + mg
     sense = (torch.zeros((B, m), dtype=torch.int32, device=dev)
              if sense is None else sense.to(torch.int32))
+    if fact_err is None:
+        prox_mask = torch.zeros((B, n), dtype=torch.bool, device=dev)
+        n_prox = torch.zeros(B, dtype=torch.int32, device=dev)
+        eps_used = torch.zeros(B, dtype=dtype, device=dev)
+        fact_err = torch.zeros(B, dtype=torch.int32, device=dev)
 
     v = torch.matmul(Rinv.transpose(1, 2), f.to(dtype)[..., None])[..., 0]
     M = torch.matmul(A.to(dtype), Rinv)
@@ -71,15 +156,22 @@ def build_ldp(f, A, bupper, blower, sense, ms: int, st: Settings,
 
     # d = b * scaling + M v  (daqp_update_d, utils.c:410-455)
     Mv = torch.matmul(M, v[..., None])[..., 0]
-    err = torch.where(trivially_infeasible | zero_row_infeasible,
-                      EXIT_INFEASIBLE, 0).to(torch.int32)
+    err = torch.where(fact_err != 0, fact_err,
+                      torch.where(trivially_infeasible | zero_row_infeasible,
+                                  EXIT_INFEASIBLE, 0)).to(torch.int32)
     return LDPData(M=M, dupper=bu * scaling + Mv, dlower=bl * scaling + Mv,
                    scaling=scaling, sense=sense, Rinv=Rinv, v=v,
-                   prox_mask=torch.zeros((B, n), dtype=torch.bool,
-                                         device=dev),
-                   n_prox=torch.zeros(B, dtype=torch.int32, device=dev),
-                   eps_used=torch.zeros(B, dtype=dtype, device=dev),
+                   prox_mask=prox_mask, n_prox=n_prox, eps_used=eps_used,
                    error=err)
+
+
+def update_vd(ldp: LDPData, f, bupper, blower) -> LDPData:
+    """The warm re-solve update: v and d only, M / Rinv / scaling kept
+    (the MPC contract, mask UPDATE_v | UPDATE_d, docs/docs/c.md:60-73)."""
+    v = torch.matmul(ldp.Rinv.transpose(1, 2), f[..., None])[..., 0]
+    Mv = torch.matmul(ldp.M, v[..., None])[..., 0]
+    return ldp._replace(v=v, dupper=bupper * ldp.scaling + Mv,
+                        dlower=blower * ldp.scaling + Mv)
 
 
 def ldp_to_qp_solution(ldp: LDPData, u: torch.Tensor) -> torch.Tensor:

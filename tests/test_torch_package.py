@@ -21,7 +21,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, daqp_tpu_torch; "
+    code = ("import sys, daqp_tpu_torch, daqp_tpu_torch.mpc, "
+            "daqp_tpu_torch.prox; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'daqp_tpu' not in sys.modules, 'daqp_tpu imported'")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -62,6 +63,78 @@ def test_cuda_path_raises_without_toolchain(monkeypatch, tmp_path):
                         n_true=3)
     with pytest.raises(ValueError, match="device"):
         pslot.run_slot_round(s, st, 3)
+
+
+def _meta_state(B=2, m=4, n=3):
+    return pslot.slot_init(torch.empty((B, m, n), device="meta"),
+                           *(torch.empty((B, m), device="meta"),) * 4,
+                           n_true=n)
+
+
+def test_segment_kernels_raise_on_meta():
+    st = dt.default_settings_f32()
+    s = _meta_state()
+    duq = torch.empty((2, 3, 4), device="meta")
+    with pytest.raises(ValueError, match="device meta"):
+        pslot.run_mpc_segment(s, duq, duq, st, 3)
+    vec = torch.empty((2,), device="meta")
+    with pytest.raises(ValueError, match="device meta"):
+        pslot.run_prox_segment(
+            s, torch.empty((2, 3), device="meta"), vec, vec, vec,
+            torch.empty((2,), dtype=torch.int32, device="meta"), vec,
+            torch.empty((2, 3, 3), device="meta"),
+            torch.empty((2, 3), device="meta"),
+            *(torch.empty((2, 4), device="meta"),) * 2, vec, vec, st, 3)
+
+
+def _numpy_batch():
+    d = generate_test_qp_batch(4, 3, 5, 0, 2, 1e1, rng=2, dtype=np.float32)
+    return d, [d[k] for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
+
+
+def test_numpy_inputs_solve_on_the_cpu_when_asked():
+    d, args = _numpy_batch()
+    st = dt.default_settings_f32()
+    for solve in (dt.solve_batch_kernel, dt.solve_batch_kernel_stream,
+                  dt.solve_batch_prox_kernel):
+        r = solve(*args, st=st, device="cpu")
+        assert r.x.device.type == "cpu"
+        assert (r.exitflag.numpy() == 1).all()
+        assert np.abs(r.x.numpy() - d['x']).max() < 1e-3
+    f_seq = np.repeat(d['f'][:1, None], 2, axis=1).repeat(2, axis=0)
+    bu = np.repeat(d['bupper'][:1, None], 2, axis=1).repeat(2, axis=0)
+    bl = np.repeat(d['blower'][:1, None], 2, axis=1).repeat(2, axis=0)
+    for solve in (dt.solve_mpc_scan_kernel, dt.solve_mpc_scan_kernel_fused):
+        r = solve(d['H'][0], d['A'][0], f_seq, bu, bl, st, device="cpu")
+        assert (r.exitflag.numpy() == 1).all()
+        assert np.abs(r.x.numpy() - d['x'][0]).max() < 1e-3
+
+
+def test_numpy_inputs_without_device_need_a_card():
+    # the default device is the card: on a machine without one, numpy
+    # inputs with no device raise, and nothing falls back to the CPU
+    d, args = _numpy_batch()
+    st = dt.default_settings_f32()
+    for solve in (dt.solve_batch_kernel, dt.solve_batch_kernel_stream,
+                  dt.solve_batch_prox_kernel):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            solve(*args, st=st)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dt.solve_mpc_scan_kernel_fused(d['H'][0], d['A'][0],
+                                       d['f'][:, None], d['bupper'][:, None],
+                                       d['blower'][:, None], st)
+
+
+def test_mixed_devices_raise():
+    d, args = _numpy_batch()
+    st = dt.default_settings_f32()
+    args[0] = torch.as_tensor(args[0])
+    args[1] = torch.as_tensor(args[1], device="meta")
+    with pytest.raises(ValueError, match="mixed devices"):
+        dt.solve_batch_kernel(*args, st=st)
+    with pytest.raises(ValueError, match="device"):
+        dt.solve_batch_kernel(torch.as_tensor(d['H']), *args[1:], st=st,
+                              device="meta")
 
 
 @pytest.mark.parametrize("kw", [dict(has_soft=True),
