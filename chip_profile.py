@@ -6,15 +6,17 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_profile.py
 
-For BASELINE config 2 (``solve_batch_kernel_stream``, chunk 256), config 3
-(``solve_mpc_scan_kernel_fused``, seg 10) and config 4
-(``solve_batch_prox_kernel``), at the data of ``chip_smoke.py``, it runs
+For BASELINE config 2 (``solve_batch_kernel_stream``, chunk 256), its
+soft variant (rows 0-19 SOFT, ``has_soft=True``), config 3
+(``solve_mpc_scan_kernel_fused``, seg 10), config 4
+(``solve_batch_prox_kernel``) and config 4b
+(``solve_batch_hiqp_kernel``), at the data of ``chip_smoke.py``, it runs
 one warm-up call and then one call under ``torch.profiler`` (CPU and
 CUDA activities), and prints one JSON line per cell: the host wall of the
 profiled call, the device time summed over kernels, the device's busy and
 idle shares of the wall, the host syncs, and the kernels that took most
 device time with their launch counts.  The Chrome traces go to
-``chiprun_out/profile_<cell>.json``.  Without a CUDA device it exits 2.
+``chiprun_out/profile_<cell>.json.gz``.  Without a CUDA device it exits 2.
 """
 import json
 import sys
@@ -56,7 +58,7 @@ def profiled(cell, fn, card):
     dev_ms = sum(device_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=device_us, reverse=True)[:8]
     OUT.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(OUT / f"profile_{cell}.json"))
+    prof.export_chrome_trace(str(OUT / f"profile_{cell}.json.gz"))
     print(json.dumps({
         "cell": cell, "wall_ms": 1e3 * wall, "device_ms": dev_ms,
         "device_busy_share": dev_ms / (1e3 * wall),
@@ -82,7 +84,10 @@ def main():
     full = [torch.as_tensor(d[k], device=dev) for k in keys]
     profiled("config2", lambda: dt.solve_batch_kernel_stream(
         *full, st=st, chunk=256, sort_stream=True), card)
-    del full
+    soft = full[:5] + [cs.soft_sense(full[5])]
+    profiled("config2_soft", lambda: dt.solve_batch_kernel_stream(
+        *soft, st=st, chunk=256, has_soft=True, sort_stream=True), card)
+    del full, soft
 
     d3 = cs.config3(gen)
     args3 = [torch.as_tensor(d3[k], device=dev)
@@ -94,6 +99,12 @@ def main():
     args4 = [torch.as_tensor(d4[k], device=dev) for k in keys]
     profiled("config4", lambda: dt.solve_batch_prox_kernel(*args4, st),
              card)
+
+    d4b = cs.config4b()
+    args4b = [torch.as_tensor(d4b[k], device=dev)
+              for k in ('f', 'A', 'bupper', 'blower', 'sense')]
+    profiled("config4b", lambda: dt.solve_batch_hiqp_kernel(
+        None, *args4b, st, break_points=cs.BP4B), card)
     print(card, flush=True)
     return 0
 

@@ -8,7 +8,7 @@ Run from the repository root on a machine with a CUDA card:
 It builds the port's CUDA kernels from ``daqp_tpu_torch/ops/csrc`` (one
 nvcc per source, in parallel, into ``build/daqp_tpu_torch``), holds each
 kernel against its plain PyTorch twin at the main paths' shapes, and
-drives the port's three paths once each, every launch count set to 0
+drives the port's five paths once each, every launch count set to 0
 just before and read just after:
 
 * ``slice``: BASELINE config 2 (B = 10240 dense strictly convex QPs,
@@ -22,18 +22,28 @@ just before and read just after:
 * ``prox``: BASELINE config 4 (B = 256 rank-30 semidefinite H, n = 50,
   m = 100, seed 11; ``bench_extra.py:101-113``) through
   ``solve_batch_prox_kernel``, checked by the f64 KKT certificate
-  (K1 with its retries, K2, B4).
+  (K1 with its retries, K2, B4);
+* ``soft``: config 2's data with general rows 0-19 of every lane SOFT
+  through ``solve_batch_kernel_stream(has_soft=True, chunk=256,
+  sort_stream=True)``, checked against the f64 NumPy oracle on 512 lanes
+  (K1, B7);
+* ``hiqp``: BASELINE config 4b (B = 256 hierarchical least-squares
+  problems, n = 12, levels at (0, 8, 16, 24), seed 19;
+  ``bench_extra.py:144-168``) through ``solve_batch_hiqp_kernel``,
+  checked against the f64 hierarchical oracle on every lane (B7).
 
 Each phase prints one JSON line with its seconds; then come the kernel
 table, the card's name and power limit, and as the last line
 ``{"ok": true, "device": ...}``.  Any failed check or error exits
 non-zero without that line; so does a machine without a CUDA device.
 """
+import importlib
 import importlib.util
 import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -41,7 +51,7 @@ import torch
 
 import daqp_tpu_torch as dt
 from daqp_tpu_torch import batch as pbatch, mpc as pmpc, ops, transform
-from daqp_tpu_torch.ops import _build, chol, slot
+from daqp_tpu_torch.ops import _build, chol, dense, slot
 
 ROOT = Path(__file__).resolve().parent
 # config 2 (bench.py:63-79)
@@ -59,6 +69,27 @@ ACC_RATE = 0.999
 MPC_TOL = 2e-3        # ||x - x_ref||_2 gate of tests/test_mpc.py
 KKT_TOL = 1e-3        # f64 KKT stationarity / violation of an optimal lane
 PROX_OPT = 0.99
+SOFT_ROWS = 20        # general rows 0-19 of config 2 are SOFT (k7, soft)
+SOFT_STRIDE = 20      # the soft phase's oracle sample: every 20th lane
+# config 4b (bench_extra.py:144-168)
+B4B, N4B, BP4B, SEED4B = 256, 12, (0, 8, 16, 24), 19
+HIQP_RHO = pbatch.HIQP_RHO_FLOOR   # the tier's rho, also the oracle's
+HIQP_TOL = 2e-3       # ||x - x_oracle||_inf, tests/test_batch_hiqp.py:138
+# The JAX package's own result on the same 256 lanes against the same
+# oracle (solve_batch_hiqp_pallas_jit, interpret mode on the CPU; held by
+# tests/test_torch_hiqp.py::test_config4b_jax_reference_counts): lanes
+# flagged 1 or 2 beyond HIQP_TOL, and lanes whose flag class (optimal /
+# exit 3 / loud) differs from the oracle's.  The port may have HIQP_SLACK
+# more mismatches.  Class differences are loud exit-3 lanes where the f64
+# walk solves every level: the JAX tier has 12 (95.3% agreement, below a
+# 99% gate), and the count moves with f32 rounding order (the port's twin
+# on the CPU differs from the kernel on the card, both printed), so the
+# limit is twice the JAX tier's count, the rule for a gate the reference
+# itself cannot meet.
+JAX_HIQP_MISMATCHES = 2
+JAX_HIQP_CLASS_DIFFS = 12
+HIQP_SLACK = 3
+HIQP_CLASS_LIMIT = 2 * JAX_HIQP_CLASS_DIFFS
 # one H100 SXM, published peaks: f32 outside the tensor cores,
 # HBM bandwidth
 PEAK_F32 = 67e12
@@ -72,6 +103,19 @@ def load(name, rel):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def oracle_module(name):
+    """``oracle/<name>.py`` imported as a submodule of a package rooted at
+    the repository's ``oracle/`` (its modules import each other
+    relatively and the directory has no ``__init__.py``); by path, so an
+    installed ``oracle`` cannot shadow it."""
+    pkg = "daqp_chip_smoke_oracle"
+    if pkg not in sys.modules:
+        mod = types.ModuleType(pkg)
+        mod.__path__ = [str(ROOT / "oracle")]
+        sys.modules[pkg] = mod
+    return importlib.import_module(f"{pkg}.{name}")
 
 
 def emit(phase, t0, **fields):
@@ -147,8 +191,17 @@ def state_bytes(s, names):
     return nbytes(*(getattr(s, k) for k in names))
 
 
+def dense_step_flops(m, n):
+    """Operations of one dense-mask step (dense_round.cu): E pass 1
+    (lam* and a_p, 4 m^2), E pass 2 (a = E g, 2 m^2), the rank-one E
+    update (deletion and add, 4 m^2), and three M passes u = M'lam*,
+    mu = M u, g = M m_j (6 m n).  The pending Gram column (2 m n, only
+    while an entry is pending) is not counted."""
+    return 10 * m * m + 6 * m * n
+
+
 def reset_counts():
-    chol.launches = slot.launches = 0
+    chol.launches = slot.launches = dense.launches = 0
     slot.mpc_launches = slot.prox_launches = 0
     ops.host_syncs = pmpc.redone_segments = pbatch.prox_resumed_lanes = 0
 
@@ -156,7 +209,8 @@ def reset_counts():
 def read_counts():
     return {"chol_rinv": chol.launches, "slot_round": slot.launches,
             "mpc_segment": slot.mpc_launches,
-            "prox_segment": slot.prox_launches}
+            "prox_segment": slot.prox_launches,
+            "dense_round": dense.launches}
 
 
 def exact_gap(M, sk, sp, lanes):
@@ -563,6 +617,253 @@ def phase_prox(args, st, card):
                               launches_per_config4_factorization=k1_per_call)
 
 
+def config4b():
+    """bench_extra.py:152-168: level 1 conflicts in every lane (row 1
+    duplicates row 0 with a disjoint band); H = None, f = 0."""
+    rng = np.random.default_rng(SEED4B)
+    m = BP4B[-1]
+    A = rng.standard_normal((B4B, m, N4B)).astype(np.float32)
+    x0 = rng.standard_normal((B4B, N4B)).astype(np.float32)
+    b0 = np.einsum('bmn,bn->bm', A, x0)
+    bu = (b0 + 0.2 * rng.random((B4B, m))).astype(np.float32)
+    bl = (b0 - 1.2 - 0.5 * rng.random((B4B, m))).astype(np.float32)
+    A[:, 1] = A[:, 0]
+    bu[:, 0] = b0[:, 0] - 1.0
+    bl[:, 0] = b0[:, 0] - 2.0
+    bl[:, 1] = b0[:, 1] + 1.0
+    bu[:, 1] = b0[:, 1] + 2.0
+    return dict(f=np.zeros((B4B, N4B), np.float32), A=A, bupper=bu,
+                blower=bl, sense=np.zeros((B4B, m), np.int32))
+
+
+def level1_state(args4b, st):
+    """The dense state of config 4b's first level as the hierarchical walk
+    starts it: rows of level 1 SOFT, later rows IMMUTABLE, rho floored."""
+    f, A, bu, bl, sense = args4b
+    Bk, m, n = A.shape
+    st4 = pbatch.hiqp_settings(st)
+    eye = torch.eye(n, device=A.device).expand(Bk, n, n)
+    ldpd = transform.build_ldp(f, A, bu, bl, sense, 0, st4, H=eye)
+    rows = torch.arange(m, device=A.device)
+    immut = ((ldpd.sense & dt.IMMUTABLE) > 0).float()
+    immut = torch.clamp(immut + (rows >= BP4B[1]).float(), max=1.0)
+    soft = (rows < BP4B[1]).float().expand(Bk, m)
+    return dense.dense_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling,
+                            immut, soft), st4
+
+
+def dense_state(args, st):
+    """The cold dense state of config-2 lanes, soft where ``args``'s sense
+    says SOFT."""
+    Rinv, _, _, _ = chol.batched_rinv_regularized(args[0], st)
+    ldpd = transform.build_ldp(*args[1:], 0, st, Rinv=Rinv)
+    immut = ((ldpd.sense & dt.IMMUTABLE) > 0).float()
+    soft = ((ldpd.sense & dt.SOFT) > 0).float()
+    return dense.dense_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling,
+                            immut, soft)
+
+
+def k7_case(s0, st, n, has_soft=True):
+    """One B7 round against its twin from ``s0``: exit flags and working
+    sets (act_up, act_lo) agree on K2_AGREE of the lanes, ||du||_inf <=
+    K2_DU (1 + ||u||_inf) on agreeing optimal lanes (flag 1 or 2)."""
+    sk = dense.run_kernel_round(s0, st, n, STEPS, has_soft=has_soft)
+    sp = dense.run_kernel_round_plain(s0, st, n, STEPS, has_soft=has_soft)
+    agree = (sk.status == sp.status) & (sk.act_up == sp.act_up).all(1) \
+        & (sk.act_lo == sp.act_lo).all(1)
+    opt = agree & (sk.status > 0) & (sk.status <= dt.EXIT_SOFT_OPTIMAL)
+    du = (sk.u - sp.u).abs().amax(1)[opt]
+    du_rel = gmax((du / (1.0 + sp.u.abs().amax(1)[opt])).cpu().numpy())
+    ms = cuda_ms(lambda: dense.run_kernel_round(s0, st, n, STEPS,
+                                                has_soft=has_soft), 5)
+    plain_ms = cuda_ms(lambda: dense.run_kernel_round_plain(
+        s0, st, n, STEPS, has_soft=has_soft), 1)
+    Bk, m, _ = s0.M.shape
+    steps_done = (sk.iterations - s0.iterations).sum().item()
+    bnd = bound(state_bytes(s0, dense.CONST + dense.STATE)
+                + state_bytes(sk, dense.STATE),
+                steps_done * dense_step_flops(m, n))
+    flags = {int(k): int(v) for k, v in zip(
+        *torch.unique(sk.status, return_counts=True))}
+    rate = agree.float().mean().item()
+    out = dict(B=Bk, m=m, n=n, steps=STEPS, has_soft=has_soft,
+               agree_rate=rate,
+               optimal_agreeing=int(opt.sum()),
+               du_inf=gmax(du.cpu().numpy()), du_rel=du_rel,
+               du_rel_tol=K2_DU, kernel_flags=flags, steps_done=steps_done,
+               ms=ms, plain_ms=plain_ms, **bnd)
+    return rate >= K2_AGREE and du_rel <= K2_DU, out
+
+
+def phase_k7(args_soft, args_hard, args4b, st):
+    """B7 against its twin: (a) one cold round on the first B_K2 config-2
+    lanes with rows 0-19 SOFT; (b) config 4b's first level, rho 3e-2;
+    (c) the kernel's plain variant (has_soft False) on the same config-2
+    lanes with every row hard."""
+    t0 = time.perf_counter()
+    ok_a, a = k7_case(dense_state(args_soft, st), st, N)
+    s4, st4 = level1_state(args4b, st)
+    ok_b, b = k7_case(s4, st4, N4B)
+    ok_c, c = k7_case(dense_state(args_hard, st), st, N, has_soft=False)
+    emit("k7", t0, config2_soft=a, config4b_level1=b, config2_hard=c)
+    return ok_a and ok_b and ok_c, dict(
+        max_abs_err=max(a["du_inf"], b["du_inf"]), ms=a["ms"],
+        plain_ms=a["plain_ms"], library_ms=None, bound_ms=a["bound_ms"],
+        bound_by=a["bound_by"], ms_config4b=b["ms"],
+        plain_ms_config4b=b["plain_ms"], bound_ms_config4b=b["bound_ms"])
+
+
+def soft_sense(sense):
+    out = sense.clone()
+    out[:, :SOFT_ROWS] |= dt.SOFT
+    return out
+
+
+def phase_soft(full, d, st, card):
+    """Config 2 with rows 0-19 SOFT through the dense stream, against the
+    f64 oracle with the port's rho_soft and tolerances on every
+    SOFT_STRIDE-th lane."""
+    t0 = time.perf_counter()
+    oracle = load("daqp_oracle", "oracle/daqp_numpy.py")
+    args = full[:5] + [soft_sense(full[5])]
+
+    def solve():
+        return dt.solve_batch_kernel_stream(*args, st=st, ms=0, chunk=256,
+                                            has_soft=True, sort_stream=True)
+
+    reset_counts()
+    r = solve()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    syncs = ops.host_syncs
+    x = r.x.cpu().numpy()
+    flags = r.exitflag.cpu().numpy()
+    sense = args[5].cpu().numpy()
+    keys = ('H', 'f', 'A', 'bupper', 'blower')
+    idx = np.arange(0, B, SOFT_STRIDE)
+    t_or = time.perf_counter()
+    err, ref_flags = [], []
+    for b in idx:
+        ref = oracle.quadprog(*(d[k][b].astype(np.float64) for k in keys),
+                              sense[b], 0,
+                              {"rho_soft": float(st.rho_soft),
+                               "primal_tol": float(st.primal_tol),
+                               "dual_tol": float(st.dual_tol)})
+        ref_flags.append(ref['exitflag'])
+        err.append(np.linalg.norm(x[b].astype(np.float64) - ref['x']))
+    oracle_s = time.perf_counter() - t_or
+    err, ref_flags, fl = np.asarray(err), np.asarray(ref_flags), flags[idx]
+    both = (fl > 0) & (ref_flags > 0)
+    acc = float(np.mean(both & (err <= ACC_TOL)))
+    silent = int(np.sum(((fl == 1) | (fl == 2)) & (err > ACC_TOL)))
+    opt_rate = float(np.mean(flags > 0))
+    best = best_window(solve)
+    shape_ok = x.shape == (B, N) and r.lam.shape == (B, M_ROWS) \
+        and bool(np.isfinite(x).all())
+    emit("soft", t0, B=B, n=N, m=M_ROWS, soft_rows=SOFT_ROWS, chunk=256,
+         sort_stream=True, launches=launches, host_syncs=syncs,
+         shape_finite_ok=shape_ok, sample=len(idx),
+         sample_both_positive=bool(both.all()), accuracy_pass_rate=acc,
+         silent_wrong=silent, max_err_sample=float(err.max()),
+         optimal_rate=opt_rate,
+         soft_optimal=int(np.sum(flags == dt.EXIT_SOFT_OPTIMAL)),
+         flags={int(k): int(v) for k, v in zip(*np.unique(
+             flags, return_counts=True))},
+         median_iters=float(np.median(r.iterations.cpu().numpy())),
+         solves_per_s=3 * B / best, window_s=best, oracle_s=oracle_s,
+         card=card)
+    ok = shape_ok and bool(both.all()) and acc >= ACC_RATE and silent == 0 \
+        and opt_rate >= ACC_RATE and launches["chol_rinv"] >= 1 \
+        and launches["dense_round"] >= 1
+    return ok, launches
+
+
+def hiqp_reference(d4b, st):
+    """The f64 hierarchical oracle on every lane of config 4b at the
+    tier's rho (the matched-rho rule of tests/test_batch_hiqp.py:51-52):
+    (flags, x)."""
+    hq = oracle_module("hiqp_numpy")
+    flags, xs = [], []
+    for b in range(B4B):
+        ref = hq.hiqp(None, d4b['f'][b].astype(np.float64),
+                      d4b['A'][b].astype(np.float64),
+                      d4b['bupper'][b].astype(np.float64),
+                      d4b['blower'][b].astype(np.float64), d4b['sense'][b],
+                      0, BP4B, {"rho_soft": HIQP_RHO,
+                                "primal_tol": float(st.primal_tol),
+                                "iter_limit": 3000})
+        flags.append(ref['exitflag'])
+        xs.append(ref['x'])
+    return np.asarray(flags), np.stack(xs)
+
+
+def hiqp_counts(flags, x, ref_flags, ref_x):
+    """(lanes whose flag class differs from the oracle's, lanes flagged 1
+    or 2 beyond HIQP_TOL where the oracle is positive, flags legal): the
+    classes are optimal (1, 2), no DOF left (3) and loud (< 0)."""
+    def cls(f):
+        return np.where((f == 1) | (f == 2), 0, np.where(f == 3, 1, 2))
+
+    err = np.abs(x.astype(np.float64) - ref_x).max(1)
+    mism = ((flags == 1) | (flags == 2)) & (err > HIQP_TOL) & (ref_flags > 0)
+    legal = np.isin(flags, (1, 2, 3)) | (flags < 0)
+    return int(np.sum(cls(flags) != cls(ref_flags))), int(mism.sum()), \
+        bool(legal.all()), err
+
+
+def phase_hiqp(args4b, d4b, st, card):
+    """Config 4b through the hierarchical walk, against the f64 oracle on
+    all lanes: no more class differences and mismatches than the JAX
+    package's own plus HIQP_SLACK."""
+    t0 = time.perf_counter()
+    f, A, bu, bl, sense = args4b
+
+    def solve():
+        return dt.solve_batch_hiqp_kernel(None, f, A, bu, bl, sense, st,
+                                          break_points=BP4B)
+
+    reset_counts()
+    r = solve()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    syncs = ops.host_syncs
+    x = r.x.cpu().numpy()
+    flags = r.exitflag.cpu().numpy()
+    t_or = time.perf_counter()
+    ref_flags, ref_x = hiqp_reference(d4b, st)
+    oracle_s = time.perf_counter() - t_or
+    diffs, mism, legal, err = hiqp_counts(flags, x, ref_flags, ref_x)
+    best = best_window(solve, calls=4)
+    # the same walk on the plain twins on the host: the spread of the
+    # exit-3 count under another f32 rounding order
+    rt = dt.solve_batch_hiqp_kernel(None, *(a.cpu() for a in args4b), st,
+                                    break_points=BP4B)
+    t_diffs, t_mism, _, _ = hiqp_counts(rt.exitflag.numpy(), rt.x.numpy(),
+                                        ref_flags, ref_x)
+    opt = (flags == 1) | (flags == 2)
+    shape_ok = x.shape == (B4B, N4B) and bool(np.isfinite(x).all())
+    emit("hiqp", t0, B=B4B, n=N4B, break_points=BP4B, launches=launches,
+         host_syncs=syncs, shape_finite_ok=shape_ok, flags_legal=legal,
+         flags={int(k): int(v) for k, v in zip(*np.unique(
+             flags, return_counts=True))},
+         oracle_flags={int(k): int(v) for k, v in zip(*np.unique(
+             ref_flags, return_counts=True))},
+         exit3=int(np.sum(flags == dt.EXIT_NO_DOF)),
+         class_diffs=diffs, class_agree_rate=1.0 - diffs / B4B,
+         class_diffs_limit=HIQP_CLASS_LIMIT,
+         mismatches=mism, mismatches_limit=JAX_HIQP_MISMATCHES + HIQP_SLACK,
+         twin_on_host={"exit3": int(np.sum(rt.exitflag.numpy() == 3)),
+                       "class_diffs": t_diffs, "mismatches": t_mism},
+         max_err_optimal=float(err[opt].max()) if opt.any() else None,
+         b7_launches_per_call=launches["dense_round"],
+         solves_per_s=4 * B4B / best, window_s=best, oracle_s=oracle_s,
+         card=card)
+    ok = shape_ok and legal and diffs <= HIQP_CLASS_LIMIT \
+        and mism <= JAX_HIQP_MISMATCHES + HIQP_SLACK \
+        and launches["dense_round"] >= 1
+    return ok, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -580,6 +881,13 @@ def main():
     ok1, k1 = phase_k1(full[0])
     ok2, k2 = phase_k2([a[:B_K2] for a in full], st)
     ok_slice, l_slice = phase_slice(full, d, st, card)
+    d4b = config4b()
+    args4b = [torch.as_tensor(d4b[k], device=dev)
+              for k in ('f', 'A', 'bupper', 'blower', 'sense')]
+    args_k = [a[:B_K2] for a in full]
+    ok7, k7 = phase_k7(args_k[:5] + [soft_sense(args_k[5])], args_k, args4b,
+                       st)
+    ok_soft, l_soft = phase_soft(full, d, st, card)
     del full
 
     d3 = config3(gen)
@@ -592,8 +900,10 @@ def main():
     args4 = [torch.as_tensor(d4[k], device=dev) for k in keys]
     ok4, k4 = phase_k4(args4, st)
     ok_prox, l_prox, k1_c4 = phase_prox(args4, st, card)
+    ok_hiqp, l_hiqp = phase_hiqp(args4b, d4b, st, card)
 
-    paths = {"slice": l_slice, "mpc": l_mpc, "prox": l_prox}
+    paths = {"slice": l_slice, "mpc": l_mpc, "prox": l_prox,
+             "soft": l_soft, "hiqp": l_hiqp}
 
     def entry(name, source, replaces, fields):
         by_path = {p: v[name] for p, v in paths.items()}
@@ -610,12 +920,16 @@ def main():
         entry("mpc_segment", "mpc_segment.cu",
               "daqp_tpu/ops/pallas_slot.py:1866", k3),
         entry("prox_segment", "prox_segment.cu",
-              "daqp_tpu/ops/pallas_slot.py:1110", k4)]}), flush=True)
+              "daqp_tpu/ops/pallas_slot.py:1110", k4),
+        entry("dense_round", "dense_round.cu",
+              "daqp_tpu/ops/pallas_batch.py:751", k7)]}), flush=True)
     print(card, flush=True)
     failed = [name for name, ok in (("k1", ok1), ("k2", ok2),
-                                    ("slice", ok_slice), ("k3", ok3),
+                                    ("slice", ok_slice), ("k7", ok7),
+                                    ("soft", ok_soft), ("k3", ok3),
                                     ("mpc", ok_mpc), ("k4", ok4),
-                                    ("prox", ok_prox)) if not ok]
+                                    ("prox", ok_prox), ("hiqp", ok_hiqp))
+              if not ok]
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

@@ -2,9 +2,10 @@
 
 Counterpart of ``daqp_tpu/batch.py``: ``:56 BatchResult``, ``:248
 solve_batch_pallas_jit``, ``:315 solve_batch_pallas_stream_jit``, ``:428
-_difficulty_nviol``, ``:451 _pallas_batch_core`` (its hard branch,
-:609-694), ``:699 solve_batch_prox_pallas_jit`` and ``:2582
-kkt_residuals``.
+_difficulty_nviol``, ``:451 _pallas_batch_core`` (its hard branch and
+its soft branch without SOFT_WEIGHTS, :551-694), ``:699
+solve_batch_prox_pallas_jit``, ``:1999 solve_batch_hiqp_pallas_jit`` and
+``:2582 kkt_residuals``.
 
 Every entry point runs where its inputs are: tensors keep their device
 (inputs on mixed devices raise) and other inputs (numpy arrays, lists) go
@@ -13,12 +14,15 @@ asked for, with CPU tensors or ``device="cpu"``.
 
 The path: K1 factors every H (``ops.chol.batched_rinv_regularized``),
 ``transform.build_ldp`` builds the LDP data, ``ops.slot`` runs K2 rounds
-with exact repair and polish, and the slot state maps back to x, lam,
-fval.  Left behind as TPU workarounds: the 512-lane guard and its
-routing, the 128-lane padding, and the in-core difficulty sort for tile
-occupancy (one block per QP has no tiles).  Soft batches (the dense-mask
-kernel), SOFT_WEIGHTS, ``guess_cap`` and ``deadline`` belong to later
-slices and raise NotImplementedError.
+with exact repair and polish (hard batches) or ``ops.dense`` runs B7
+rounds (batches with SOFT rows, whose working set may outgrow n + 1
+slots), and the state maps back to x, lam, fval.
+``solve_batch_hiqp_kernel`` (``batch.py:1999
+solve_batch_hiqp_pallas_jit``) walks the hierarchy's levels on B7.  Left
+behind as TPU workarounds: the 512-lane guard and its routing, the
+128-lane padding, and the in-core difficulty sort for tile occupancy (one
+block per QP has no tiles).  SOFT_WEIGHTS, ``guess_cap`` and
+``deadline`` belong to later slices and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,11 +32,11 @@ import numpy as np
 import torch
 
 from . import transform
-from .ops import chol, host_any, slot
+from .ops import chol, dense, host_any, slot
 from .prox import auto_eta
 from .types import (ACTIVE, IMMUTABLE, LOWER, SOFT, DAQP_INF,
-                    EXIT_ITERLIMIT, EXIT_NONCONVEX, EXIT_OPTIMAL,
-                    EXIT_RUNNING, EXIT_UNSUPPORTED, Settings)
+                    EXIT_ITERLIMIT, EXIT_NO_DOF, EXIT_NONCONVEX,
+                    EXIT_OPTIMAL, EXIT_RUNNING, EXIT_UNSUPPORTED, Settings)
 
 
 class BatchResult(NamedTuple):
@@ -44,12 +48,12 @@ class BatchResult(NamedTuple):
     soft_slack: torch.Tensor  # (B,)
 
 
-def _unported(has_soft, deadline, sw, guess_cap) -> None:
-    if has_soft or sw is not None:
+def _unported(deadline, sw, guess_cap) -> None:
+    if sw is not None:
         raise NotImplementedError(
-            "soft constraints and SOFT_WEIGHTS run on the dense-mask kernel "
-            "(daqp_tpu/ops/pallas_batch.py run_kernel_round), which a later "
-            "slice of the port brings over (ROADMAP A9)")
+            "SOFT_WEIGHTS runs on the SOFT_WEIGHTS variant of the dense-mask "
+            "kernel (daqp_tpu/ops/pallas_batch.py run_kernel_round, has_sw), "
+            "which a later slice of the port brings over (ROADMAP A9b)")
     if guess_cap:
         raise NotImplementedError(
             "guess_cap (primal-init active-set guess) is ported in a later "
@@ -105,9 +109,13 @@ def _difficulty_nviol(f, A, bupper, blower, ms: int, Rinv):
 
 
 def _kernel_batch_core(H, f, A, bupper, blower, sense, st: Settings,
-                       ms: int = 0, fact=None) -> BatchResult:
+                       ms: int = 0, fact=None,
+                       has_soft: bool = False) -> BatchResult:
     """Factor (or take ``fact`` = (Rinv, ok, reg_mask, eps_used)), build
-    the LDP, solve on the slot tier and map back to QP space."""
+    the LDP, solve and map back to QP space: on the slot tier (K2), or
+    with ``has_soft`` on the dense-mask tier (B7), where soft rows carry
+    rho_soft on their Gram diagonal.  Without ``has_soft`` a lane with
+    soft rows exits ``EXIT_UNSUPPORTED``."""
     B = H.shape[0]
     n = A.shape[-1]
     f32 = torch.float32
@@ -121,27 +129,39 @@ def _kernel_batch_core(H, f, A, bupper, blower, sense, st: Settings,
         n_prox=torch.where(regl, n, 0).to(torch.int32),
         eps_used=eps_l.to(ldpd.eps_used.dtype))
     immut = ((ldpd.sense & IMMUTABLE) > 0).to(f32)
-    soft_lane = ((ldpd.sense & SOFT) > 0).any(dim=1)
+    soft_b = ((ldpd.sense & SOFT) > 0).to(f32)
     # LDP-space dominance bound = 2 * fval_bound (daqp.c:10)
     fb = 2.0 * torch.full((B,), st.fval_bound, dtype=f32, device=H.device)
-    s = slot.slot_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling, immut,
-                       n_true=n, fbound=fb)
     act_bits = (ldpd.sense & ACTIVE) > 0
-    if host_any(act_bits):
-        # equalities / warm starts: bulk-activate the sense-ACTIVE rows
-        lo_bits = act_bits & ((ldpd.sense & LOWER) > 0)
-        s = slot.slot_activate(s, act_bits & ~lo_bits, lo_bits, st)
-    s = slot.slot_solve(s, st, n_true=n)
-    lam = slot.slot_duals_dense(s)
+    lo_bits = act_bits & ((ldpd.sense & LOWER) > 0)
+    if has_soft:
+        s = dense.dense_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling,
+                             immut, soft_b, fbound=fb)
+        if host_any(act_bits):
+            # equalities / warm starts: bulk-activate the sense-ACTIVE rows
+            s = dense.dense_activate(s, act_bits & ~lo_bits, lo_bits, st)
+        s = dense.dense_solve(s, st, n_true=n)
+        act = s.act_up + s.act_lo
+        lam = s.lam_star * act * s.scaling
+        slack = st.rho_soft * (s.soft * act * s.lam_star * s.lam_star).sum(1)
+    else:
+        s = slot.slot_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling,
+                           immut, n_true=n, fbound=fb)
+        if host_any(act_bits):
+            s = slot.slot_activate(s, act_bits & ~lo_bits, lo_bits, st)
+        s = slot.slot_solve(s, st, n_true=n)
+        lam = slot.slot_duals_dense(s)
+        slack = torch.zeros(B, dtype=f32, device=H.device)
     x = transform.ldp_to_qp_solution(ldpd, s.u[:, :n])
     fval = 0.5 * (s.fval - (ldpd.v * ldpd.v).sum(1))
     exitflag = torch.where(ldpd.error < 0, ldpd.error, s.status)
-    exitflag = torch.where(soft_lane, EXIT_UNSUPPORTED, exitflag)
+    if not has_soft:
+        exitflag = torch.where((soft_b > 0).any(dim=1), EXIT_UNSUPPORTED,
+                               exitflag)
     return BatchResult(x=x, lam=lam, fval=fval,
                        exitflag=exitflag.to(torch.int32),
                        iterations=s.iterations.to(torch.int32),
-                       soft_slack=torch.zeros(B, dtype=x.dtype,
-                                              device=x.device))
+                       soft_slack=slack.to(x.dtype))
 
 
 def solve_batch_kernel(H, f, A, bupper, blower, sense, st: Settings,
@@ -150,16 +170,17 @@ def solve_batch_kernel(H, f, A, bupper, blower, sense, st: Settings,
                        guess_cap=None, device=None) -> BatchResult:
     """Batched strictly convex QP solve on the kernel path, one call for
     the whole batch (``solve_batch_pallas_jit``).  On a CUDA device it
-    launches K1 and K2; on the CPU their plain twins run.
-    ``has_soft=None`` detects soft rows from ``sense``; soft batches are
-    not ported yet.  With ``has_soft=False`` a lane carrying soft rows
-    exits ``EXIT_UNSUPPORTED``."""
+    launches K1 and K2, or K1 and B7 for a batch with soft rows; on the
+    CPU their plain twins run.  ``has_soft=None`` detects soft rows from
+    ``sense``; with ``has_soft=False`` a lane carrying soft rows exits
+    ``EXIT_UNSUPPORTED``."""
     H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
                                               sense, device)
+    _unported(deadline, sw, guess_cap)
     if has_soft is None:
         has_soft = host_any((sense & SOFT) > 0)
-    _unported(has_soft, deadline, sw, guess_cap)
-    return _kernel_batch_core(H, f, A, bupper, blower, sense, st, ms=ms)
+    return _kernel_batch_core(H, f, A, bupper, blower, sense, st, ms=ms,
+                              has_soft=bool(has_soft))
 
 
 def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
@@ -169,11 +190,12 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
                               guess_cap=None, device=None) -> BatchResult:
     """Streaming solve (``solve_batch_pallas_stream_jit``): one global
     factorization of the whole batch through K1, then ``chunk``-lane
-    solves that reuse it.  ``sort_stream`` orders the stream by the
-    difficulty proxy first (stable sort).  Each lane's result depends on
-    that lane alone, so ``chunk`` and the order only bound memory and
-    shape the waves; outputs come back in input order."""
-    _unported(has_soft, deadline, sw, guess_cap)
+    solves that reuse it, on K2, or on B7 with ``has_soft``.
+    ``sort_stream`` orders the stream by the difficulty proxy first
+    (stable sort).  Each lane's result depends on that lane alone, so
+    ``chunk`` and the order only bound memory and shape the waves; outputs
+    come back in input order."""
+    _unported(deadline, sw, guess_cap)
     H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
                                               sense, device)
     B = H.shape[0]
@@ -190,7 +212,7 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
         sl = slice(c0, c0 + chunk)
         parts.append(_kernel_batch_core(
             H[sl], f[sl], A[sl], bupper[sl], blower[sl], sense[sl], st,
-            ms=ms, fact=tuple(x[sl] for x in fact)))
+            ms=ms, fact=tuple(x[sl] for x in fact), has_soft=has_soft))
     out = BatchResult(*(torch.cat(p) for p in zip(*parts)))
     if order is not None:
         unsort = torch.argsort(order)
@@ -340,6 +362,154 @@ def solve_batch_prox_kernel(H, f, A, bupper, blower, sense, st: Settings,
     return BatchResult(x=x, lam=slot.slot_duals_dense(s), fval=fval,
                        exitflag=lane_flag.to(torch.int32),
                        iterations=tot.to(torch.int32),
+                       soft_slack=torch.zeros(B, dtype=f32, device=dev))
+
+
+# f32 conditioning floor of the hierarchical tier's level penalty
+# (daqp_tpu/batch.py:32 _HIQP_RHO_FLOOR): a conflicting soft add's Schur
+# pivot is ~rho, and rank-one updates through it amplify f32 rounding by
+# 1/rho
+HIQP_RHO_FLOOR = 3e-2
+
+
+def hiqp_settings(st: Settings, rho_floor: float = None) -> Settings:
+    """``st`` with rho_soft raised to the hierarchical tier's floor
+    (``rho_floor``, default ``HIQP_RHO_FLOOR``; batch.py:2091-2093)."""
+    floor = HIQP_RHO_FLOOR if rho_floor is None else float(rho_floor)
+    return st._replace(rho_soft=max(float(st.rho_soft), floor))
+
+
+def solve_batch_hiqp_kernel(H, f, A, bupper, blower, sense, st: Settings,
+                            ms: int = 0, break_points: tuple = (),
+                            rho_floor: float = None,
+                            device=None) -> BatchResult:
+    """Batched hierarchical (lexicographic least-squares) QP solve on B7:
+    the level walk of ``daqp_hiqp`` (hierarchical.c:5-108) as
+    ``solve_batch_hiqp_pallas_jit`` runs it.
+
+    Per level: the level's rows turn SOFT (uniform rho_soft, floored at
+    ``rho_floor``, default ``HIQP_RHO_FLOOR``) and later rows IMMUTABLE;
+    the lanes still walking re-solve warm on the dense tier; the level's
+    optimal soft violations w = lam* rho are frozen into d with a +-ptol
+    margin (hierarchical.c:51-65) and reported as output duals; the level
+    turns hard.  Between levels the working set is rebuilt by sequential
+    re-adds that drop dependent entries (``dense_reactivate``,
+    hierarchical.c:72-95), E gets one Newton refresh, and a lane whose
+    degrees of freedom are spent stops.  A lane whose level fails exits
+    ``EXIT_NO_DOF`` with the previous level's point; one over
+    ``iter_limit`` exits ITERLIMIT.
+
+    ``break_points`` is strictly increasing and ends at m, shared by the
+    batch.  ``H=None`` is the identity metric and then fval = f'x.  Warm
+    ACTIVE bits are honored for the rows before ``break_points[0]``."""
+    dev = resolve_device((H, f, A, bupper, blower, sense), device)
+    f32 = torch.float32
+
+    def t(x, dtype=f32):
+        return None if x is None else torch.as_tensor(x, device=dev).to(dtype)
+
+    A, bupper, blower = t(A), t(bupper), t(blower)
+    if A.dim() == 2:
+        A = A[..., None]
+    B, m = bupper.shape
+    n = A.shape[-1] if A.numel() else (H.shape[-1] if H is not None else ms)
+    bp = tuple(int(b) for b in break_points)
+    if len(bp) < 2 or bp[-1] != m or any(a >= b for a, b in zip(bp, bp[1:])):
+        raise ValueError(f"break_points {bp} must increase strictly and end "
+                         f"at m = {m}")
+    st = hiqp_settings(st, rho_floor)
+    H_b = torch.eye(n, dtype=f32, device=dev).expand(B, n, n) \
+        if H is None else t(H)
+    f_b = torch.zeros((B, n), dtype=f32, device=dev) if f is None else t(f)
+    sense = torch.zeros((B, m), dtype=torch.int32, device=dev) \
+        if sense is None else t(sense, torch.int32)
+    ldpd = transform.build_ldp(f_b, A, bupper, blower, sense, ms, st,
+                               H=H_b)
+    immut_base = ((ldpd.sense & IMMUTABLE) > 0).to(f32)
+    s = dense.dense_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling,
+                         immut_base)
+    rows = torch.arange(m, device=dev)
+
+    # pre-hierarchy hard warm / equality rows (< bp[0])
+    act_bits = ((ldpd.sense & ACTIVE) > 0) & (rows < bp[0])
+    if host_any(act_bits):
+        lo_bits = act_bits & ((ldpd.sense & LOWER) > 0)
+        s = dense.dense_activate(s, act_bits & ~lo_bits, lo_bits, st)
+
+    lam_out = torch.zeros((B, m), dtype=f32, device=dev)
+    lane_flag = torch.where(ldpd.error < 0, ldpd.error,
+                            EXIT_RUNNING).to(torch.int32)
+    done = lane_flag != EXIT_RUNNING
+    nfree = torch.full((B,), float(n), dtype=f32, device=dev)
+    u_best = s.u
+    tot = torch.zeros(B, dtype=f32, device=dev)
+    rho, ptol = st.rho_soft, st.primal_tol
+    for i in range(1, len(bp)):
+        start, end = bp[i - 1], bp[i]
+        lvl = ((rows >= start) & (rows < end)).to(f32).expand(B, m)
+        beyond = (rows >= end).to(f32)
+        lane_run = ~done
+        run_m = lane_run.to(f32)[:, None]
+        u_prev = s.u
+        # lanes that stopped walking are held out of the level's solve
+        prev_status = s.status
+        held = torch.where(lane_run, EXIT_RUNNING, slot._HELD)
+        s = s._replace(
+            soft=lvl.contiguous(),
+            immut=torch.clamp(immut_base + beyond, max=1.0),
+            status=held.to(torch.int32),
+            iterations=torch.zeros_like(s.iterations),
+            cycle=torch.zeros_like(s.cycle),
+            repaired=torch.zeros_like(s.repaired),
+            best_fval=torch.full_like(s.best_fval, -1.0),
+            pend=s.pend * (1.0 - run_m[:, 0]))
+        s = dense.dense_solve(s, st, n_true=n)
+        s = s._replace(status=torch.where(lane_run, s.status,
+                                          prev_status).to(torch.int32))
+        tot = tot + torch.where(lane_run, s.iterations, 0.0)
+        failed = lane_run & (s.status < 0)
+
+        # freeze the level's optimal soft violations into d, with the
+        # symmetric ptol margin of the JAX tier (batch.py:2161-2178), and
+        # record them as the level's duals
+        act = s.act_up + s.act_lo
+        wv = s.lam_star * rho * act * s.soft
+        s = s._replace(
+            dupper=(s.dupper + (torch.where(wv > ptol, wv, 0.0)
+                                + ptol * lvl) * run_m).contiguous(),
+            dlower=(s.dlower + (torch.where(wv < -ptol, wv, 0.0)
+                                - ptol * lvl) * run_m).contiguous())
+        soft_act = (act * s.soft > 0) & lane_run[:, None]
+        lam_out = torch.where(soft_act, wv, lam_out)
+
+        # harden the level (hierarchical.c:68)
+        s = s._replace(soft=torch.zeros_like(s.soft))
+        if i < len(bp) - 1:
+            s2, n_imm = dense.dense_reactivate(s, st, n, start)
+            s2 = dense.newton_refresh(s2, st)
+            s = dense.DenseState(*(
+                torch.where(lane_run.view((-1,) + (1,) * (a.dim() - 1)),
+                            b, a) for a, b in zip(s, s2)))
+            nfree = nfree - torch.where(lane_run, n_imm, 0.0)
+
+        iterlim = lane_run & ~failed & (tot >= st.iter_limit)
+        lane_flag = torch.where(failed, EXIT_NO_DOF, lane_flag)
+        lane_flag = torch.where(iterlim, EXIT_ITERLIMIT, lane_flag)
+        u_best = torch.where(lane_run[:, None],
+                             torch.where(failed[:, None], u_prev, s.u),
+                             u_best)
+        done = done | failed | iterlim | (nfree <= 0)
+
+    x = transform.ldp_to_qp_solution(ldpd, u_best)
+    if H is None and f is not None:
+        fval = (f_b * x).sum(1)
+    else:
+        fval = 0.5 * ((u_best * u_best).sum(1) - (ldpd.v * ldpd.v).sum(1))
+    lane_flag = torch.where(lane_flag == EXIT_RUNNING, EXIT_OPTIMAL,
+                            lane_flag)
+    return BatchResult(x=x, lam=lam_out, fval=fval,
+                       exitflag=lane_flag.to(torch.int32),
+                       iterations=torch.clamp(tot, min=1.0).to(torch.int32),
                        soft_slack=torch.zeros(B, dtype=f32, device=dev))
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.dense import DenseState
 from .ops.slot import SlotState
 from .transform import LDPData
 from .types import Settings
@@ -49,6 +50,63 @@ def slot_state_to_numpy(s: SlotState) -> dict:
     for name in SlotState._fields:
         a = getattr(s, name).detach().cpu().numpy()
         out[name] = a[None, :] if name in _SCALARS else np.moveaxis(a, 0, -1)
+    return out
+
+
+# DenseState fields of the JAX package beside the port's (pending one-hot
+# pend_oh -> row index pid; the SOFT_WEIGHTS fields are not carried)
+_JAX_NAME = {"plam": "pend_lam", "plo": "pend_lo"}
+_DENSE_SCALARS = ("fbound", "pend", "pend_lam", "pend_lo", "fval",
+                  "best_fval", "cycle", "repaired", "iterations", "status")
+
+
+def dense_state_from_jax(s, m: int = None, n: int = None,
+                         device="cpu") -> DenseState:
+    """JAX lanes-last ``DenseState`` -> the port's batch-leading state.
+
+    The JAX package pads m and n to multiples of 8; ``m`` / ``n`` (the true
+    sizes, default: keep all) slice the padded rows and columns off.  The
+    pending entry's (m, B) one-hot becomes the row index ``pid`` (-1 where
+    no row is flagged)."""
+    fields = {}
+    for name in DenseState._fields:
+        if name == "pid":
+            continue
+        src = _JAX_NAME.get(name, name)
+        a = np.moveaxis(np.asarray(getattr(s, src)), -1, 0)
+        if src in _DENSE_SCALARS:
+            a = a[:, 0]
+        elif name == "M":
+            a = a[:, :m, :n]
+        elif name == "E":
+            a = a[:, :m, :m]
+        elif name == "u":
+            a = a[:, :n]
+        else:
+            a = a[:, :m]
+        dtype = torch.int32 if name == "status" else torch.float32
+        fields[name] = torch.as_tensor(np.array(a), device=device).to(dtype)
+    oh = np.moveaxis(np.asarray(s.pend_oh), -1, 0)[:, :m]
+    pid = np.where((oh > 0).any(1), np.argmax(oh > 0, axis=1), -1)
+    fields["pid"] = torch.as_tensor(pid, device=device).to(torch.float32)
+    return DenseState(**fields)
+
+
+def dense_state_to_numpy(s: DenseState) -> dict:
+    """The port's dense state as numpy arrays in the JAX package's
+    lanes-last layout and field names, ``pend_oh`` rebuilt from ``pid``."""
+    out = {}
+    for name in DenseState._fields:
+        if name == "pid":
+            continue
+        a = getattr(s, name).detach().cpu().numpy()
+        jname = _JAX_NAME.get(name, name)
+        out[jname] = a[None, :] if jname in _DENSE_SCALARS \
+            else np.moveaxis(a, 0, -1)
+    m = s.M.shape[1]
+    pid = s.pid.detach().cpu().numpy()
+    oh = (np.arange(m)[:, None] == pid[None, :]).astype(np.float32)
+    out["pend_oh"] = oh * s.pend.detach().cpu().numpy()[None, :]
     return out
 
 

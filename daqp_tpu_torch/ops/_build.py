@@ -19,7 +19,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "daqp_tpu_torch"
-# no --use_fast_math: the slot kernels rely on isfinite and IEEE division
+# no --use_fast_math: the active-set kernels rely on isfinite and IEEE
+# division
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,6 +44,10 @@ _SIGNATURES = {
     #  the six tolerances, bland, stream)
     "prox_segment_f32": [_P, _I, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _F, _I, _P],
+    # (host array of 39 device pointers, B, m, n, n_true, steps, the six
+    #  tolerances, bland, rho_soft, has_soft, stream)
+    "dense_round_f32": [_P, _I, _I, _I, _I, _I,
+                        _F, _F, _F, _F, _F, _F, _I, _F, _I, _P],
 }
 
 _lib = None

@@ -332,16 +332,18 @@ def _state_items(s: SlotState, names):
             for name in names]
 
 
-def _launch(entry: str, tensors, dims, st: Settings, dev) -> None:
+def _launch(entry: str, tensors, dims, st: Settings, dev,
+            tail=()) -> None:
     """Call the C entry ``entry`` with a host table of the tensors'
-    device pointers, the int ``dims``, the tolerances and the stream."""
+    device pointers, the int ``dims``, the tolerances, the Bland flag,
+    the entry's own ``tail`` arguments and the stream."""
     ptrs = [x.data_ptr() for x in tensors]
     table = (ctypes.c_void_p * len(ptrs))(*ptrs)
     rc = getattr(_build.library(), entry)(
         ctypes.addressof(table), *map(int, dims),
         float(st.dual_tol), float(st.primal_tol), float(st.pivot_tol),
         float(st.sing_tol), float(st.progress_tol), float(st.cycle_tol),
-        int(int(st.pricing) == PRICING_BLAND),
+        int(int(st.pricing) == PRICING_BLAND), *tail,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, entry)
 

@@ -29,6 +29,9 @@ EXIT_ITERLIMIT = -4
 EXIT_NONCONVEX = -5
 EXIT_OVERDETERMINED_INITIAL = -6
 EXIT_TIMELIMIT = -7
+# hierarchical only: a level failed, no degrees of freedom remain
+# (daqp_tpu/hierarchical.py:38, hierarchical.c:104)
+EXIT_NO_DOF = 3
 # the lane carries sense bits the hard-only slot kernel does not support
 EXIT_UNSUPPORTED = -9
 # internal: still running (never returned to the user)
@@ -42,7 +45,7 @@ DAQP_INF = 1e30
 FLAG_TO_STATUS = {
     EXIT_SOFT_OPTIMAL: "soft_optimal",
     EXIT_OPTIMAL: "optimal",
-    3: "no_dof_remaining",
+    EXIT_NO_DOF: "no_dof_remaining",
     EXIT_INFEASIBLE: "infeasible",
     EXIT_CYCLE: "cycle",
     EXIT_UNBOUNDED: "unbounded",

@@ -1,6 +1,6 @@
 """The PyTorch port's package surface (daqp_tpu_torch): no jax at import,
 settings equal to the JAX package's, no silent fallback from the CUDA
-path, and the not-yet-ported options raise."""
+path, soft batches solve, and the not-yet-ported options raise."""
 import os
 import subprocess
 import sys
@@ -14,7 +14,8 @@ from daqp_tpu import types as jtypes
 from daqp_tpu.api import _as_settings
 import daqp_tpu_torch as dt
 from daqp_tpu_torch import convert
-from daqp_tpu_torch.ops import _build, chol as pchol, slot as pslot
+from daqp_tpu_torch.ops import _build, chol as pchol, dense as pdense, \
+    slot as pslot
 from tests.gen import generate_test_qp_batch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -22,7 +23,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_leaves_jax_out():
     code = ("import sys, daqp_tpu_torch, daqp_tpu_torch.mpc, "
-            "daqp_tpu_torch.prox; "
+            "daqp_tpu_torch.prox, daqp_tpu_torch.ops.dense, "
+            "daqp_tpu_torch.convert; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'daqp_tpu' not in sys.modules, 'daqp_tpu imported'")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -87,6 +89,14 @@ def test_segment_kernels_raise_on_meta():
             *(torch.empty((2, 4), device="meta"),) * 2, vec, vec, st, 3)
 
 
+def test_dense_kernel_raises_on_meta():
+    st = dt.default_settings_f32()
+    s = pdense.dense_init(torch.empty((2, 4, 3), device="meta"),
+                          *(torch.empty((2, 4), device="meta"),) * 4)
+    with pytest.raises(ValueError, match="device meta"):
+        pdense.run_kernel_round(s, st, 3)
+
+
 def _numpy_batch():
     d = generate_test_qp_batch(4, 3, 5, 0, 2, 1e1, rng=2, dtype=np.float32)
     return d, [d[k] for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
@@ -120,9 +130,21 @@ def test_numpy_inputs_without_device_need_a_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             solve(*args, st=st)
     with pytest.raises(RuntimeError, match="CUDA"):
+        dt.solve_batch_hiqp_kernel(None, *args[1:], st=st,
+                                   break_points=(0, 5))
+    with pytest.raises(RuntimeError, match="CUDA"):
         dt.solve_mpc_scan_kernel_fused(d['H'][0], d['A'][0],
                                        d['f'][:, None], d['bupper'][:, None],
                                        d['blower'][:, None], st)
+
+
+@pytest.mark.parametrize("bp", [(0,), (0, 4), (0, 3, 3, 5)])
+def test_hiqp_bad_break_points_raise(bp):
+    d, args = _numpy_batch()                  # m = 5
+    with pytest.raises(ValueError, match="break_points"):
+        dt.solve_batch_hiqp_kernel(None, *args[1:],
+                                   st=dt.default_settings_f32(),
+                                   break_points=bp, device="cpu")
 
 
 def test_mixed_devices_raise():
@@ -146,6 +168,14 @@ def test_unported_options_raise(kw):
     args = [torch.as_tensor(d[k]) for k in
             ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
     st = dt.default_settings_f32()
+    if kw.get("has_soft"):
+        # ported: a soft batch solves on the dense-mask tier
+        args[5] = args[5] | dt.SOFT
+        for solve in (dt.solve_batch_kernel_stream, dt.solve_batch_kernel):
+            r = solve(*args, st=st, **kw)
+            assert (r.exitflag.numpy() > 0).all(), r.exitflag
+            assert np.abs(r.x.numpy() - d['x']).max() < 1e-3
+        return
     with pytest.raises(NotImplementedError):
         dt.solve_batch_kernel_stream(*args, st=st, **kw)
     with pytest.raises(NotImplementedError):
