@@ -7,10 +7,11 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_profile.py
 
 For BASELINE config 2 (``solve_batch_kernel_stream``, chunk 256), its
-soft variant (rows 0-19 SOFT, ``has_soft=True``), config 3
-(``solve_mpc_scan_kernel_fused``, seg 10), config 4
-(``solve_batch_prox_kernel``) and config 4b
-(``solve_batch_hiqp_kernel``), at the data of ``chip_smoke.py``, it runs
+soft variant (rows 0-19 SOFT, ``has_soft=True``), its SOFT_WEIGHTS
+variant (``sw=``), config 3 (``solve_mpc_scan_kernel_fused``, seg 10),
+config 4 (``solve_batch_prox_kernel``), config 4b
+(``solve_batch_hiqp_kernel``) and configAVI (``solve_batch_avi_kernel``),
+at the data of ``chip_smoke.py``, it runs
 one warm-up call and then one call under ``torch.profiler`` (CPU and
 CUDA activities), and prints one JSON line per cell: the host wall of the
 profiled call, the device time summed over kernels, the device's busy and
@@ -87,7 +88,11 @@ def main():
     soft = full[:5] + [cs.soft_sense(full[5])]
     profiled("config2_soft", lambda: dt.solve_batch_kernel_stream(
         *soft, st=st, chunk=256, has_soft=True, sort_stream=True), card)
-    del full, soft
+    sw = cs.sw_tensors(cs.sw_weights(cs.B, cs.M_ROWS), dev)
+    profiled("config2_sw", lambda: dt.solve_batch_kernel_stream(
+        *soft, st=st, chunk=256, has_soft=True, sort_stream=True, sw=sw),
+        card)
+    del full, soft, sw
 
     d3 = cs.config3(gen)
     args3 = [torch.as_tensor(d3[k], device=dev)
@@ -105,6 +110,11 @@ def main():
               for k in ('f', 'A', 'bupper', 'blower', 'sense')]
     profiled("config4b", lambda: dt.solve_batch_hiqp_kernel(
         None, *args4b, st, break_points=cs.BP4B), card)
+
+    d_avi = cs.config_avi(gen)
+    args_avi = [torch.as_tensor(d_avi[k], device=dev) for k in keys]
+    profiled("configAVI", lambda: dt.solve_batch_avi_kernel(*args_avi, st),
+             card)
     print(card, flush=True)
     return 0
 

@@ -2,10 +2,10 @@
 
 Counterpart of ``daqp_tpu/batch.py``: ``:56 BatchResult``, ``:248
 solve_batch_pallas_jit``, ``:315 solve_batch_pallas_stream_jit``, ``:428
-_difficulty_nviol``, ``:451 _pallas_batch_core`` (its hard branch and
-its soft branch without SOFT_WEIGHTS, :551-694), ``:699
-solve_batch_prox_pallas_jit``, ``:1999 solve_batch_hiqp_pallas_jit`` and
-``:2582 kkt_residuals``.
+_difficulty_nviol``, ``:451 _pallas_batch_core`` (its hard, soft and
+SOFT_WEIGHTS branches, :551-694), ``:699 solve_batch_prox_pallas_jit``,
+``:1587 solve_batch_avi_pallas_jit``, ``:1999
+solve_batch_hiqp_pallas_jit`` and ``:2582 kkt_residuals``.
 
 Every entry point runs where its inputs are: tensors keep their device
 (inputs on mixed devices raise) and other inputs (numpy arrays, lists) go
@@ -18,10 +18,12 @@ with exact repair and polish (hard batches) or ``ops.dense`` runs B7
 rounds (batches with SOFT rows, whose working set may outgrow n + 1
 slots), and the state maps back to x, lam, fval.
 ``solve_batch_hiqp_kernel`` (``batch.py:1999
-solve_batch_hiqp_pallas_jit``) walks the hierarchy's levels on B7.  Left
-behind as TPU workarounds: the 512-lane guard and its routing, the
-128-lane padding, and the in-core difficulty sort for tile occupancy (one
-block per QP has no tiles).  SOFT_WEIGHTS, ``guess_cap`` and
+solve_batch_hiqp_pallas_jit``) walks the hierarchy's levels on B7, and
+``solve_batch_avi_kernel`` runs the Douglas-Rachford splitting of
+batched affine variational inequalities on B5 and K2.  Left behind as TPU
+workarounds: the 512-lane guard and its routing, the 128-lane padding,
+the n-padding of the AVI matrices, and the in-core difficulty sort for
+tile occupancy (one block per QP has no tiles).  ``guess_cap`` and
 ``deadline`` belong to later slices and raise NotImplementedError.
 """
 from __future__ import annotations
@@ -36,7 +38,8 @@ from .ops import chol, dense, host_any, slot
 from .prox import auto_eta
 from .types import (ACTIVE, IMMUTABLE, LOWER, SOFT, DAQP_INF,
                     EXIT_ITERLIMIT, EXIT_NO_DOF, EXIT_NONCONVEX,
-                    EXIT_OPTIMAL, EXIT_RUNNING, EXIT_UNSUPPORTED, Settings)
+                    EXIT_OPTIMAL, EXIT_RUNNING, EXIT_UNSUPPORTED, Settings,
+                    SoftWeights)
 
 
 class BatchResult(NamedTuple):
@@ -48,12 +51,7 @@ class BatchResult(NamedTuple):
     soft_slack: torch.Tensor  # (B,)
 
 
-def _unported(deadline, sw, guess_cap) -> None:
-    if sw is not None:
-        raise NotImplementedError(
-            "SOFT_WEIGHTS runs on the SOFT_WEIGHTS variant of the dense-mask "
-            "kernel (daqp_tpu/ops/pallas_batch.py run_kernel_round, has_sw), "
-            "which a later slice of the port brings over (ROADMAP A9b)")
+def _unported(deadline, guess_cap=None) -> None:
     if guess_cap:
         raise NotImplementedError(
             "guess_cap (primal-init active-set guess) is ported in a later "
@@ -108,14 +106,30 @@ def _difficulty_nviol(f, A, bupper, blower, ms: int, Rinv):
     return ((vals > bupper) | (vals < blower)).sum(dim=-1)
 
 
+def _normalize_sw(sw: SoftWeights, ldpd) -> SoftWeights:
+    """SOFT_WEIGHTS data against the lanes' row scaling, zero on hard
+    rows: d / scaling, rho scaling^2 (utils.c:99-110; batch.py:551-570)."""
+    soft = (ldpd.sense & SOFT) > 0
+    sc = ldpd.scaling
+
+    def norm(x, p):
+        return torch.where(soft, x.to(sc.dtype) * sc ** p, 0.0)
+
+    return SoftWeights(d_ls=norm(sw.d_ls, -1), d_us=norm(sw.d_us, -1),
+                       rho_ls=norm(sw.rho_ls, 2), rho_us=norm(sw.rho_us, 2))
+
+
 def _kernel_batch_core(H, f, A, bupper, blower, sense, st: Settings,
-                       ms: int = 0, fact=None,
-                       has_soft: bool = False) -> BatchResult:
+                       ms: int = 0, fact=None, has_soft: bool = False,
+                       sw: Optional[SoftWeights] = None) -> BatchResult:
     """Factor (or take ``fact`` = (Rinv, ok, reg_mask, eps_used)), build
     the LDP, solve and map back to QP space: on the slot tier (K2), or
     with ``has_soft`` on the dense-mask tier (B7), where soft rows carry
-    rho_soft on their Gram diagonal.  Without ``has_soft`` a lane with
-    soft rows exits ``EXIT_UNSUPPORTED``."""
+    rho_soft on their Gram diagonal, or with ``sw`` (raw user units,
+    implies ``has_soft``) per-row slack bounds and per-side weights (B7's
+    SOFT_WEIGHTS variant).  Without ``has_soft`` a lane with soft rows
+    exits ``EXIT_UNSUPPORTED``."""
+    has_soft = has_soft or sw is not None
     B = H.shape[0]
     n = A.shape[-1]
     f32 = torch.float32
@@ -136,14 +150,21 @@ def _kernel_batch_core(H, f, A, bupper, blower, sense, st: Settings,
     lo_bits = act_bits & ((ldpd.sense & LOWER) > 0)
     if has_soft:
         s = dense.dense_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling,
-                             immut, soft_b, fbound=fb)
+                             immut, soft_b, fbound=fb,
+                             sw=None if sw is None else _normalize_sw(sw,
+                                                                      ldpd))
         if host_any(act_bits):
             # equalities / warm starts: bulk-activate the sense-ACTIVE rows
             s = dense.dense_activate(s, act_bits & ~lo_bits, lo_bits, st)
         s = dense.dense_solve(s, st, n_true=n)
         act = s.act_up + s.act_lo
         lam = s.lam_star * act * s.scaling
-        slack = st.rho_soft * (s.soft * act * s.lam_star * s.lam_star).sum(1)
+        if sw is None:
+            slack = st.rho_soft * (s.soft * act * s.lam_star
+                                   * s.lam_star).sum(1)
+        else:       # the active side's weight (batch.py:602-605)
+            rho_w = s.act_lo * s.sw_rls + s.act_up * s.sw_rus
+            slack = (s.soft * act * rho_w * s.lam_star * s.lam_star).sum(1)
     else:
         s = slot.slot_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling,
                            immut, n_true=n, fbound=fb)
@@ -173,14 +194,30 @@ def solve_batch_kernel(H, f, A, bupper, blower, sense, st: Settings,
     launches K1 and K2, or K1 and B7 for a batch with soft rows; on the
     CPU their plain twins run.  ``has_soft=None`` detects soft rows from
     ``sense``; with ``has_soft=False`` a lane carrying soft rows exits
-    ``EXIT_UNSUPPORTED``."""
+    ``EXIT_UNSUPPORTED``.  ``sw``: a ``SoftWeights`` of (B, m) fields in
+    raw user units, the SOFT_WEIGHTS slack semantics on B7's SOFT_WEIGHTS
+    variant (implies ``has_soft``)."""
     H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
                                               sense, device)
-    _unported(deadline, sw, guess_cap)
+    _unported(deadline, guess_cap)
+    sw = _sw_tensors(sw, H)
     if has_soft is None:
-        has_soft = host_any((sense & SOFT) > 0)
+        has_soft = sw is not None or host_any((sense & SOFT) > 0)
     return _kernel_batch_core(H, f, A, bupper, blower, sense, st, ms=ms,
-                              has_soft=bool(has_soft))
+                              has_soft=bool(has_soft), sw=sw)
+
+
+def _sw_tensors(sw, like) -> Optional[SoftWeights]:
+    """``sw`` (a SoftWeights of arrays or tensors, or None) as tensors on
+    ``like``'s device; a field on another device raises."""
+    if sw is None:
+        return None
+    fields = []
+    for x in sw:
+        if isinstance(x, torch.Tensor) and x.device != like.device:
+            raise ValueError(f"sw on {x.device}, inputs on {like.device}")
+        fields.append(torch.as_tensor(x, device=like.device))
+    return SoftWeights(*fields)
 
 
 def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
@@ -194,10 +231,12 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
     ``sort_stream`` orders the stream by the difficulty proxy first
     (stable sort).  Each lane's result depends on that lane alone, so
     ``chunk`` and the order only bound memory and shape the waves; outputs
-    come back in input order."""
-    _unported(deadline, sw, guess_cap)
+    come back in input order.  ``sw`` (raw user units, implies
+    ``has_soft``) follows the sort and the chunks."""
+    _unported(deadline, guess_cap)
     H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
                                               sense, device)
+    sw = _sw_tensors(sw, H)
     B = H.shape[0]
     fact = chol.batched_rinv_regularized(H, st)
     order = None
@@ -207,12 +246,15 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
         H, f, A, bupper, blower, sense = (
             x[order] for x in (H, f, A, bupper, blower, sense))
         fact = tuple(x[order] for x in fact)
+        if sw is not None:
+            sw = SoftWeights(*(x[order] for x in sw))
     parts = []
     for c0 in range(0, B, chunk):
         sl = slice(c0, c0 + chunk)
         parts.append(_kernel_batch_core(
             H[sl], f[sl], A[sl], bupper[sl], blower[sl], sense[sl], st,
-            ms=ms, fact=tuple(x[sl] for x in fact), has_soft=has_soft))
+            ms=ms, fact=tuple(x[sl] for x in fact), has_soft=has_soft,
+            sw=None if sw is None else SoftWeights(*(x[sl] for x in sw))))
     out = BatchResult(*(torch.cat(p) for p in zip(*parts)))
     if order is not None:
         unsort = torch.argsort(order)
@@ -487,9 +529,7 @@ def solve_batch_hiqp_kernel(H, f, A, bupper, blower, sense, st: Settings,
         if i < len(bp) - 1:
             s2, n_imm = dense.dense_reactivate(s, st, n, start)
             s2 = dense.newton_refresh(s2, st)
-            s = dense.DenseState(*(
-                torch.where(lane_run.view((-1,) + (1,) * (a.dim() - 1)),
-                            b, a) for a, b in zip(s, s2)))
+            s = dense.select_lanes(lane_run, s2, s)
             nfree = nfree - torch.where(lane_run, n_imm, 0.0)
 
         iterlim = lane_run & ~failed & (tot >= st.iter_limit)
@@ -509,6 +549,306 @@ def solve_batch_hiqp_kernel(H, f, A, bupper, blower, sense, st: Settings,
                             lane_flag)
     return BatchResult(x=x, lam=lam_out, fval=fval,
                        exitflag=lane_flag.to(torch.int32),
+                       iterations=torch.clamp(tot, min=1.0).to(torch.int32),
+                       soft_slack=torch.zeros(B, dtype=f32, device=dev))
+
+
+AVI_STEPS = 64           # inner iterations per AVI pass
+avi_kkt_services = 0     # exact KKT steps serviced between B5 segments
+avi_resumed_lanes = 0    # lanes resumed on the per-pass path after B5
+
+
+def _lu_solve(lu, b):
+    """(H's LU, pivots) from ``torch.linalg.lu_factor_ex``, solved against
+    (B, n) or (B, n, k) right-hand sides."""
+    if b.dim() == 2:
+        return torch.linalg.lu_solve(lu[0], lu[1], b[..., None])[..., 0]
+    return torch.linalg.lu_solve(lu[0], lu[1], b)
+
+
+class AVIProblem(NamedTuple):
+    """The batched AVI's data as the KKT step reads it, f32: H, f, the
+    rows [I_ms; A] with their raw bounds, and H's LU."""
+    H: torch.Tensor          # (B, n, n)
+    f: torch.Tensor          # (B, n)
+    Aall: torch.Tensor       # (B, m, n)
+    bu: torch.Tensor         # (B, m)
+    bl: torch.Tensor         # (B, m)
+    H_lu: tuple              # (LU (B, n, n), pivots (B, n))
+
+
+def kkt_all(s: slot.SlotState, lane_do, p: AVIProblem, st: Settings):
+    """The exact KKT step of the batched AVI on the original asymmetric H
+    over each lane's slot working set (avi.c:103-184; ``batch.py:1699-
+    1750``): the Schur system A_W H^-1 A_W' lam = -(b_W + A_W H^-1 f),
+    x = H^-1 (-f - A_W' lam), then the verification (avi.c:187-221): dual
+    signs on mutable slots, primal feasibility of the inactive rows, and
+    the stationarity residual ||H x + f + A_W' lam||_inf < 1e-3 (1 +
+    ||f||_inf), without which an ill-conditioned f32 Schur solve could
+    certify an x 1.3e-2 off.  Returns ``(x, lamK (B, K), certified)``,
+    ``certified`` within ``lane_do``."""
+    f32 = torch.float32
+    m = p.bu.shape[1]
+    iota_m = torch.arange(m, dtype=f32, device=p.H.device)
+    used, slo = s.used, s.slo
+    oh = (s.sid[:, :, None] == iota_m).to(f32) * used[:, :, None]
+    Aw = torch.einsum('bkm,bmn->bkn', oh, p.Aall)              # (B, K, n)
+    S = torch.matmul(Aw, _lu_solve(p.H_lu, Aw.transpose(1, 2)))
+    S = S * (used[:, :, None] * used[:, None, :]) \
+        + torch.diag_embed(1.0 - used)
+    b_sel = torch.einsum('bkm,bm->bk', oh, p.bl) * slo \
+        + torch.einsum('bkm,bm->bk', oh, p.bu) * (1.0 - slo)
+    rhs = -(b_sel + torch.einsum('bkn,bn->bk', Aw,
+                                 _lu_solve(p.H_lu, p.f))) * used
+    lamK = torch.linalg.solve_ex(S, rhs[..., None])[0][..., 0] * used
+    x = _lu_solve(p.H_lu, -p.f - torch.einsum('bkn,bk->bn', Aw, lamK))
+    mutable = used * (1.0 - s.simm) > 0
+    sign_ok = torch.where(slo > 0, lamK <= st.dual_tol,
+                          lamK >= -st.dual_tol)
+    dual_ok = (sign_ok | ~mutable).all(1)
+    r = torch.einsum('bmn,bn->bm', p.Aall, x)
+    act = (s.act_up + s.act_lo)[:, :m] > 0
+    feas = (r <= p.bu + st.primal_tol) & (r >= p.bl - st.primal_tol)
+    primal_ok = (feas | act).all(1)
+    g_res = torch.einsum('bij,bj->bi', p.H, x) + p.f \
+        + torch.einsum('bkn,bk->bn', Aw, lamK)
+    stat_ok = g_res.abs().amax(1) < 1e-3 * (1.0 + p.f.abs().amax(1))
+    return x, lamK, lane_do & dual_ok & primal_ok & stat_ok
+
+
+class AVISetup(NamedTuple):
+    """The batched AVI's set-up (``batch.py:1640-1687``), f32."""
+    prob: AVIProblem
+    rho: torch.Tensor        # (B,) the DR step
+    Hsym: torch.Tensor       # (B, n, n) sym(H)
+    Hs_rho: torch.Tensor     # (B, n, n) sym(H) + rho I, the QP metric
+    H_rho_lu: tuple          # LU of H + rho I
+    ldpd: transform.LDPData  # the projection QP's LDP (v = 0)
+    s: slot.SlotState        # cold slot state
+    bu_s: torch.Tensor       # (B, m) user bounds times the row scaling
+    bl_s: torch.Tensor
+    x_unc: torch.Tensor      # (B, n) unconstrained point H^-1 (-f)
+    unc_ok: torch.Tensor     # (B,) it is feasible: the lane is solved
+
+
+def avi_init(H, f, A, bupper, blower, sense, st: Settings, ms: int = 0,
+             device=None) -> AVISetup:
+    """Per lane rho = sqrt(min diag(sym H) * max row sum |sym H|), else
+    ||H||_F / 2 (``batch.py:1647-1654``); the LUs of H and H + rho I
+    (library calls: the JAX tier does this part in XLA); the LDP of the
+    projection QP in the sym(H) + rho I metric with v = 0 (v is set per
+    pass); the cold slot state; the scaled bounds; and the unconstrained
+    shortcut (utils.c:547-551)."""
+    dev = resolve_device((H, f, A, bupper, blower, sense), device)
+    f32 = torch.float32
+
+    def t(x, dtype=f32):
+        return torch.as_tensor(x, device=dev).to(dtype)
+
+    H, f, A, bu, bl = (t(x) for x in (H, f, A, bupper, blower))
+    if A.dim() == 2:
+        A = A[..., None]
+    B, n = H.shape[0], H.shape[-1]
+    m = bu.shape[-1]
+    sense = torch.zeros((B, m), dtype=torch.int32, device=dev) \
+        if sense is None else t(sense, torch.int32)
+    eye = torch.eye(n, dtype=f32, device=dev)
+    Hsym = 0.5 * (H + H.transpose(1, 2))
+    min_diag = torch.diagonal(Hsym, dim1=1, dim2=2).amin(1)
+    max_rs = Hsym.abs().sum(2).amax(1)
+    fro = torch.sqrt((H * H).sum((1, 2)))
+    rho = torch.where((min_diag > 0) & (max_rs > 0),
+                      torch.sqrt(torch.clamp(min_diag * max_rs, min=1e-30)),
+                      fro / 2)
+    Hs_rho = Hsym + rho[:, None, None] * eye
+    Aall = torch.cat([eye[:ms].expand(B, ms, n), A], dim=1) if ms else A
+    prob = AVIProblem(H=H, f=f, Aall=Aall, bu=bu, bl=bl,
+                      H_lu=torch.linalg.lu_factor_ex(H)[:2])
+    ldpd = transform.build_ldp(torch.zeros_like(f), A, bu, bl, sense, ms,
+                               st, H=Hs_rho)
+    immut = ((ldpd.sense & IMMUTABLE) > 0).to(f32)
+    s = slot.slot_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling, immut,
+                       n_true=n)
+    x_unc = _lu_solve(prob.H_lu, -f)
+    r_unc = torch.einsum('bmn,bn->bm', Aall, x_unc)
+    unc_ok = ((r_unc <= bu + st.primal_tol)
+              & (r_unc >= bl - st.primal_tol)).all(1) \
+        & ~((ldpd.sense & (ACTIVE | IMMUTABLE)) > 0).any(1)
+    return AVISetup(
+        prob=prob, rho=rho, Hsym=Hsym, Hs_rho=Hs_rho,
+        H_rho_lu=torch.linalg.lu_factor_ex(H + rho[:, None, None] * eye)[:2],
+        ldpd=ldpd, s=s, bu_s=(bu * ldpd.scaling).contiguous(),
+        bl_s=(bl * ldpd.scaling).contiguous(), x_unc=x_unc, unc_ok=unc_ok)
+
+
+def avi_segment_operands(a: AVISetup):
+    """B5's per-lane matrices and vectors: (Rinv, G1 = H - sym(H) - rho I,
+    G2 = sym(H)/2 + rho I, G3 = H - sym(H)/2, Hri = (H + rho I)^-1, f,
+    bu_s, bl_s) (``batch.py:1855-1872`` without the padding)."""
+    H, n = a.prob.H, a.prob.H.shape[-1]
+    eye = torch.eye(n, dtype=H.dtype, device=H.device)
+    Hri = _lu_solve(a.H_rho_lu, eye.expand_as(H))
+    return (a.ldpd.Rinv.contiguous(), (H - a.Hs_rho).contiguous(),
+            (0.5 * a.Hsym + a.rho[:, None, None] * eye).contiguous(),
+            (H - 0.5 * a.Hsym).contiguous(), Hri.contiguous(),
+            a.prob.f.contiguous(), a.bu_s, a.bl_s)
+
+
+def avi_carries(a: AVISetup):
+    """The cold carries of ``slot.AVI_LANE``: x = y = xold = 0, minres
+    INF, ctr 0, tlim 5, lane_run (not failed by the transform, not solved
+    by the shortcut), lflag and tot 0."""
+    B, n = a.prob.f.shape
+    dev = a.prob.f.device
+    zn = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    zb = torch.zeros(B, dtype=torch.float32, device=dev)
+    err = a.ldpd.error
+    flag = torch.where(err < 0, err, torch.where(a.unc_ok, EXIT_OPTIMAL,
+                                                 EXIT_RUNNING))
+    return (zn, zn, zn, torch.full_like(zb, DAQP_INF), zb,
+            torch.full_like(zb, 5.0), ((err >= 0) & ~a.unc_ok).to(zb.dtype),
+            flag.to(torch.int32), zb)
+
+
+def solve_batch_avi_kernel(H, f, A, bupper, blower, sense, st: Settings,
+                           ms: int = 0, max_outer: int = 500,
+                           fused: bool = True, deadline=None,
+                           device=None) -> BatchResult:
+    """Batched affine variational inequalities (find x with
+    H x + f + A' lam = 0 and lam complementary to l <= A x <= u, H
+    asymmetric): the Douglas-Rachford splitting of ``daqp_solve_avi``
+    (avi.c:6-101) over one slot state for the whole batch, as
+    ``solve_batch_avi_pallas_jit`` (``batch.py:1587``).
+
+    Per lane rho = sqrt(min diag(sym H) * max row sum |sym H|), else
+    ||H||_F / 2.  Each pass solves the projection QP in the sym(H) + rho I
+    metric warm on the slot tier; a lane whose inner set was stable for
+    ``tlim`` passes gets the exact KKT step on the original H
+    (``kkt_all``), which certifies it optimal or lets it iterate on; a
+    Newton step that increased the residual is reverted (avi.c:44-61).
+    Lanes whose unconstrained point is feasible exit at once.
+
+    ``fused=True`` runs ``PSEG`` passes per B5 launch
+    (``ops.slot.run_avi_segment``; its twin on the CPU), services the KKT
+    requests between segments, resumes lanes that failed inside a
+    segment on the per-pass path for PSEG passes, and Newton-refreshes E.
+    ``fused=False`` runs every pass as a warm ``slot_solve`` on K2.  Hard
+    rows only; a lane still running after ``max_outer`` passes exits
+    ITERLIMIT.  lam is the KKT step's, scattered to rows (0 on a lane the
+    KKT step never reached); fval = f'x."""
+    global avi_kkt_services, avi_resumed_lanes
+    if deadline is not None:
+        _unported(deadline)
+    a = avi_init(H, f, A, bupper, blower, sense, st, ms, device)
+    H, f, prob, Rinv = a.prob.H, a.prob.f, a.prob, a.ldpd.Rinv
+    B, n = f.shape
+    m = prob.bu.shape[1]
+    dev = f.device
+    f32 = torch.float32
+
+    def mv(M_, w):
+        return torch.einsum('bij,bj->bi', M_, w)
+
+    def passes(budget, s, x, y, xold, lamK, minres, ctr, tlim, lane_run,
+               flag, tot):
+        """The per-pass outer loop (``batch.py:1757-1820``) on K2."""
+        for _ in range(budget):
+            if not host_any(lane_run):
+                break
+            Hx = mv(H, x)
+            v = torch.einsum('bji,bj->bi', Rinv, Hx + f - mv(a.Hs_rho, x))
+            Mv = torch.einsum('bmj,bj->bm', s.M, v)
+            s = slot.reset_control(slot.slot_refresh_bounds(
+                s, a.bu_s + Mv, a.bl_s + Mv), lane_run)
+            # lanes that do not run (never started, stopped, or kept out
+            # of a resume) are held out of the solve
+            held = ~lane_run & (s.status == EXIT_RUNNING)
+            s = s._replace(status=torch.where(held, slot._HELD, s.status)
+                           .to(torch.int32))
+            s = slot.slot_solve(s, st, n_true=n, steps=AVI_STEPS)
+            s = s._replace(status=torch.where(held, EXIT_RUNNING, s.status)
+                           .to(torch.int32))
+            tot = tot + torch.where(lane_run, s.iterations, 0.0)
+            inner_ok = s.status > 0
+            y_in = mv(Rinv, s.u - v)
+            # Newton-step progress bookkeeping (avi.c:44-61)
+            at_limit = ctr == tlim
+            res2 = ((x - y_in) ** 2).sum(1)
+            worse = at_limit & (res2 > minres)
+            x = torch.where(worse[:, None], xold, x)
+            tlim = torch.where(worse, torch.clamp(tlim + 5.0, max=30.0),
+                               tlim)
+            minres = torch.where(at_limit & ~worse, res2, minres)
+            y = torch.where((at_limit & worse)[:, None], y, y_in)
+            stable = s.iterations <= 1
+            ctr = torch.where(stable & lane_run, ctr + 1.0, 0.0)
+            do_kkt = stable & (ctr == tlim) & lane_run & inner_ok
+            if host_any(do_kkt):
+                x_kkt, lam_new, opt = kkt_all(s, do_kkt, prob, st)
+                xold = torch.where(do_kkt[:, None], x, xold)
+                x = torch.where(do_kkt[:, None], x_kkt, x)
+                lamK = torch.where(do_kkt[:, None], lam_new, lamK)
+                flag = torch.where(opt & (flag == EXIT_RUNNING),
+                                   EXIT_OPTIMAL, flag)
+            # DR update for the running non-KKT lanes (avi.c:84-96)
+            x_dr = _lu_solve(a.H_rho_lu, a.rho[:, None] * y + Hx
+                             + 0.5 * mv(a.Hsym, y - x))
+            move = lane_run & ~do_kkt & inner_ok
+            x = torch.where(move[:, None], x_dr, x)
+            flag = torch.where(lane_run & ~inner_ok, s.status, flag)
+            done = lane_run & ((flag != EXIT_RUNNING) | ~inner_ok)
+            lane_run = lane_run & ~done
+        return (s, x, y, xold, lamK, minres, ctr, tlim, lane_run,
+                flag.to(torch.int32), tot)
+
+    x, y, xold, minres, ctr, tlim, lr, flag, tot = avi_carries(a)
+    lamK = torch.zeros((B, a.s.E.shape[1]), dtype=f32, device=dev)
+    s = a.s
+    if not fused:
+        s, x, y, xold, lamK, minres, ctr, tlim, lr, flag, tot = passes(
+            max_outer, s, x, y, xold, lamK, minres, ctr, tlim, lr > 0, flag,
+            tot)
+    else:
+        ops_ = avi_segment_operands(a)
+        for _ in range(0, max_outer, PSEG):
+            if not host_any(lr > 0):
+                break
+            (s, x, y, xold, minres, ctr, tlim, lr, flag, tot, failed,
+             kktq) = slot.run_avi_segment(
+                s, x, y, xold, minres, ctr, tlim, lr, flag, tot, *ops_, st,
+                n, P=PSEG, steps=AVI_STEPS)
+            kq = kktq > 0
+            if host_any(kq):
+                avi_kkt_services += 1
+                x_kkt, lam_new, opt = kkt_all(s, kq, prob, st)
+                xold = torch.where(kq[:, None], x, xold)
+                x = torch.where(kq[:, None], x_kkt, x)
+                lamK = torch.where(kq[:, None], lam_new, lamK)
+                flag = torch.where(opt & (flag == EXIT_RUNNING),
+                                   EXIT_OPTIMAL, flag).to(torch.int32)
+                lr = torch.where(opt, 0.0, lr)
+            fl = failed > 0
+            if host_any(fl):
+                avi_resumed_lanes += int(fl.sum())
+                # per-lane resume of the lanes that froze in the segment
+                r = passes(PSEG, s, x, y, xold, lamK, minres, ctr, tlim, fl,
+                           flag, tot)
+                s = slot.select_lanes(fl, r[0], s)
+                x, y, xold, lamK, minres, ctr, tlim, lr, flag, tot = (
+                    torch.where(fl.view((-1,) + (1,) * (new.dim() - 1)),
+                                new.to(old.dtype), old)
+                    for new, old in zip(r[1:], (x, y, xold, lamK, minres,
+                                                ctr, tlim, lr, flag, tot)))
+            s = slot.newton_refresh(s)
+    lane_run = lr > 0
+    flag = torch.where(lane_run, EXIT_ITERLIMIT, flag)
+    x = torch.where(a.unc_ok[:, None], a.x_unc, x)
+    # the KKT duals scattered from slots to rows
+    oh = (s.sid[:, :, None] == torch.arange(m, dtype=f32, device=dev)
+          ).to(f32) * s.used[:, :, None]
+    lam = torch.einsum('bkm,bk->bm', oh, lamK)
+    return BatchResult(x=x, lam=lam, fval=(f * x).sum(1),
+                       exitflag=flag.to(torch.int32),
                        iterations=torch.clamp(tot, min=1.0).to(torch.int32),
                        soft_slack=torch.zeros(B, dtype=f32, device=dev))
 

@@ -54,10 +54,12 @@ def slot_state_to_numpy(s: SlotState) -> dict:
 
 
 # DenseState fields of the JAX package beside the port's (pending one-hot
-# pend_oh -> row index pid; the SOFT_WEIGHTS fields are not carried)
+# pend_oh -> row index pid); the SOFT_WEIGHTS fields carry over where the
+# JAX state has them
 _JAX_NAME = {"plam": "pend_lam", "plo": "pend_lo"}
 _DENSE_SCALARS = ("fbound", "pend", "pend_lam", "pend_lo", "fval",
-                  "best_fval", "cycle", "repaired", "iterations", "status")
+                  "best_fval", "cycle", "repaired", "iterations", "status",
+                  "pfix")
 
 
 def dense_state_from_jax(s, m: int = None, n: int = None,
@@ -67,12 +69,16 @@ def dense_state_from_jax(s, m: int = None, n: int = None,
     The JAX package pads m and n to multiples of 8; ``m`` / ``n`` (the true
     sizes, default: keep all) slice the padded rows and columns off.  The
     pending entry's (m, B) one-hot becomes the row index ``pid`` (-1 where
-    no row is flagged)."""
+    no row is flagged).  A SOFT_WEIGHTS state's ``sw_*``, ``sfix`` and
+    ``pfix`` carry over; on a plain or soft state they stay None."""
     fields = {}
     for name in DenseState._fields:
         if name == "pid":
             continue
         src = _JAX_NAME.get(name, name)
+        if getattr(s, src, None) is None:
+            fields[name] = None
+            continue
         a = np.moveaxis(np.asarray(getattr(s, src)), -1, 0)
         if src in _DENSE_SCALARS:
             a = a[:, 0]
@@ -97,7 +103,7 @@ def dense_state_to_numpy(s: DenseState) -> dict:
     lanes-last layout and field names, ``pend_oh`` rebuilt from ``pid``."""
     out = {}
     for name in DenseState._fields:
-        if name == "pid":
+        if name == "pid" or getattr(s, name) is None:
             continue
         a = getattr(s, name).detach().cpu().numpy()
         jname = _JAX_NAME.get(name, name)

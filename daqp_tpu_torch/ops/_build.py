@@ -44,10 +44,15 @@ _SIGNATURES = {
     #  the six tolerances, bland, stream)
     "prox_segment_f32": [_P, _I, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _F, _I, _P],
-    # (host array of 39 device pointers, B, m, n, n_true, steps, the six
-    #  tolerances, bland, rho_soft, has_soft, stream)
+    # (host array of 47 device pointers, the last 8 null unless has_sw,
+    #  B, m, n, n_true, steps, the six tolerances, bland, rho_soft,
+    #  has_soft, has_sw, stream)
     "dense_round_f32": [_P, _I, _I, _I, _I, _I,
-                        _F, _F, _F, _F, _F, _F, _I, _F, _I, _P],
+                        _F, _F, _F, _F, _F, _F, _I, _F, _I, _I, _P],
+    # (host array of 79 device pointers, B, m, n, K, n_true, steps, P,
+    #  the six tolerances, bland, stream)
+    "avi_segment_f32": [_P, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _F, _F, _F, _F, _F, _I, _P],
 }
 
 _lib = None

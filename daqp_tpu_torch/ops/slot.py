@@ -22,13 +22,15 @@ CUDA tensors and runs ``run_slot_round_plain`` on CPU tensors.  The
 rounds, ``exact_repair`` and the polish cycles run on the host, each
 masked per lane, so a lane's result depends on that lane alone.
 
-The two segment kernels run K2's step (``csrc/slot_step.cuh``) inside
+The three segment kernels run K2's step (``csrc/slot_step.cuh``) inside
 an outer loop: ``run_mpc_segment`` (B3, ``csrc/mpc_segment.cu``,
-replacing ``pallas_slot.py:1866``) runs P warm MPC horizon steps and
+replacing ``pallas_slot.py:1866``) runs P warm MPC horizon steps,
 ``run_prox_segment`` (B4, ``csrc/prox_segment.cu``, replacing
-``pallas_slot.py:1110``) runs P proximal passes, each with a plain twin
-for CPU tensors.  In both, a lane that stops (frozen, done) is left as it
-is for the rest of the segment, in the kernel and the twin alike.
+``pallas_slot.py:1110``) runs P proximal passes and ``run_avi_segment``
+(B5, ``csrc/avi_segment.cu``, replacing ``pallas_slot.py:1783``) runs P
+Douglas-Rachford passes of the batched AVI, each with a plain twin for
+CPU tensors.  In all three, a lane that stops (frozen, done) is left as
+it is for the rest of the segment, in the kernel and the twin alike.
 """
 from __future__ import annotations
 
@@ -42,11 +44,12 @@ from ..types import (Settings, DAQP_INF, EXIT_CYCLE, EXIT_INFEASIBLE,
                      EXIT_ITERLIMIT, EXIT_OPTIMAL, EXIT_REFACTOR,
                      EXIT_RUNNING, PRICING_BLAND)
 
-# kernel launches of run_slot_round (K2), run_mpc_segment (B3) and
-# run_prox_segment (B4); the caller resets them
+# kernel launches of run_slot_round (K2), run_mpc_segment (B3),
+# run_prox_segment (B4) and run_avi_segment (B5); the caller resets them
 launches = 0
 mpc_launches = 0
 prox_launches = 0
+avi_launches = 0
 STEPS = 192         # iterations per kernel round
 MAX_ROUNDS = 16     # live rounds per lane
 # status of a RUNNING lane kept out of one round (iteration or round
@@ -335,9 +338,9 @@ def _state_items(s: SlotState, names):
 def _launch(entry: str, tensors, dims, st: Settings, dev,
             tail=()) -> None:
     """Call the C entry ``entry`` with a host table of the tensors'
-    device pointers, the int ``dims``, the tolerances, the Bland flag,
-    the entry's own ``tail`` arguments and the stream."""
-    ptrs = [x.data_ptr() for x in tensors]
+    device pointers (null for None), the int ``dims``, the tolerances, the
+    Bland flag, the entry's own ``tail`` arguments and the stream."""
+    ptrs = [0 if x is None else x.data_ptr() for x in tensors]
     table = (ctypes.c_void_p * len(ptrs))(*ptrs)
     rc = getattr(_build.library(), entry)(
         ctypes.addressof(table), *map(int, dims),
@@ -655,13 +658,16 @@ def _in_trouble(status) -> torch.Tensor:
         | (status == EXIT_REFACTOR)
 
 
-def _solve_retry_plain(s: SlotState, st: Settings, n_true: int,
-                       steps: int) -> SlotState:
-    """The segment kernels' warm solve in torch ops: ``steps`` iterations,
-    then on CYCLE / REFACTOR the cold retry (``pallas_slot.py:834-870``):
-    the lane's table, E, W, lam, u and fval are cleared and the step runs
+def solve_retry(s: SlotState, st: Settings, n_true: int, steps: int,
+                round_fn=None) -> SlotState:
+    """The segment kernels' warm solve: ``steps`` iterations of
+    ``round_fn`` (default the twin ``run_slot_round_plain``; K2's
+    ``run_slot_round`` replays a segment kernel's inner solve), then on
+    CYCLE / REFACTOR the cold retry (``pallas_slot.py:834-870``): the
+    lane's table, E, W, lam, u and fval are cleared and the step runs
     again, on those lanes alone.  ``iterations`` counts both attempts."""
-    s = run_slot_round_plain(s, st, n_true, steps)
+    round_fn = round_fn or run_slot_round_plain
+    s = round_fn(s, st, n_true, steps)
     cyc = (s.status == EXIT_CYCLE) | (s.status == EXIT_REFACTOR)
     if not host_any(cyc):
         return s
@@ -677,7 +683,7 @@ def _solve_retry_plain(s: SlotState, st: Settings, n_true: int,
         cycle=s.cycle * keep, E=s.E * keep[:, None, None],
         W=s.W * keep[:, None, None],
         status=torch.where(cyc, EXIT_RUNNING, s.status).to(torch.int32))
-    return select_lanes(cyc, run_slot_round_plain(cold, st, n_true, steps), s)
+    return select_lanes(cyc, round_fn(cold, st, n_true, steps), s)
 
 
 def run_mpc_segment_plain(s: SlotState, duq, dlq, st: Settings,
@@ -693,7 +699,7 @@ def run_mpc_segment_plain(s: SlotState, duq, dlq, st: Settings,
     for p in range(P):
         live = ~failed
         s1 = reset_control(slot_refresh_bounds(s, duq[:, p], dlq[:, p]))
-        s1 = _solve_retry_plain(s1, st, n_true, steps)
+        s1 = solve_retry(s1, st, n_true, steps)
         failed = failed | (live & _in_trouble(s1.status))
         s = select_lanes(live, s1, s)
         useq.append(s.u)
@@ -776,7 +782,7 @@ def run_prox_segment_plain(s: SlotState, x, lane_run, stall, best_diff,
         v = torch.einsum('bji,bj->bi', Rinv, fz - eps[:, None] * x)
         Mv = torch.einsum('bmj,bj->bm', s.M, v)
         s1 = reset_control(slot_refresh_bounds(s, bus + Mv, bls + Mv))
-        s1 = _solve_retry_plain(s1, st, n_true, steps)
+        s1 = solve_retry(s1, st, n_true, steps)
         bad = _in_trouble(s1.status)
         run2 = ~bad
         x_new = torch.einsum('bij,bj->bi', Rinv, s1.u - v)
@@ -853,6 +859,180 @@ def run_prox_segment(s: SlotState, x, lane_run, stall, best_diff, lflag,
         lane_out = lane
     return (s._replace(**outs),) + tuple(lane_out[k] for k in PROX_LANE) \
         + (failed,)
+
+
+# per-lane carries of the AVI segment, in the order of the CUDA entry
+# (avi_segment.cu, enum Ptr): x, y, xold (B, n); minres, ctr, tlim,
+# lane_run (B,) f32, lflag (B,) int32, tot (B,) f32
+AVI_LANE = ("x", "y", "xold", "minres", "ctr", "tlim", "lane_run", "lflag",
+            "tot")
+# per-lane matrices of the AVI segment: Rinv, G1, G2, G3, Hri (B, n, n)
+AVI_MATS = ("Rinv", "G1", "G2", "G3", "Hri")
+
+
+def run_avi_segment_plain(s: SlotState, x, y, xold, minres, ctr, tlim,
+                          lane_run, lflag, tot, Rinv, G1, G2, G3, Hri, fz,
+                          bus, bls, st: Settings, n_true: int, P: int = 8,
+                          steps: int = 64, bounds: bool = False):
+    """B5's twin in torch ops: up to P Douglas-Rachford passes of the
+    batched AVI (avi.c:6-101, ``pallas_slot.py:1654-1757``).  Per pass, on
+    the lanes that run (``lane_run > 0``, not failed, no KKT request):
+    v = Rinv'(G1 x + f), d = b_s + M v, dsl refresh, control reset, warm
+    solve with the cold retry, y = Rinv (u - v), the Newton-step
+    bookkeeping (a worse residual at the limit reverts x to xold and
+    raises tlim by 5, at most 30), the stable-set counter, and for a lane
+    that is neither stable for tlim passes (``kkt_req``, frozen) nor
+    failed the DR update x = Hri (G2 y + G3 x); ``tot += iterations``.
+    A lane whose solve stays in trouble raises ``failed`` and keeps
+    ``lane_run``; one whose solve ends loud stops with its flag.  A lane
+    that stops is left as it is.  With ``bounds`` the last pass's bounds
+    (du, dl) follow, NaN on a lane that ran no pass."""
+    B = x.shape[0]
+    failed = torch.zeros(B, dtype=torch.bool, device=x.device)
+    kkt = torch.zeros_like(failed)
+    du0, dl0 = s.dupper, s.dlower
+    du_o = torch.full_like(bus, float("nan"))
+    dl_o = torch.full_like(bls, float("nan"))
+    carry = (x, y, xold, minres, ctr, tlim, lane_run, lflag, tot)
+    for _ in range(P):
+        run = (carry[6] > 0) & ~failed & ~kkt
+        if not host_any(run):
+            break
+        v, du, dl = avi_pass_bounds(s, carry[0], Rinv, G1, fz, bus, bls)
+        s1 = avi_pass_solve(s, du, dl, run, st, n_true, steps)
+        *carry, bad, do_kkt = avi_pass_outer(carry, run, v, s1.u, s1.status,
+                                             s1.iterations, Rinv, G2, G3,
+                                             Hri)
+        s = select_lanes(run, s1, s)
+        du_o = torch.where(run[:, None], du, du_o)
+        dl_o = torch.where(run[:, None], dl, dl_o)
+        failed = failed | bad
+        kkt = kkt | do_kkt
+    out = (s._replace(dupper=du0, dlower=dl0), *carry,
+           failed.to(x.dtype), kkt.to(x.dtype))
+    return out + (du_o, dl_o) if bounds else out
+
+
+def avi_pass_bounds(s: SlotState, x, Rinv, G1, fz, bus, bls):
+    """One AVI pass's v = Rinv'(G1 x + f) and bounds d = b_s + M v
+    (``pallas_slot.py:1658-1662``): (v, du, dl)."""
+    v = torch.einsum('bji,bj->bi', Rinv,
+                     torch.einsum('bij,bj->bi', G1, x) + fz)
+    Mv = torch.einsum('bmj,bj->bm', s.M, v)
+    return v, bus + Mv, bls + Mv
+
+
+def avi_pass_solve(s: SlotState, du, dl, run, st: Settings, n_true: int,
+                   steps: int = 64, round_fn=None) -> SlotState:
+    """One AVI pass's inner solve (``pallas_slot.py:1663-1713``) on the
+    lanes where ``run`` holds, with the bounds (du, dl): dsl refresh, the
+    control reset and the warm solve with the cold retry (``solve_retry``
+    with ``round_fn``; K2's ``run_slot_round`` replays the kernel's).
+    Other lanes are held."""
+    s1 = reset_control(slot_refresh_bounds(s, du, dl), run)
+    s1 = s1._replace(status=torch.where(run, s1.status, _HELD)
+                     .to(torch.int32))
+    return solve_retry(s1, st, n_true, steps, round_fn)
+
+
+def avi_pass_outer(carry, run, v, u, status, iterations, Rinv, G2, G3, Hri):
+    """The second half of one AVI pass (avi.c:44-96, ``pallas_slot.py:
+    1715-1754``) from the inner solve's (u, status, iterations): ``failed``
+    where the solve stayed in trouble, y = Rinv (u - v), the Newton-step
+    bookkeeping (a worse residual at the limit reverts x to xold and raises
+    tlim by 5, at most 30), the stable-set counter, ``kkt_req`` for a lane
+    stable for tlim passes, the DR update x = Hri (G2 y + G3 x) for the
+    others, a loud solve's flag and ``tot += iterations``.  ``carry`` is
+    the tuple of ``AVI_LANE``; returns it updated, then (failed, kkt_req)
+    as (B,) bool."""
+    x, y, xold, minres, ctr, tlim, lane_run, lflag, tot = carry
+
+    def mv(A, w):
+        return torch.einsum('bij,bj->bi', A, w)
+
+    bad = run & _in_trouble(status)
+    run2 = run & ~bad
+    inner_ok = (status > 0) & run2
+    y_in = mv(Rinv, u - v)
+    at_limit = (ctr == tlim) & run2
+    res2 = ((x - y_in) ** 2).sum(1)
+    worse = at_limit & (res2 > minres)
+    x1 = torch.where(worse[:, None], xold, x)
+    tlim = torch.where(worse, torch.clamp(tlim + 5.0, max=30.0), tlim)
+    minres = torch.where(at_limit & ~worse, res2, minres)
+    y = torch.where((run2 & ~worse)[:, None], y_in, y)
+    stable = (iterations <= 1.0) & run2
+    ctr = torch.where(stable, ctr + 1.0, torch.where(run2, 0.0, ctr))
+    do_kkt = stable & (ctr == tlim) & inner_ok
+    move = run2 & ~do_kkt & inner_ok
+    x_dr = mv(Hri, mv(G2, y) + mv(G3, x1))
+    x = torch.where(move[:, None], x_dr, x1)
+    done = run2 & ~(status > 0)
+    lflag = torch.where(done, status, lflag).to(torch.int32)
+    lane_run = torch.where(done, 0.0, lane_run)
+    tot = torch.where(run, tot + iterations, tot)
+    return x, y, xold, minres, ctr, tlim, lane_run, lflag, tot, bad, do_kkt
+
+
+def run_avi_segment(s: SlotState, x, y, xold, minres, ctr, tlim, lane_run,
+                    lflag, tot, Rinv, G1, G2, G3, Hri, fz, bus, bls,
+                    st: Settings, n_true: int, P: int = 8, steps: int = 64,
+                    bounds: bool = False):
+    """B5 wrapper: up to P Douglas-Rachford AVI passes in one launch.
+
+    Batch-leading operands: the carries of ``AVI_LANE`` (x, y, xold
+    (B, n); minres, ctr, tlim, lane_run, tot (B,) f32; lflag (B,) int32),
+    the per-lane matrices Rinv (the LDP factor of sym(H) + rho I), G1 =
+    H - sym(H) - rho I, G2 = sym(H)/2 + rho I, G3 = H - sym(H)/2 and Hri =
+    (H + rho I)^-1 (B, n, n), f as ``fz`` (B, n) and the scaled user bounds
+    ``bus``/``bls`` (B, m).  Returns ``(s', x, y, xold, minres, ctr, tlim,
+    lane_run, lflag, tot, failed, kkt_req)``, the last two (B,) f32 freeze
+    channels: a lane with ``kkt_req`` waits for the driver's exact KKT
+    step, one with ``failed`` for its per-pass resume.  With ``bounds``
+    the last pass's bounds (du, dl) (B, m) follow, NaN on a lane that ran
+    no pass.  The CUDA kernel runs on CUDA tensors, the plain twin on CPU
+    tensors."""
+    global avi_launches
+    args = (x, y, xold, minres, ctr, tlim, lane_run, lflag, tot)
+    mats = (Rinv, G1, G2, G3, Hri)
+    dev = s.M.device
+    if dev.type == "cpu":
+        return run_avi_segment_plain(s, *args, *mats, fz, bus, bls, st,
+                                     n_true, P, steps, bounds)
+    _cuda_device("run_avi_segment", dev)
+    B, m, n = s.M.shape
+    K = s.E.shape[1]
+    f32 = torch.float32
+    lane = dict(zip(AVI_LANE, args))
+    _check("run_avi_segment", dev,
+           _state_items(s, SEG_CONST + STATE)
+           + [(k, v, (B, n, n), f32) for k, v in zip(AVI_MATS, mats)]
+           + [("fz", fz, (B, n), f32), ("bus", bus, (B, m), f32),
+              ("bls", bls, (B, m), f32)]
+           + [(k, v, (B, n) if k in ("x", "y", "xold") else (B,),
+               torch.int32 if k == "lflag" else f32)
+              for k, v in lane.items()])
+    outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
+    lane_out = {k: torch.empty_like(v) for k, v in lane.items()}
+    failed = torch.empty((B,), dtype=f32, device=dev)
+    kkt = torch.empty((B,), dtype=f32, device=dev)
+    d_out = [torch.full_like(bus, float("nan")),
+             torch.full_like(bls, float("nan"))] if bounds else [None, None]
+    if B:
+        _launch("avi_segment_f32",
+                [getattr(s, name) for name in SEG_CONST] + list(mats)
+                + [fz, bus, bls]
+                + [getattr(s, name) for name in STATE]
+                + [lane[k] for k in AVI_LANE]
+                + [outs[name] for name in STATE]
+                + [lane_out[k] for k in AVI_LANE] + [failed, kkt] + d_out,
+                (B, m, n, K, n_true, steps, P), st, dev)
+        avi_launches += 1
+    else:
+        lane_out = lane
+    out = (s._replace(**outs),) + tuple(lane_out[k] for k in AVI_LANE) \
+        + (failed, kkt)
+    return out + tuple(d_out) if bounds else out
 
 
 def slot_duals_dense(s: SlotState) -> torch.Tensor:

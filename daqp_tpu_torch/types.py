@@ -1,7 +1,8 @@
 """Settings, constraint-sense bits and exit flags of the PyTorch port.
 
 Counterpart of ``daqp_tpu/types.py`` (sense bits :26-31, exit flags
-:36-56, ``Settings`` :87-114, ``default_settings_f32`` :121-148), of
+:36-56, ``Settings`` :87-114, ``default_settings_f32`` :121-148,
+``SoftWeights`` :151), of
 ``daqp_tpu/api.py:24 _as_settings`` and of ``daqp_tpu/ldp_flat.py:65
 EXIT_REFACTOR``.  Same names, values and defaults; no jax.
 """
@@ -58,6 +59,18 @@ FLAG_TO_STATUS = {
 
 PRICING_DANTZIG = 0
 PRICING_BLAND = 1
+
+
+class SoftWeights(NamedTuple):
+    """Per-row slack bounds and per-side weights of the reference's
+    SOFT_WEIGHTS build (types.h:168-180, auxiliary.c:199-274), each
+    (B, m) in raw user units; read on SOFT rows only.  A soft row's upper
+    side relaxes to ``bupper + sqrt(rho_us) t`` with the penalty
+    0.5 (t + d_us sqrt(rho_us))^2, its lower side likewise."""
+    d_ls: torch.Tensor
+    d_us: torch.Tensor
+    rho_ls: torch.Tensor
+    rho_us: torch.Tensor
 
 
 class Settings(NamedTuple):

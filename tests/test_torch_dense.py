@@ -82,7 +82,7 @@ def _cold(case):
 def _port(sj, m, n):
     """The JAX state's first BP lanes as the port's state."""
     s = convert.dense_state_from_jax(sj, m, n)
-    return dense.DenseState(*(x[:BP].contiguous() for x in s))
+    return dense.map_state(lambda x: x[:BP].contiguous(), s)
 
 
 def _jax_np(sj, m, n):

@@ -22,9 +22,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_import_leaves_jax_out():
+    # every module of the package, and every kernel source has its C
+    # entry bound (one extern "C" function per .cu file)
     code = ("import sys, daqp_tpu_torch, daqp_tpu_torch.mpc, "
             "daqp_tpu_torch.prox, daqp_tpu_torch.ops.dense, "
-            "daqp_tpu_torch.convert; "
+            "daqp_tpu_torch.ops.slot, daqp_tpu_torch.convert; "
+            "from daqp_tpu_torch.ops import _build; "
+            "srcs = sorted(p.stem for p in _build._CSRC.glob('*.cu')); "
+            "assert srcs == sorted(k[:-4] for k in _build._SIGNATURES), srcs; "
+            "assert 'avi_segment' in srcs; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'daqp_tpu' not in sys.modules, 'daqp_tpu imported'")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -87,6 +93,13 @@ def test_segment_kernels_raise_on_meta():
             torch.empty((2, 3, 3), device="meta"),
             torch.empty((2, 3), device="meta"),
             *(torch.empty((2, 4), device="meta"),) * 2, vec, vec, st, 3)
+    with pytest.raises(ValueError, match="device meta"):
+        pslot.run_avi_segment(
+            s, *(torch.empty((2, 3), device="meta"),) * 3, vec, vec, vec,
+            vec, torch.empty((2,), dtype=torch.int32, device="meta"), vec,
+            *(torch.empty((2, 3, 3), device="meta"),) * 5,
+            torch.empty((2, 3), device="meta"),
+            *(torch.empty((2, 4), device="meta"),) * 2, st, 3)
 
 
 def test_dense_kernel_raises_on_meta():
@@ -133,6 +146,8 @@ def test_numpy_inputs_without_device_need_a_card():
         dt.solve_batch_hiqp_kernel(None, *args[1:], st=st,
                                    break_points=(0, 5))
     with pytest.raises(RuntimeError, match="CUDA"):
+        dt.solve_batch_avi_kernel(*args, st=st)
+    with pytest.raises(RuntimeError, match="CUDA"):
         dt.solve_mpc_scan_kernel_fused(d['H'][0], d['A'][0],
                                        d['f'][:, None], d['bupper'][:, None],
                                        d['blower'][:, None], st)
@@ -160,7 +175,7 @@ def test_mixed_devices_raise():
 
 
 @pytest.mark.parametrize("kw", [dict(has_soft=True),
-                                dict(sw=object()),
+                                dict(sw=True),
                                 dict(guess_cap=10),
                                 dict(deadline=1.0)])
 def test_unported_options_raise(kw):
@@ -175,6 +190,24 @@ def test_unported_options_raise(kw):
             r = solve(*args, st=st, **kw)
             assert (r.exitflag.numpy() > 0).all(), r.exitflag
             assert np.abs(r.x.numpy() - d['x']).max() < 1e-3
+        return
+    if kw.get("sw"):
+        # ported: SOFT_WEIGHTS data solves on B7's SOFT_WEIGHTS variant,
+        # here against the lifted slack QP in f64
+        from tests.test_soft_weights import _lift_and_solve
+        args[5] = args[5] | dt.SOFT
+        z = np.zeros((4, 5), np.float32)
+        sw = dt.SoftWeights(*map(torch.as_tensor, (z, z + 0.1, z + 1.0,
+                                                   z + 2.0)))
+        for solve in (dt.solve_batch_kernel_stream, dt.solve_batch_kernel):
+            r = solve(*args, st=st, sw=sw)
+            assert (r.exitflag.numpy() > 0).all(), r.exitflag
+            for b in range(4):
+                ref = _lift_and_solve(
+                    *(d[k][b].astype(np.float64) for k in
+                      ('H', 'f', 'A', 'bupper', 'blower')), range(5),
+                    z[b] + 0.0, z[b] + 0.1, z[b] + 1.0, z[b] + 2.0)
+                assert np.abs(r.x[b].numpy() - ref).max() < 5e-4
         return
     with pytest.raises(NotImplementedError):
         dt.solve_batch_kernel_stream(*args, st=st, **kw)
