@@ -10,8 +10,9 @@ For BASELINE config 2 (``solve_batch_kernel_stream``, chunk 256), its
 soft variant (rows 0-19 SOFT, ``has_soft=True``), its SOFT_WEIGHTS
 variant (``sw=``), config 3 (``solve_mpc_scan_kernel_fused``, seg 10),
 config 4 (``solve_batch_prox_kernel``), config 4b
-(``solve_batch_hiqp_kernel``) and configAVI (``solve_batch_avi_kernel``),
-at the data of ``chip_smoke.py``, it runs
+(``solve_batch_hiqp_kernel``), configAVI (``solve_batch_avi_kernel``)
+and configLP (``solve_batch_lp_kernel``, per-pass and fused), at the data
+of ``chip_smoke.py``, it runs
 one warm-up call and then one call under ``torch.profiler`` (CPU and
 CUDA activities), and prints one JSON line per cell: the host wall of the
 profiled call, the device time summed over kernels, the device's busy and
@@ -115,6 +116,15 @@ def main():
     args_avi = [torch.as_tensor(d_avi[k], device=dev) for k in keys]
     profiled("configAVI", lambda: dt.solve_batch_avi_kernel(*args_avi, st),
              card)
+
+    d_lp = cs.config_lp(gen)
+    args_lp = [torch.as_tensor(d_lp[k], device=dev)
+               for k in ('f', 'A', 'bupper', 'blower', 'sense')]
+    st_lp = dt.as_settings({"iter_limit": 3000}, torch.float32)
+    for fused in (False, True):
+        profiled("configLP_fused" if fused else "configLP",
+                 lambda: dt.solve_batch_lp_kernel(*args_lp, st_lp,
+                                                  fused=fused), card)
     print(card, flush=True)
     return 0
 

@@ -8,8 +8,8 @@ Run from the repository root on a machine with a CUDA card:
 It builds the port's CUDA kernels from ``daqp_tpu_torch/ops/csrc`` (one
 nvcc per source, in parallel, into ``build/daqp_tpu_torch``), holds each
 kernel against its plain PyTorch twin at the main paths' shapes, and
-drives the port's seven paths once each, every launch count set to 0
-just before and read just after:
+drives the port's paths once each, every launch count set to 0 just
+before and read just after:
 
 * ``slice``: BASELINE config 2 (B = 10240 dense strictly convex QPs,
   n = 50, m = 100 two-sided rows, ~40 active, kappa 1e2, generator seed
@@ -39,10 +39,16 @@ just before and read just after:
 * ``avi``: configAVI (``bench_extra.py:299-339``: B = 256 two-sided
   affine variational inequalities, n = 20, m = 50, seed 29) through
   ``solve_batch_avi_kernel``, checked against the constructed solutions
-  (B5, K2).
+  (B5, K2);
+* ``lp``: configLP (``bench_extra.py:245-296``: B = 256 LPs, n = 10,
+  m = 50, seed 17, constructed vertex optimal) through
+  ``solve_batch_lp_kernel`` on both paths, each its own count window:
+  ``fused=False`` (K2) and ``fused=True`` (B6, and K2 for the retries),
+  checked by ``bench_extra.py``'s objective-gap and feasibility gate
+  against the JAX package's own census on the same lanes.
 
-Phases ``k1``-``k5`` and ``k7`` hold each kernel against its plain twin
-at the paths' shapes.  Each phase prints one JSON line with its seconds;
+Phases ``k1``-``k7`` hold each kernel against its plain twin at the
+paths' shapes.  Each phase prints one JSON line with its seconds;
 then come the kernel table, the card's name and power limit, and as the
 last line ``{"ok": true, "device": ...}``.  Any failed check or error
 exits non-zero without that line; so does a machine without a CUDA
@@ -137,6 +143,32 @@ AVI_OPT = 0.9 if JAX_AVI_OPT_RATE >= 0.9 else JAX_AVI_OPT_RATE - 0.03
 # (y and the DR step, four chained n x n products) by / (1 + ||x||_inf)
 BOUNDS_TOL = 1e-5
 OUTER_TOL = 1e-4
+# configLP (bench_extra.py:253-262) and bench_lp's accuracy gate (:279):
+# flag 1, relative objective gap and feasibility violation below 1e-4
+B_LP, N_LP, M_LP, SEED_LP = 256, 10, 50, 17
+LP_TOL = 1e-4
+# The JAX tier's census on these 256 lanes (solve_batch_lp_pallas_jit,
+# interpret mode on the CPU, x64 as the tests run it, iter_limit 3000;
+# measured by `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_lp.py`):
+# its loud lanes and the lanes it flags 1 beyond the gate, per path.  The
+# fused path's six pass the tier's own certificate, whose feasibility test
+# is 10 primal_tol (1 + max|b|) ~ 3e-3 here (ROADMAP Queue C).  The port
+# may flag 1 beyond the gate at most as many lanes as the JAX tier, each
+# of them passing the tier's certificate re-checked in f64
+# (``lp_recheck``).  Unlike the JAX tier, the port turns loud a flag-1
+# lane its certificate cannot judge and whose own duals are not
+# stationary (batch.LP_DUAL_TOL), so a lane the JAX tier flags 1 beyond
+# the gate may be loud on the port: the optimal-rate gate is 0.9
+# (tests/test_batch_lp.py:42) or 1 - twice the share of lanes the JAX tier
+# does not solve within the gate (loud, or flagged 1 beyond it),
+# whichever is higher.
+JAX_LP_LOUD = {"per_pass": (234,), "fused": (57, 81, 156, 216, 234)}
+JAX_LP_BEYOND = {"per_pass": (), "fused": (11, 118, 119, 202, 218, 231)}
+LP_OPT = {k: max(0.9, 1.0 - 2.0 * (len(v) + len(JAX_LP_BEYOND[k])) / B_LP)
+          for k, v in JAX_LP_LOUD.items()}
+K6_AGREE = 0.97       # lanes whose failed, lane_run, lflag agree (segment)
+LP_OUTER_AGREE = 0.999  # lane-passes whose outer half decides as the twin's
+LP_E_TOL = 1e-2       # E after the bordered add, / (1 + ||E||_inf)
 # one H100 SXM, published peaks: f32 outside the tensor cores,
 # HBM bandwidth
 PEAK_F32 = 67e12
@@ -257,8 +289,10 @@ def sw_step_flops(m, n):
 def reset_counts():
     chol.launches = slot.launches = dense.launches = 0
     slot.mpc_launches = slot.prox_launches = slot.avi_launches = 0
+    slot.lp_launches = 0
     ops.host_syncs = pmpc.redone_segments = pbatch.prox_resumed_lanes = 0
     pbatch.avi_kkt_services = pbatch.avi_resumed_lanes = 0
+    pbatch.lp_resumed_lanes = pbatch.lp_certified_lanes = 0
 
 
 def read_counts():
@@ -266,7 +300,8 @@ def read_counts():
             "mpc_segment": slot.mpc_launches,
             "prox_segment": slot.prox_launches,
             "dense_round": dense.launches,
-            "avi_segment": slot.avi_launches}
+            "avi_segment": slot.avi_launches,
+            "lp_segment": slot.lp_launches}
 
 
 def exact_gap(M, sk, sp, lanes):
@@ -1195,7 +1230,7 @@ def avi_segment_passes(s, carry, ops_, st, n):
 
     * bounds: the kernel's d = b_s + M Rinv'(G1 x + f), which it returns,
       within BOUNDS_TOL (1 + ||d||_inf) of the same in f64;
-    * inner: K2 with the cold retry (``slot.avi_pass_solve``) replays the
+    * inner: K2 with the cold retry (``slot.pass_solve``) replays the
       pass's solve from the kernel's own bounds: the same step code
       (slot_step.cuh) on the same inputs, so the whole slot state must
       come out bit for bit as the kernel's;
@@ -1229,7 +1264,7 @@ def avi_segment_passes(s, carry, ops_, st, n):
         db = torch.maximum((f64(du_k) - du64).abs().amax(1),
                            (f64(dl_k) - dl64).abs().amax(1)) \
             / (1.0 + torch.maximum(du64.abs().amax(1), dl64.abs().amax(1)))
-        s2 = slot.avi_pass_solve(s, du_k, dl_k, run, st, n,
+        s2 = slot.pass_solve(s, du_k, dl_k, run, st, n,
                                  pbatch.AVI_STEPS,
                                  round_fn=slot.run_slot_round)
         same = torch.ones_like(run)
@@ -1467,8 +1502,339 @@ def phase_avi(args, d_avi, st, card):
     return ok, launches
 
 
+def config_lp(gen):
+    """bench_extra.py:253-262: LPs whose constructed vertex is optimal;
+    ``x`` stays f64."""
+    rng = np.random.default_rng(SEED_LP)
+    probs = [gen.generate_test_lp(N_LP, M_LP, 0, rng) for _ in range(B_LP)]
+    out = {k: np.stack([p[i] for p in probs])
+           for i, k in enumerate(('x', 'f', 'A', 'bupper', 'blower'))}
+    for k in ('f', 'A', 'bupper', 'blower'):
+        out[k] = out[k].astype(np.float32)
+    out['sense'] = np.zeros((B_LP, M_LP), np.int32)
+    return out
+
+
+def lp_gate(d, x):
+    """bench_extra.py:273-279 per lane, in f64: (relative objective gap,
+    feasibility violation)."""
+    f, A = d['f'].astype(np.float64), d['A'].astype(np.float64)
+    fv_ref = np.einsum('bn,bn->b', f, d['x'])
+    gap = np.abs(np.einsum('bn,bn->b', f, x) - fv_ref) / (1.0 + np.abs(fv_ref))
+    Ax = np.einsum('bmn,bn->bm', A, x)
+    feas = np.maximum((Ax - d['bupper']).max(1), (d['blower'] - Ax).max(1))
+    return gap, feas
+
+
+def lp_recheck(d, b, x, st):
+    """Lane ``b``'s x against the LP tier's own final certificate
+    (``batch.py:1438-1575``), re-done in f64 with NumPy: feasibility within
+    10 primal_tol (1 + max|bu|); on the rows tight within that tolerance,
+    the least-squares duals (numpy.linalg.lstsq) meet stationarity
+    ||f + A_T' lam||_inf <= 1e-5 (1 + ||f||_inf) and complementarity with
+    the dual sign (lam >= -1e-6 on an upper-tight row, <= 1e-6 on a
+    lower-tight one).  Returns a dict of the three checks and their
+    numbers."""
+    f, A = d['f'][b].astype(np.float64), d['A'][b].astype(np.float64)
+    bu, bl = d['bupper'][b].astype(np.float64), d['blower'][b].astype(
+        np.float64)
+    vals = A @ x
+    tol = 10.0 * float(st.primal_tol) * (1.0 + np.abs(bu).max())
+    feas = float(max((vals - bu).max(), (bl - vals).max()))
+    up = bu - vals < tol
+    lo = (vals - bl < tol) & ~up
+    rows = np.flatnonzero(up | lo)
+    lam = np.linalg.lstsq(A[rows].T, -f, rcond=None)[0]
+    stat = float(np.abs(f + A[rows].T @ lam).max())
+    sign_ok = bool(((lam >= -1e-6) | ~up[rows]).all()
+                   and ((lam <= 1e-6) | ~lo[rows]).all())
+    return dict(feasibility=feas, feasibility_tol=tol, stationarity=stat,
+                stationarity_tol=1e-5 * (1.0 + np.abs(f).max()),
+                tight_rows=int(rows.size), sign_ok=sign_ok,
+                passes=bool(feas <= tol
+                            and stat <= 1e-5 * (1.0 + np.abs(f).max())
+                            and sign_ok))
+
+
+def lp_flags(o):
+    """(failed, lane_run, lflag) of a B6 segment's outputs, (B, 3)."""
+    return torch.stack([o[9].double(), o[5].double(), o[6].double()], 1)
+
+
+# the state fields a B6 pass's gradient step leaves alone (its bordered
+# add writes E, W, used, sid, slo, dsl, lam, act_up, act_lo)
+LP_INNER = ("lam_star", "pend", "prow", "plam", "plo", "pid", "pdd", "u",
+            "fval", "best_fval", "cycle", "repaired", "iterations", "status")
+LP_ADD_EXACT = ("W", "used", "sid", "slo", "dsl", "lam", "act_up", "act_lo")
+
+
+def lp_segment_passes(s, carry, data, st, n, eta, steps):
+    """One B6 segment from (s, carry) as LP_PSEG one-pass launches, lanes
+    that froze held out of the later ones, every pass taken apart on
+    every lane that ran (the rule of k5):
+
+    * bounds: the kernel's d = b_s + M (f eps - x), which it returns,
+      within BOUNDS_TOL (1 + ||d||_inf) of the same in f64;
+    * inner: K2 with the cold retry (``slot.pass_solve``) replays the
+      pass's solve from the kernel's own bounds: the same step code
+      (slot_step.cuh) on the same inputs, so the state fields the
+      gradient step leaves alone (LP_INNER) must equal the kernel's bit
+      for bit;
+    * outer: the twin's second half (``slot.lp_pass_outer``, f32) from
+      K2's replayed state: the discrete outputs (failed, lane_run, lflag,
+      stall, passes and the bordered add's W, used, sid, slo, dsl, lam,
+      act_up, act_lo) equal on at least LP_OUTER_AGREE of the lane-passes
+      (a near-tie in the ray search or a convergence test at f32
+      resolution may fall either way under another summation order), and
+      on those x, eps and best within OUTER_TOL (1 + ||.||_inf), and E
+      within LP_E_TOL (1 + ||E||_inf) (the Schur pivot of the add cancels
+      down to 1e-4 of its row's norm at the gate, so one rounding of g'a
+      moves 1/sval by up to ~1e-3).
+
+    Returns (the outputs of the chain, with the freezes of the whole
+    segment, and a dict of counts)."""
+    B = carry[0].shape[0]
+    frozen = torch.zeros(B, dtype=torch.bool, device=carry[0].device)
+    c, out = list(carry), None
+    cnt = dict(passes=0, lane_passes=0, bounds_rel=0.0, inner_equal=True,
+               inner_parted=0, outer_agree=0, outer_parted=[], x_rel=0.0,
+               E_rel=0.0, adds=0)
+    for _ in range(pbatch.LP_PSEG):
+        run = (c[4] > 0) & ~frozen
+        if not bool(run.any()):
+            break
+        cin, lr_keep = list(c), c[4]
+        cin[4] = torch.where(frozen, 0.0, c[4])
+        *out, du_k, dl_k = slot.run_lp_segment(s, *cin, *data, st, n, eta,
+                                               P=1, steps=steps, bounds=True)
+        sk = out[0]
+        _, du64, dl64 = slot.lp_pass_bounds(
+            slot.SlotState(*map(f64, s)), f64(cin[0]), f64(cin[1]),
+            *map(f64, data[:3]))
+        db = torch.maximum((f64(du_k) - du64).abs().amax(1),
+                           (f64(dl_k) - dl64).abs().amax(1)) \
+            / (1.0 + torch.maximum(du64.abs().amax(1), dl64.abs().amax(1)))
+        s2 = slot.pass_solve(s, du_k, dl_k, run, st, n, steps,
+                             round_fn=slot.run_slot_round)
+        same = torch.ones_like(run)
+        for name in LP_INNER:
+            a_, b_ = getattr(sk, name), getattr(s2, name)
+            same = same & (a_ == b_).reshape(B, -1).all(1)
+        v, _, _ = slot.lp_pass_bounds(s, cin[0], cin[1], *data[:3])
+        so, co, bad = slot.lp_pass_outer(s2, tuple(cin), run, v, *data[3:],
+                                         st, n, eta)
+        agree = (bad == (out[9] > 0))
+        for i in (2, 4, 5, 7):      # stall, lane_run, lflag, passes
+            agree = agree & (out[i + 1] == co[i])
+        for name in LP_ADD_EXACT:
+            agree = agree & (getattr(sk, name) == getattr(so, name)) \
+                .reshape(B, -1).all(1)
+        ok = run & agree
+        rel = torch.zeros(B, dtype=torch.float64, device=run.device)
+        for i in (0, 1, 3):         # x, eps, best
+            a_, b_ = f64(out[i + 1]).reshape(B, -1), f64(co[i]).reshape(B, -1)
+            fin = torch.isfinite(b_)
+            rel = torch.maximum(rel, torch.where(
+                fin, (a_ - b_).abs(), 0.0).amax(1)
+                / (1.0 + torch.where(fin, b_.abs(), 0.0).amax(1)))
+        e_rel = (f64(sk.E) - f64(so.E)).abs().amax((1, 2)) \
+            / (1.0 + f64(so.E).abs().amax((1, 2)))
+        added = run & (sk.used.sum(1) > s2.used.sum(1))
+        cnt["passes"] += 1
+        cnt["lane_passes"] += int(run.sum())
+        cnt["adds"] += int(added.sum())
+        cnt["bounds_rel"] = max(cnt["bounds_rel"], gmax(db[run].cpu().numpy()))
+        cnt["inner_parted"] += int((run & ~same).sum())
+        cnt["inner_equal"] = cnt["inner_equal"] and bool(same[run].all())
+        cnt["outer_agree"] += int(ok.sum())
+        cnt["outer_parted"] += [(cnt["passes"] - 1, int(b))
+                                for b in torch.nonzero(run & ~agree)[:, 0]]
+        cnt["x_rel"] = max(cnt["x_rel"], gmax(rel[ok].cpu().numpy()))
+        cnt["E_rel"] = max(cnt["E_rel"], gmax(e_rel[ok].cpu().numpy()))
+        frozen = frozen | (out[9] > 0)
+        s, c = sk, list(out[1:9])
+        c[4] = torch.where(frozen & ~(out[9] > 0), lr_keep, c[4])
+    if out is None:
+        return None, cnt
+    return (s, *c, frozen.to(carry[1].dtype)), cnt
+
+
+def phase_k6(args, st):
+    """B6 against its twin over one cold configLP segment (LP_PSEG passes
+    of LP_SEG_STEPS steps) from the state and carries the tier builds.
+
+    The segment's decisions sit at the f32 noise floor: the fixed-point
+    test diff < eta eps (eta = 1e-7) is below f32 resolution, so lanes
+    converge on the stagnation count, and a ray step extrapolates along
+    x_new - x.  Over a segment the f32 twin parts from its own f64 run on
+    about a fifth of the lanes (CPU, tests/test_torch_lp.py), and kernel
+    and twin part likewise; and one cold solve of an ill-conditioned
+    working set (cond(G) up to ~1e5) puts kernel and twin each up to ~1e-3
+    from f64, so no per-lane x tolerance separates a fault from f32 there.
+    So, as k5:
+
+    (a) every pass of the segment taken apart (``lp_segment_passes``),
+    and the LP_PSEG one-pass launches equal the one LP_PSEG-pass launch
+    bit for bit;
+
+    (b) the segment end to end: the flags agree with the twin on at least
+    1 - 2 (1 - the twin's agreement with its f64 run) of the lanes (at
+    most K6_AGREE); the distances of kernel and twin to the f64 twin are
+    printed, not gated."""
+    t0 = time.perf_counter()
+    p = pbatch.lp_init(*args, st)
+    carry = pbatch.lp_carries(p)
+    s = p.s0._replace(status=torch.full_like(p.s0.status, dt.EXIT_OPTIMAL))
+    data = (p.f, p.bu_s, p.bl_s, p.bu_r, p.bl_r)
+    n, P, steps = N_LP, pbatch.LP_PSEG, pbatch.LP_SEG_STEPS
+
+    def kernel():
+        return slot.run_lp_segment(s, *carry, *data, st, n, p.eta, P=P,
+                                   steps=steps)
+
+    def plain(cast=lambda x: x):
+        return slot.run_lp_segment_plain(
+            slot.SlotState(*map(cast, s)), *map(cast, carry),
+            *map(cast, data), st, n, p.eta, P=P, steps=steps)
+
+    # (a) pass by pass
+    ko = kernel()
+    chain, cnt = lp_segment_passes(s, carry, data, st, n, p.eta, steps)
+    chain_equal = chain is not None and all(
+        torch.equal(x, y) for x, y in zip(chain[1:], ko[1:])) \
+        and all(torch.equal(x, y) for x, y in zip(chain[0], ko[0]))
+    outer_rate = cnt["outer_agree"] / max(cnt["lane_passes"], 1)
+    passes_ok = chain_equal and cnt["inner_equal"] \
+        and cnt["bounds_rel"] <= BOUNDS_TOL and outer_rate >= LP_OUTER_AGREE \
+        and cnt["x_rel"] <= OUTER_TOL and cnt["E_rel"] <= LP_E_TOL
+    # (b) end to end
+    po, p64 = plain(), plain(f64)
+    fk, fp, f6 = lp_flags(ko), lp_flags(po), lp_flags(p64)
+    agree = (fk == fp).all(1)
+    twin_f64 = (fp == f6).all(1).float().mean().item()
+    agree_gate = min(K6_AGREE, 1.0 - 2.0 * (1.0 - twin_f64))
+    all3 = agree & (fp == f6).all(1)
+    rate = agree.float().mean().item()
+    sc = 1.0 + f64(p64[1]).abs().amax(1)
+    ex_k = (f64(ko[1]) - p64[1]).abs().amax(1) / sc
+    ex_p = (f64(po[1]) - p64[1]).abs().amax(1) / sc
+
+    def quant(v):
+        v = v.cpu().numpy()
+        return [float(np.quantile(v, q)) for q in (0.5, 0.9, 0.99, 1.0)] \
+            if v.size else []
+
+    ms = cuda_ms(kernel, 5)
+    plain_ms = cuda_ms(plain, 1)
+    K = n + 1
+    steps_done = ko[7].sum().item()
+    lane_passes = ko[8].sum().item()
+    bnd = bound(state_bytes(s, slot.SEG_CONST + slot.STATE)
+                + nbytes(*carry, *data) + state_bytes(ko[0], slot.STATE)
+                + nbytes(*ko[1:]),
+                steps_done * step_flops(M_LP, n, K)
+                + lane_passes * (6 * M_LP * n + 2 * K * n + 2 * K * K))
+    err = (ko[1] - po[1]).abs().amax(1)[agree]
+    emit("k6", t0, B=B_LP, P=P, n=n, m=M_LP, K=K, steps=steps,
+         main_path_passes=cnt, chain_equals_segment=chain_equal,
+         bounds_tol=BOUNDS_TOL, outer_agree_rate=outer_rate,
+         outer_agree_gate=LP_OUTER_AGREE, outer_tol=OUTER_TOL,
+         E_tol=LP_E_TOL, segment_agree_rate=rate, agree_gate=agree_gate,
+         twin_agree_with_f64_twin=twin_f64,
+         passes_agree_rate=(ko[8] == po[8]).float().mean().item(),
+         parted_lanes={int(b): {"kernel": fk[b].tolist(),
+                                "twin": fp[b].tolist(),
+                                "twin_f64": f6[b].tolist()}
+                       for b in torch.nonzero(~agree)[:, 0].tolist()},
+         lanes_done_kernel=int((ko[5] == 0).sum()),
+         failed_kernel=int((ko[9] > 0).sum()),
+         kernel_flags={int(k): int(v) for k, v in zip(
+             *torch.unique(ko[6], return_counts=True))},
+         segment_kernel_vs_f64_quantiles=quant(ex_k[all3]),
+         segment_twin_vs_f64_quantiles=quant(ex_p[all3]),
+         steps_done=steps_done, lane_passes=lane_passes, ms=ms,
+         plain_ms=plain_ms, **bnd)
+    ok = passes_ok and rate >= agree_gate
+    return ok, dict(max_abs_err=gmax(err.cpu().numpy()), ms=ms,
+                    plain_ms=plain_ms, library_ms=None,
+                    bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
+
+
+def lp_path(args, d, st, fused, card):
+    """ConfigLP through ``solve_batch_lp_kernel(fused=...)``, its launch
+    counts set to 0 just before and read just after: (ok, launches, the
+    fields it prints)."""
+    path = "fused" if fused else "per_pass"
+    f, A, bu, bl, sense = args
+
+    def solve(fs=f):
+        return dt.solve_batch_lp_kernel(fs, A, bu, bl, sense, st, fused=fused)
+
+    reset_counts()
+    r = solve()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    syncs = ops.host_syncs
+    resumed, certified = pbatch.lp_resumed_lanes, pbatch.lp_certified_lanes
+    x = r.x.cpu().numpy().astype(np.float64)
+    flags = r.exitflag.cpu().numpy()
+    gap, feas = lp_gate(d, x)
+    opt = flags == 1
+    acc = float(np.mean(opt & (gap < LP_TOL) & (feas < LP_TOL)))
+    beyond = np.flatnonzero(opt & ((gap >= LP_TOL) | (feas >= LP_TOL)))
+    checks = {int(b): dict(gap=float(gap[b]), feasibility=float(feas[b]),
+                           jax_flags_same_lane=int(b) in JAX_LP_BEYOND[path],
+                           **lp_recheck(d, b, x[b], st)) for b in beyond}
+    legal = (flags == 1) | (flags < 0)
+    best = None
+    for _ in range(3):
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        for i in range(4):
+            solve(f * (1.0 + 1e-5 * i))
+        torch.cuda.synchronize()
+        w = time.perf_counter() - tw
+        best = w if best is None else min(best, w)
+    shape_ok = x.shape == (B_LP, N_LP) and r.lam.shape == (B_LP, M_LP) \
+        and bool(np.isfinite(x[opt]).all())
+    opt_rate = float(opt.mean())
+    fields = dict(
+        launches=launches, host_syncs=syncs, resumed_lanes=resumed,
+        certified_lanes=certified, shape_finite_ok=shape_ok,
+        flags={int(k): int(v) for k, v in zip(*np.unique(
+            flags, return_counts=True))},
+        loud_lanes=np.flatnonzero(flags != 1).tolist(),
+        jax_loud_lanes=list(JAX_LP_LOUD[path]), optimal_rate=opt_rate,
+        optimal_gate=LP_OPT[path], accuracy_pass_rate=acc,
+        beyond_gate=checks, beyond_limit=len(JAX_LP_BEYOND[path]),
+        max_gap_optimal=float(gap[opt].max()) if opt.any() else None,
+        max_feas_optimal=float(feas[opt].max()) if opt.any() else None,
+        median_iters=float(np.median(r.iterations.cpu().numpy())),
+        lp_solves_per_s=4 * B_LP / best, window_s=best, card=card)
+    ok = shape_ok and bool(legal.all()) and opt_rate >= LP_OPT[path] \
+        and len(beyond) <= len(JAX_LP_BEYOND[path]) \
+        and all(c["passes"] for c in checks.values()) \
+        and (launches["lp_segment"] >= 1 if fused
+             else launches["lp_segment"] == 0)
+    return ok, launches, fields
+
+
+def phase_lp(args, d, st, card):
+    """ConfigLP on both paths, each against the JAX tier's census
+    (JAX_LP_LOUD, JAX_LP_BEYOND): the optimal rate at least LP_OPT, lanes
+    flagged 1 beyond bench_lp's gate at most the JAX tier's count on that
+    path (0 per-pass), each of them passing the tier's certificate
+    re-checked in f64; B6 launched on the fused path and not on the
+    per-pass one."""
+    t0 = time.perf_counter()
+    ok_p, l_p, f_p = lp_path(args, d, st, False, card)
+    ok_f, l_f, f_f = lp_path(args, d, st, True, card)
+    emit("lp", t0, B=B_LP, n=N_LP, m=M_LP, per_pass=f_p, fused=f_f)
+    return ok_p and ok_f, {"lp_per_pass": l_p, "lp_fused": l_f}
+
+
 PHASES = ("k1", "k2", "slice", "k7", "soft", "sw", "k3", "mpc", "k4",
-          "prox", "hiqp", "k5", "avi")
+          "prox", "hiqp", "k5", "avi", "k6", "lp")
 
 
 def main():
@@ -1520,9 +1886,17 @@ def main():
     run("k5", phase_k5, args_avi, st)
     run("avi", phase_avi, args_avi, d_avi, st, card)
 
+    d_lp = config_lp(gen)
+    args_lp = [torch.as_tensor(d_lp[k], device=dev)
+               for k in ('f', 'A', 'bupper', 'blower', 'sense')]
+    st_lp = dt.as_settings({"iter_limit": 3000}, torch.float32)
+    run("k6", phase_k6, args_lp, st_lp)
+    run("lp", phase_lp, args_lp, d_lp, st_lp, card)
+
     failed = [name for name in PHASES if not res[name][0]]
     paths = {p: res[p][1] for p in ("slice", "mpc", "prox", "soft", "sw",
                                     "hiqp", "avi")}
+    paths.update(res["lp"][1])
 
     def entry(name, source, replaces, fields):
         by_path = {p: v[name] for p, v in paths.items()}
@@ -1542,6 +1916,8 @@ def main():
               "daqp_tpu/ops/pallas_slot.py:1110", res["k4"][1]),
         entry("avi_segment", "avi_segment.cu",
               "daqp_tpu/ops/pallas_slot.py:1783", res["k5"][1]),
+        entry("lp_segment", "lp_segment.cu",
+              "daqp_tpu/ops/pallas_slot.py:1468", res["k6"][1]),
         entry("dense_round", "dense_round.cu",
               "daqp_tpu/ops/pallas_batch.py:751", res["k7"][1])]}),
         flush=True)

@@ -4,7 +4,8 @@ The cold batch path of ``daqp_tpu`` (transform, slot active-set solver
 for hard batches, dense-mask solver for batches with soft rows or
 SOFT_WEIGHTS slack data, stream entry), the warm MPC horizon (``mpc``),
 the semidefinite proximal batch, the batched hierarchical least-squares
-walk and batched affine variational inequalities, with their TPU kernels
+walk, batched affine variational inequalities and batched LPs (the
+adaptive-eps proximal LP tier), with their TPU kernels
 rewritten for Hopper in CUDA C++ (``ops/csrc``).  Entry points run on the
 card unless asked for the CPU (CPU tensors or ``device="cpu"``), where
 each kernel's plain PyTorch twin runs.
@@ -21,12 +22,13 @@ torch.set_float32_matmul_precision("highest")
 from .types import (  # noqa: E402
     ACTIVE, LOWER, IMMUTABLE, SOFT, BINARY, DAQP_INF, EXIT_OPTIMAL,
     EXIT_SOFT_OPTIMAL, EXIT_NO_DOF,
-    EXIT_INFEASIBLE, EXIT_CYCLE, EXIT_ITERLIMIT, EXIT_NONCONVEX,
+    EXIT_INFEASIBLE, EXIT_CYCLE, EXIT_UNBOUNDED, EXIT_ITERLIMIT,
+    EXIT_NONCONVEX,
     EXIT_UNSUPPORTED, EXIT_RUNNING, EXIT_REFACTOR, Settings, SoftWeights,
     default_settings_f32, as_settings)
 from .batch import (  # noqa: E402
     BatchResult, solve_batch_kernel, solve_batch_kernel_stream,
     solve_batch_prox_kernel, solve_batch_hiqp_kernel, solve_batch_avi_kernel,
-    kkt_residuals)
+    solve_batch_lp_kernel, kkt_residuals)
 from .mpc import (  # noqa: E402
     MPCStep, solve_mpc_scan_kernel, solve_mpc_scan_kernel_fused)

@@ -122,11 +122,21 @@ def from_lanes_last(a, dtype=torch.float32, device="cpu") -> torch.Tensor:
     operands of ``run_mpc_segment`` (duq / dlq (P, m, B) -> (B, P, m);
     its (P, B) outputs -> (B, P)) and ``run_prox_segment`` (Rinv_l
     (n, n, B), fz_l / x (n, B), bus_l / bls_l (m, B), the (1, B)
-    carries)."""
+    carries) and ``run_lp_segment`` (``lp_vars_from_jax``)."""
     a = np.moveaxis(np.asarray(a), -1, 0)
     if a.ndim == 2 and a.shape[1] == 1:
         a = a[:, 0]
     return torch.as_tensor(np.array(a), device=device).to(dtype)
+
+
+def lp_vars_from_jax(lp_vars, device="cpu") -> tuple:
+    """The JAX LP segment's lanes-last carries (``pallas_slot.py:1474-
+    1477``: x (n, B); eps, stall, best, lane_run (1, B) f32; lflag (1, B)
+    int32; tot, passes (1, B) f32) -> the port's ``LP_LANE`` tensors,
+    batch-leading, in the same order."""
+    return tuple(from_lanes_last(a, torch.int32 if i == 5 else torch.float32,
+                                 device)
+                 for i, a in enumerate(lp_vars))
 
 
 def ldp_from_jax(ldpd, device="cpu") -> LDPData:

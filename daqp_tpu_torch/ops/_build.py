@@ -53,6 +53,11 @@ _SIGNATURES = {
     #  the six tolerances, bland, stream)
     "avi_segment_f32": [_P, _I, _I, _I, _I, _I, _I, _I,
                         _F, _F, _F, _F, _F, _F, _I, _P],
+    # (host array of 75 device pointers, the last 2 null unless the bounds
+    #  are asked for, B, m, n, K, n_true, steps, P, the six tolerances,
+    #  bland, eta, stream)
+    "lp_segment_f32": [_P, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _F, _F, _F, _F, _I, _F, _P],
 }
 
 _lib = None

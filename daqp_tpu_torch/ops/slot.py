@@ -22,15 +22,18 @@ CUDA tensors and runs ``run_slot_round_plain`` on CPU tensors.  The
 rounds, ``exact_repair`` and the polish cycles run on the host, each
 masked per lane, so a lane's result depends on that lane alone.
 
-The three segment kernels run K2's step (``csrc/slot_step.cuh``) inside
+The four segment kernels run K2's step (``csrc/slot_step.cuh``) inside
 an outer loop: ``run_mpc_segment`` (B3, ``csrc/mpc_segment.cu``,
 replacing ``pallas_slot.py:1866``) runs P warm MPC horizon steps,
 ``run_prox_segment`` (B4, ``csrc/prox_segment.cu``, replacing
-``pallas_slot.py:1110``) runs P proximal passes and ``run_avi_segment``
+``pallas_slot.py:1110``) runs P proximal passes, ``run_avi_segment``
 (B5, ``csrc/avi_segment.cu``, replacing ``pallas_slot.py:1783``) runs P
-Douglas-Rachford passes of the batched AVI, each with a plain twin for
-CPU tensors.  In all three, a lane that stops (frozen, done) is left as
-it is for the rest of the segment, in the kernel and the twin alike.
+Douglas-Rachford passes of the batched AVI and ``run_lp_segment`` (B6,
+``csrc/lp_segment.cu``, replacing ``pallas_slot.py:1468``) runs P
+adaptive-eps LP passes with the gradient step (``lp_grad_step``, its
+bordered add ``slot_add_row``), each with a plain twin for CPU tensors.
+In all four, a lane that stops (frozen, done) is left as it is for the
+rest of the segment, in the kernel and the twin alike.
 """
 from __future__ import annotations
 
@@ -42,14 +45,16 @@ import torch
 from . import _build, host_any
 from ..types import (Settings, DAQP_INF, EXIT_CYCLE, EXIT_INFEASIBLE,
                      EXIT_ITERLIMIT, EXIT_OPTIMAL, EXIT_REFACTOR,
-                     EXIT_RUNNING, PRICING_BLAND)
+                     EXIT_RUNNING, EXIT_UNBOUNDED, PRICING_BLAND)
 
 # kernel launches of run_slot_round (K2), run_mpc_segment (B3),
-# run_prox_segment (B4) and run_avi_segment (B5); the caller resets them
+# run_prox_segment (B4), run_avi_segment (B5) and run_lp_segment (B6); the
+# caller resets them
 launches = 0
 mpc_launches = 0
 prox_launches = 0
 avi_launches = 0
+lp_launches = 0
 STEPS = 192         # iterations per kernel round
 MAX_ROUNDS = 16     # live rounds per lane
 # status of a RUNNING lane kept out of one round (iteration or round
@@ -899,7 +904,7 @@ def run_avi_segment_plain(s: SlotState, x, y, xold, minres, ctr, tlim,
         if not host_any(run):
             break
         v, du, dl = avi_pass_bounds(s, carry[0], Rinv, G1, fz, bus, bls)
-        s1 = avi_pass_solve(s, du, dl, run, st, n_true, steps)
+        s1 = pass_solve(s, du, dl, run, st, n_true, steps)
         *carry, bad, do_kkt = avi_pass_outer(carry, run, v, s1.u, s1.status,
                                              s1.iterations, Rinv, G2, G3,
                                              Hri)
@@ -922,13 +927,13 @@ def avi_pass_bounds(s: SlotState, x, Rinv, G1, fz, bus, bls):
     return v, bus + Mv, bls + Mv
 
 
-def avi_pass_solve(s: SlotState, du, dl, run, st: Settings, n_true: int,
-                   steps: int = 64, round_fn=None) -> SlotState:
-    """One AVI pass's inner solve (``pallas_slot.py:1663-1713``) on the
-    lanes where ``run`` holds, with the bounds (du, dl): dsl refresh, the
-    control reset and the warm solve with the cold retry (``solve_retry``
-    with ``round_fn``; K2's ``run_slot_round`` replays the kernel's).
-    Other lanes are held."""
+def pass_solve(s: SlotState, du, dl, run, st: Settings, n_true: int,
+               steps: int = 64, round_fn=None) -> SlotState:
+    """One segment pass's inner solve (AVI: ``pallas_slot.py:1663-1713``;
+    LP: ``:1287-1338``) on the lanes where ``run`` holds, with the bounds
+    (du, dl): dsl refresh, the control reset and the warm solve with the
+    cold retry (``solve_retry`` with ``round_fn``; K2's ``run_slot_round``
+    replays the kernel's).  Other lanes are held."""
     s1 = reset_control(slot_refresh_bounds(s, du, dl), run)
     s1 = s1._replace(status=torch.where(run, s1.status, _HELD)
                      .to(torch.int32))
@@ -1032,6 +1037,231 @@ def run_avi_segment(s: SlotState, x, y, xold, minres, ctr, tlim, lane_run,
         lane_out = lane
     out = (s._replace(**outs),) + tuple(lane_out[k] for k in AVI_LANE) \
         + (failed, kkt)
+    return out + tuple(d_out) if bounds else out
+
+
+def slot_add_row(s: SlotState, row, lo, dval, mask, st: Settings,
+                 n_true: int) -> SlotState:
+    """Bordered addition of one constraint per lane into the slot table,
+    outside any kernel (``pallas_slot.py:2273``, XLA in the JAX package):
+    row ``row`` (B,) int64 of M on side ``lo`` (B,) 0/1 with active-side
+    bound ``dval`` (B,) in LDP units, where ``mask`` (B,) 0/1.  g = W m_j,
+    a = E g, sval = m_j'm_j - g'a; the add goes into the first free slot
+    when sval >= max(sing_tol, 1e-4 m_j'm_j) and fewer than ``n_true``
+    slots are used, with E += (1/sval) w w', w = a o used - e_free.  A
+    gated or masked lane is left as it is."""
+    B, m, n = s.M.shape
+    K = s.E.shape[1]
+    dt = s.E.dtype
+    iota_K = torch.arange(K, dtype=dt, device=s.E.device)[None, :]
+    mj = s.M.gather(1, row.view(B, 1, 1).expand(B, 1, n))[:, 0]
+    g = torch.einsum('bkj,bj->bk', s.W, mj) * s.used
+    a = torch.einsum('bij,bj->bi', s.E, g)
+    dii = (mj * mj).sum(1)
+    sval = dii - (g * a).sum(1)
+    gate = torch.clamp(1e-4 * dii, min=st.sing_tol)
+    ok = mask.to(dt) * (sval >= gate).to(dt) \
+        * (s.used.sum(1) < n_true).to(dt)
+    free, _ = _first_min(iota_K + s.used * DAQP_INF)
+    oh_free = (iota_K == free).to(dt) * ok[:, None]
+    w = a * s.used - (iota_K == free).to(dt)
+    c = ok / torch.where(sval != 0, sval, 1.0)
+    oh_m = torch.nn.functional.one_hot(row, m).to(dt) * ok[:, None]
+    lo = lo.to(dt)[:, None]
+    return s._replace(
+        E=(s.E + c[:, None, None] * w[:, :, None] * w[:, None, :])
+        .contiguous(),
+        W=(s.W + oh_free[:, :, None] * mj[:, None, :]).contiguous(),
+        used=torch.clamp(s.used + oh_free, max=1.0),
+        sid=s.sid + oh_free * (row.to(dt)[:, None] + 1.0),
+        slo=s.slo + oh_free * lo,
+        dsl=s.dsl + oh_free * dval.to(dt)[:, None],
+        lam=s.lam + oh_free * (1.0 - 2.0 * lo),
+        act_up=torch.clamp(s.act_up + oh_m * (1.0 - lo), max=1.0),
+        act_lo=torch.clamp(s.act_lo + oh_m * lo, max=1.0))
+
+
+def lp_grad_step(s: SlotState, x_new, x_old, need, bur, blr, st: Settings,
+                 n_true: int):
+    """The LP tier's gradient step (daqp_prox.c:201-271; ``batch.py:
+    1106-1147`` and B6's ``pallas_slot.py:1363-1420``): along the ray
+    x_new + alpha (x_new - x_old), the first blocking bound of an original
+    row that is neither active nor immutable (A x = M x / scaling against
+    the raw bounds ``bur``/``blr`` (B, m); the lowest row on ties, the
+    lower side only where its step is strictly shorter) is activated by
+    ``slot_add_row`` with its bound from the state's d, on the lanes where
+    ``need`` holds and a row blocks.  Returns ``(s', x2, found)``: x2 is
+    the point on the blocking bound where the step applied, else x_new."""
+    BIG = DAQP_INF
+    delta = x_new - x_old
+    ax = torch.einsum('bmj,bj->bm', s.M, x_new) / s.scaling
+    ds = torch.einsum('bmj,bj->bm', s.M, delta) / s.scaling
+    skip = ((s.act_up + s.act_lo) > 0) | (s.immut > 0)
+    up_ok = ~skip & (ds > 0) & (bur < BIG)
+    lo_ok = ~skip & (ds < 0) & (blr > -BIG)
+    a_up = torch.where(up_ok, (bur - ax) / torch.where(up_ok, ds, 1.0), BIG)
+    a_lo = torch.where(lo_ok, (blr - ax) / torch.where(lo_ok, ds, 1.0), BIG)
+    j, alpha = _first_min(torch.minimum(a_up, a_lo))
+    found = alpha[:, 0] < BIG
+    apply = need & found
+    x2 = torch.where(apply[:, None], x_new + alpha * delta, x_new)
+    is_lo = a_lo.gather(1, j) < a_up.gather(1, j)
+    dval = torch.where(is_lo, s.dlower.gather(1, j), s.dupper.gather(1, j))
+    s = slot_add_row(s, j[:, 0], is_lo[:, 0], dval[:, 0], apply, st, n_true)
+    return s, x2, found
+
+
+# per-lane carries of the LP segment, in the order of the CUDA entry
+# (lp_segment.cu, enum Ptr): x (B, n); eps, stall, best, lane_run (B,)
+# f32; lflag (B,) int32; tot, passes (B,) f32
+LP_LANE = ("x", "eps", "stall", "best", "lane_run", "lflag", "tot", "passes")
+
+
+def run_lp_segment_plain(s: SlotState, x, eps, stall, best, lane_run,
+                         lflag, tot, passes, fz, bus, bls, bur, blr,
+                         st: Settings, n_true: int, eta: float, P: int = 10,
+                         steps: int = 192, bounds: bool = False):
+    """B6's twin in torch ops: up to P adaptive-eps LP passes
+    (``_lp_kernel_body``, ``pallas_slot.py:1280-1443``; Rinv = I).  Per
+    pass, on the lanes that run (``lane_run > 0``, not failed): the bounds
+    (``lp_pass_bounds``), the warm solve with the cold retry
+    (``pass_solve``) and the outer half (``lp_pass_outer``).  A lane
+    whose solve stays in trouble raises ``failed`` and keeps
+    ``lane_run``; one whose solve ends loud stops with its flag and keeps
+    its last x.  A lane that stops is left as it is.  With ``bounds`` the
+    last pass's bounds (du, dl) follow, NaN on a lane that ran no pass."""
+    B = x.shape[0]
+    failed = torch.zeros(B, dtype=torch.bool, device=x.device)
+    du0, dl0 = s.dupper, s.dlower
+    du_o = torch.full_like(bus, float("nan"))
+    dl_o = torch.full_like(bls, float("nan"))
+    carry = (x, eps, stall, best, lane_run, lflag, tot, passes)
+    for _ in range(P):
+        run = (carry[4] > 0) & ~failed
+        if not host_any(run):
+            break
+        v, du, dl = lp_pass_bounds(s, carry[0], carry[1], fz, bus, bls)
+        s1 = pass_solve(s, du, dl, run, st, n_true, steps)
+        s1, carry, bad = lp_pass_outer(s1, carry, run, v, bur, blr, st,
+                                       n_true, eta)
+        s = select_lanes(run, s1, s)
+        du_o = torch.where(run[:, None], du, du_o)
+        dl_o = torch.where(run[:, None], dl, dl_o)
+        failed = failed | bad
+    out = (s._replace(dupper=du0, dlower=dl0), *carry,
+           failed.to(x.dtype))
+    return out + (du_o, dl_o) if bounds else out
+
+
+def lp_pass_bounds(s: SlotState, x, eps, fz, bus, bls):
+    """One LP pass's v = f eps - x and bounds d = b_s + M v
+    (``pallas_slot.py:1285-1288``): (v, du, dl)."""
+    v = fz * eps[:, None] - x
+    Mv = torch.einsum('bmj,bj->bm', s.M, v)
+    return v, bus + Mv, bls + Mv
+
+
+def lp_pass_outer(s1: SlotState, carry, run, v, bur, blr, st: Settings,
+                  n_true: int, eta: float):
+    """The second half of one LP pass (``pallas_slot.py:1340-1441``) from
+    the inner solve's state ``s1`` on the lanes where ``run`` holds:
+    ``failed`` where the solve stayed in trouble; x_new = u - v; the
+    fixed-point test ||x_new - x||_inf < eta eps; the stagnation count on
+    ||x_new - x||_inf / eps (three non-improving vertex passes of one
+    iteration converge); the gradient step (``lp_grad_step``) on a lane
+    whose one-iteration solve left it off a vertex, UNBOUNDED where no
+    row blocks; eps x10 on such a lane and x0.9 otherwise (capped at 1e3,
+    from the lane's second pass on); a lane exiting on an inner failure
+    keeps its x; ``tot``/``passes``.  ``carry`` is the tuple of
+    ``LP_LANE``; returns (s1 after the gradient step, the carries updated
+    on the ``run`` lanes, failed (B,) bool)."""
+    x, eps, stall, best, lane_run, lflag, tot, passes = carry
+    stt, it = s1.status, s1.iterations
+    bad = run & _in_trouble(stt)
+    run2 = run & ~bad
+    inner_ok = (stt > 0) & run2
+    x_new = s1.u - v
+    it1 = it <= 1.0
+    at_vx = s1.used.sum(1) >= n_true
+    diff = (x_new - x).abs().amax(1)
+    ndiff = diff / eps
+    improved = ndiff < 0.9 * best
+    stall1 = torch.where(improved | ~it1 | ~at_vx | ~run2, 0.0, stall + 1.0)
+    converged = (diff < eta * eps) | (inner_ok & (stall1 >= 3.0))
+    need = it1 & ~at_vx & ~converged & inner_ok
+    s1, x2, found = lp_grad_step(s1, x_new, x, need, bur, blr, st, n_true)
+    unbounded = need & ~found
+    grow = it1 & ~at_vx
+    done = run2 & (converged | ~(stt > 0) | unbounded)
+    lflag1 = torch.where(unbounded, EXIT_UNBOUNDED,
+                         torch.where(stt > 0, EXIT_OPTIMAL, stt))
+    carry = (
+        torch.where((run2 & ~(done & ~(stt > 0)))[:, None], x2, x),
+        torch.where((passes > 0) & run2, torch.clamp(
+            torch.where(grow, eps * 10.0, eps * 0.9), max=1e3), eps),
+        torch.where(run, stall1, stall),
+        torch.where(run, torch.minimum(ndiff, best), best),
+        torch.where(done, 0.0, lane_run),
+        torch.where(done, lflag1, lflag).to(torch.int32),
+        torch.where(run, tot + it, tot),
+        passes + run.to(passes.dtype))
+    return s1, carry, bad
+
+
+def run_lp_segment(s: SlotState, x, eps, stall, best, lane_run, lflag, tot,
+                   passes, fz, bus, bls, bur, blr, st: Settings, n_true: int,
+                   eta: float, P: int = 10, steps: int = 192,
+                   bounds: bool = False):
+    """B6 wrapper: up to P adaptive-eps LP outer passes in one launch,
+    the gradient step included.
+
+    Batch-leading operands: the carries of ``LP_LANE`` (x (B, n); eps,
+    stall, best, lane_run, tot, passes (B,) f32; lflag (B,) int32), f as
+    ``fz`` (B, n), the scaled bounds ``bus``/``bls`` and the raw bounds
+    ``bur``/``blr`` (B, m), and the fixed-point tolerance ``eta``.
+    Returns ``(s', x, eps, stall, best, lane_run, lflag, tot, passes,
+    failed)``; a lane with ``failed > 0`` froze mid-segment and may
+    resume in the next launch.  The state's ``dupper``/``dlower`` come
+    back as they went in.  With ``bounds`` the last pass's bounds (du, dl)
+    (B, m) follow, NaN on a lane that ran no pass.  The CUDA kernel runs
+    on CUDA tensors, the plain twin on CPU tensors."""
+    global lp_launches
+    args = (x, eps, stall, best, lane_run, lflag, tot, passes)
+    data = (fz, bus, bls, bur, blr)
+    dev = s.M.device
+    if dev.type == "cpu":
+        return run_lp_segment_plain(s, *args, *data, st, n_true, eta, P,
+                                    steps, bounds)
+    _cuda_device("run_lp_segment", dev)
+    B, m, n = s.M.shape
+    K = s.E.shape[1]
+    f32 = torch.float32
+    lane = dict(zip(LP_LANE, args))
+    _check("run_lp_segment", dev,
+           _state_items(s, SEG_CONST + STATE)
+           + [(k, v, (B, n) if k == "fz" else (B, m), f32)
+              for k, v in zip(("fz", "bus", "bls", "bur", "blr"), data)]
+           + [(k, v, (B, n) if k == "x" else (B,),
+               torch.int32 if k == "lflag" else f32)
+              for k, v in lane.items()])
+    outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
+    lane_out = {k: torch.empty_like(v) for k, v in lane.items()}
+    failed = torch.empty((B,), dtype=f32, device=dev)
+    d_out = [torch.full_like(bus, float("nan")),
+             torch.full_like(bls, float("nan"))] if bounds else [None, None]
+    if B:
+        _launch("lp_segment_f32",
+                [getattr(s, name) for name in SEG_CONST] + list(data)
+                + [getattr(s, name) for name in STATE]
+                + [lane[k] for k in LP_LANE]
+                + [outs[name] for name in STATE]
+                + [lane_out[k] for k in LP_LANE] + [failed] + d_out,
+                (B, m, n, K, n_true, steps, P), st, dev, tail=(float(eta),))
+        lp_launches += 1
+    else:
+        lane_out = lane
+    out = (s._replace(**outs),) + tuple(lane_out[k] for k in LP_LANE) \
+        + (failed,)
     return out + tuple(d_out) if bounds else out
 
 

@@ -110,9 +110,16 @@ def build_ldp(f, A, bupper, blower, sense, ms: int, st: Settings,
     """M = [Rinv[:ms]; A Rinv], v, the bounds check with auto-equality,
     row normalization with zero rows, and d = b * scaling + M v
     (``daqp_update_ldp``, utils.c:14-135).  Rinv is the given factor, or
-    ``factorize_hessian(H)`` when none is given."""
+    ``factorize_hessian(H)`` when none is given.  With neither (LP mode,
+    ``transform.py:162-166``) Rinv = I in A's type, every direction is
+    proximal (``prox_mask`` all true, ``n_prox`` = n) and the proximal
+    outer loop supplies v; ``f`` None gives v = 0."""
     fact_err = None
-    if Rinv is None:
+    lp_mode = Rinv is None and H is None
+    if lp_mode:
+        B, _, n = A.shape
+        Rinv = torch.eye(n, dtype=A.dtype, device=A.device).expand(B, n, n)
+    elif Rinv is None:
         Rinv, prox_mask, n_prox, eps_used, fact_err = factorize_hessian(
             H, st)
     B, n, _ = Rinv.shape
@@ -122,12 +129,14 @@ def build_ldp(f, A, bupper, blower, sense, ms: int, st: Settings,
     sense = (torch.zeros((B, m), dtype=torch.int32, device=dev)
              if sense is None else sense.to(torch.int32))
     if fact_err is None:
-        prox_mask = torch.zeros((B, n), dtype=torch.bool, device=dev)
-        n_prox = torch.zeros(B, dtype=torch.int32, device=dev)
+        prox_mask = torch.full((B, n), lp_mode, dtype=torch.bool, device=dev)
+        n_prox = torch.full((B,), n if lp_mode else 0, dtype=torch.int32,
+                            device=dev)
         eps_used = torch.zeros(B, dtype=dtype, device=dev)
         fact_err = torch.zeros(B, dtype=torch.int32, device=dev)
 
-    v = torch.matmul(Rinv.transpose(1, 2), f.to(dtype)[..., None])[..., 0]
+    v = torch.zeros((B, n), dtype=dtype, device=dev) if f is None else \
+        torch.matmul(Rinv.transpose(1, 2), f.to(dtype)[..., None])[..., 0]
     M = torch.matmul(A.to(dtype), Rinv)
     if ms > 0:
         M = torch.cat([Rinv[:, :ms, :], M], dim=1)

@@ -30,7 +30,7 @@ def test_import_leaves_jax_out():
             "from daqp_tpu_torch.ops import _build; "
             "srcs = sorted(p.stem for p in _build._CSRC.glob('*.cu')); "
             "assert srcs == sorted(k[:-4] for k in _build._SIGNATURES), srcs; "
-            "assert 'avi_segment' in srcs; "
+            "assert {'avi_segment', 'lp_segment'} <= set(srcs); "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'daqp_tpu' not in sys.modules, 'daqp_tpu imported'")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -100,6 +100,39 @@ def test_segment_kernels_raise_on_meta():
             *(torch.empty((2, 3, 3), device="meta"),) * 5,
             torch.empty((2, 3), device="meta"),
             *(torch.empty((2, 4), device="meta"),) * 2, st, 3)
+
+
+def test_lp_entry_and_segment_device_rules():
+    # numpy inputs go to the card and raise without one; CPU tensors run
+    # the twins; B6's wrapper on a device that is neither raises
+    from tests.gen import generate_test_lp
+    rng = np.random.default_rng(4)
+    probs = [generate_test_lp(3, 6, 0, rng) for _ in range(4)]
+    x_ref, f, A, bu, bl = (np.stack([p[i] for p in probs]) for i in range(5))
+    args = [a.astype(np.float32) for a in (f, A, bu, bl)]
+    st = dt.default_settings_f32()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dt.solve_batch_lp_kernel(*args, None, st)
+    for fused in (False, True):
+        r = dt.solve_batch_lp_kernel(*map(torch.as_tensor, args), None, st,
+                                     fused=fused)
+        assert r.x.device.type == "cpu"
+        assert (r.exitflag.numpy() == 1).all(), r.exitflag
+        gap = np.abs(np.einsum('bn,bn->b', f, r.x.numpy() - x_ref))
+        assert gap.max() < 1e-4 * (1 + np.abs(np.einsum('bn,bn->b', f,
+                                                         x_ref)).max())
+    with pytest.raises(NotImplementedError):
+        dt.solve_batch_lp_kernel(*args, None, st, deadline=1.0,
+                                 device="cpu")
+    s = _meta_state()
+    vec = torch.empty((2,), device="meta")
+    rows = torch.empty((2, 4), device="meta")
+    with pytest.raises(ValueError, match="device meta"):
+        pslot.run_lp_segment(
+            s, torch.empty((2, 3), device="meta"), vec, vec, vec, vec,
+            torch.empty((2,), dtype=torch.int32, device="meta"), vec, vec,
+            torch.empty((2, 3), device="meta"), rows, rows, rows, rows, st,
+            3, 1e-7)
 
 
 def test_dense_kernel_raises_on_meta():
