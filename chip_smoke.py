@@ -47,8 +47,18 @@ before and read just after:
   checked by ``bench_extra.py``'s objective-gap and feasibility gate
   against the JAX package's own census on the same lanes.
 
-Phases ``k1``-``k7`` hold each kernel against its plain twin at the
-paths' shapes.  Each phase prints one JSON line with its seconds;
+* ``stages``: the factorization stage (``scripts/profile_stages.py``):
+  per-stage ms on its four B = 1024 batches (K1, B8, B9, B10, the
+  library, the regularized wrapper, the transform, the whole solve), then
+  config 2 factored by each of K1, B8, B9 and B10 and solved on that
+  factor through the slot tier, each in its own count window (K2 and
+  the factor's kernel).
+
+Phases ``k1``-``k10`` hold each kernel against its plain twin at the
+paths' shapes (``k8`` also at n = 10, 12, 20 and ``k10`` at n = 100-500,
+beside K1); ``limits`` shows that a shape beyond a block's shared memory
+raises ValueError before launch.  Each phase prints one JSON line with
+its seconds;
 then come the kernel table, the card's name and power limit, and as the
 last line ``{"ok": true, "device": ...}``.  Any failed check or error
 exits non-zero without that line; so does a machine without a CUDA
@@ -68,7 +78,7 @@ import torch
 
 import daqp_tpu_torch as dt
 from daqp_tpu_torch import batch as pbatch, mpc as pmpc, ops, transform
-from daqp_tpu_torch.ops import _build, chol, dense, slot
+from daqp_tpu_torch.ops import _build, chol, dense, slot, smem
 
 ROOT = Path(__file__).resolve().parent
 # config 2 (bench.py:63-79)
@@ -79,6 +89,8 @@ STEPS = 192
 S3, T3, SEG3, SEED3, DRIFT3 = 512, 20, 10, 7, 0.02
 B4, RANK4, SEED4 = 256, 30, 11
 K1_RTOL = 1e-4        # max |dRinv| / max |Rinv|, kernel vs twin
+# scripts/profile_stages.py's batches (the stages phase)
+B_STAGE, STAGE_BATCHES = 1024, 4
 K2_AGREE = 0.99       # lanes whose exit flag and working set agree
 K2_DU = 1e-3          # ||du||_inf / (1 + ||u||_inf) on agreeing optimal lanes
 ACC_TOL = 1e-4        # ||x - x_ref||_2 gate of bench.py
@@ -288,6 +300,7 @@ def sw_step_flops(m, n):
 
 def reset_counts():
     chol.launches = slot.launches = dense.launches = 0
+    chol.lanes_launches = chol.dense_launches = chol.blk_launches = 0
     slot.mpc_launches = slot.prox_launches = slot.avi_launches = 0
     slot.lp_launches = 0
     ops.host_syncs = pmpc.redone_segments = pbatch.prox_resumed_lanes = 0
@@ -296,7 +309,9 @@ def reset_counts():
 
 
 def read_counts():
-    return {"chol_rinv": chol.launches, "slot_round": slot.launches,
+    return {"chol_rinv": chol.launches, "chol_lanes": chol.lanes_launches,
+            "chol_dense": chol.dense_launches, "chol_blk": chol.blk_launches,
+            "slot_round": slot.launches,
             "mpc_segment": slot.mpc_launches,
             "prox_segment": slot.prox_launches,
             "dense_round": dense.launches,
@@ -342,12 +357,33 @@ def phase_env(card):
          card=card, build_s=build_s, ptxas=ptxas)
 
 
-def phase_k1(H):
-    """K1 against its twin on the config-2 Hessians; the library call is
-    Cholesky then a triangular solve against I."""
-    t0 = time.perf_counter()
-    Rk = chol.chol_rinv(H)
-    Rp = chol.chol_rinv_plain(H)
+def library_rinv(H):
+    """The library yardstick: Cholesky, then a triangular solve against
+    I (Rinv = L'^{-1})."""
+    eye = torch.eye(H.shape[1], device=H.device, dtype=H.dtype)
+    L, _ = torch.linalg.cholesky_ex(H)
+    return torch.linalg.solve_triangular(L.transpose(1, 2),
+                                         eye.expand_as(H), upper=True)
+
+
+def spd_batch(Bn, n, seed, dev):
+    """A A' + n I with A (Bn, n, n) standard normal from ``seed`` by
+    numpy, the product taken on the card; cond <= ~5 (A A' has its
+    eigenvalues in [0, ~4n])."""
+    A = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (Bn, n, n), dtype=np.float32), device=dev)
+    return torch.matmul(A, A.transpose(1, 2)) \
+        + n * torch.eye(n, device=dev)
+
+
+def factor_case(kernel, twin, H, rtol=K1_RTOL, reps=20, twin_reps=3):
+    """One factorization kernel against its twin on ``H``: (passes,
+    fields): max |dRinv|, relative to max |Rinv_twin| against ``rtol``;
+    the residual max ||Rinv' H Rinv - I||_inf of both; the distance to
+    the library; kernel, twin and library ms; the bound (each matrix
+    read and written once, or B 2n^3/3 operations)."""
+    Rk = kernel(H)
+    Rp = twin(H)
     Bk, n = H.shape[0], H.shape[1]
     eye = torch.eye(n, device=H.device)
 
@@ -355,26 +391,30 @@ def phase_k1(H):
         P = torch.matmul(R.transpose(1, 2), torch.matmul(H, R))
         return (P - eye).abs().sum(2).amax().item()
 
-    def library():
-        L, _ = torch.linalg.cholesky_ex(H)
-        return torch.linalg.solve_triangular(L.transpose(1, 2),
-                                             eye.expand_as(H), upper=True)
-
     err = (Rk - Rp).abs().max().item()
     rel = err / Rp.abs().max().item()
-    lib_err = (library() - Rk).abs().max().item()
-    ms = cuda_ms(lambda: chol.chol_rinv(H), 20)
-    plain_ms = cuda_ms(lambda: chol.chol_rinv_plain(H), 3)
-    library_ms = cuda_ms(library, 20)
-    bnd = bound(2 * nbytes(H), Bk * 2 * n ** 3 / 3)
-    emit("k1", t0, B=Bk, n=n, max_abs_err=err, rel_err=rel,
-         rel_tol=K1_RTOL, resid_kernel=resid(Rk), resid_twin=resid(Rp),
-         kernel_vs_library=lib_err, ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, **bnd)
-    ok = rel <= K1_RTOL
-    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    library_ms=library_ms, bound_ms=bnd["bound_ms"],
-                    bound_by=bnd["bound_by"])
+    fields = dict(B=Bk, n=n, max_abs_err=err, rel_err=rel, rel_tol=rtol,
+                  resid_kernel=resid(Rk), resid_twin=resid(Rp),
+                  kernel_vs_library=(library_rinv(H) - Rk).abs().max().item(),
+                  ms=cuda_ms(lambda: kernel(H), reps),
+                  plain_ms=cuda_ms(lambda: twin(H), twin_reps),
+                  library_ms=cuda_ms(lambda: library_rinv(H), reps),
+                  **bound(2 * nbytes(H), Bk * 2 * n ** 3 / 3))
+    return rel <= rtol, fields
+
+
+def kernel_fields(f):
+    """A factorization case's numbers for the kernels line."""
+    return {k: f[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_by")}
+
+
+def phase_k1(H):
+    """K1 against its twin on the config-2 Hessians."""
+    t0 = time.perf_counter()
+    ok, f = factor_case(chol.chol_rinv, chol.chol_rinv_plain, H)
+    emit("k1", t0, **f)
+    return ok, kernel_fields(f)
 
 
 def phase_k2(args, st):
@@ -456,6 +496,197 @@ def phase_slice(full, d, st, card):
     ok = shape_ok and acc >= ACC_RATE and silent == 0 \
         and launches["chol_rinv"] >= 1 and launches["slot_round"] >= 1
     return ok, launches
+
+
+def width_cases(kernel, twin, widths, seed, dev):
+    """``kernel`` beside K1 at each (B, n) of ``widths`` on A A' + n I:
+    both against their twins at K1_RTOL, their ms and the library's.
+    K1 raises ValueError where its block exceeds shared memory; that is
+    recorded, not a failure.  (passes, {n: fields})."""
+    ok, out = True, {}
+    for Bn, n in widths:
+        H = spd_batch(Bn, n, seed + n, dev)
+        good, f = factor_case(kernel, twin, H, reps=5, twin_reps=1)
+        try:
+            good_k1, f1 = factor_case(chol.chol_rinv, chol.chol_rinv_plain,
+                                      H, reps=5, twin_reps=1)
+            k1 = dict(ms=f1["ms"], rel_err=f1["rel_err"])
+        except ValueError as e:
+            good_k1, k1 = True, dict(raised=str(e))
+        ok = ok and good and good_k1
+        out[n] = dict(f, k1=k1)
+        del H
+    return ok, out
+
+
+def phase_factor(name, kernel, twin, H, widths, dev):
+    """B8, B9 or B10 against its twin on the config-2 Hessians (the
+    numbers of the kernels line), then at ``widths`` beside K1."""
+    t0 = time.perf_counter()
+    ok, f = factor_case(kernel, twin, H)
+    ok_w, by_n = width_cases(kernel, twin, widths, SEED, dev)
+    emit(name, t0, **f, widths=by_n)
+    return ok and ok_w, kernel_fields(f)
+
+
+# B8 at the widths of configLP, 4b and AVI; B10 at the BASELINE "large"
+# widths, where its 9n floats of shared memory fit and K1's n (n|1) + n
+# do not past n = 240.  K1_RTOL holds at every width: kernel and twin add
+# the same f32 terms in the same order and part only where the kernel
+# fuses a multiply-add, and with cond(A A' + n I) <= ~5 the rounding
+# bound n eps is 3e-5 at n = 500 (measured on the H100: 2e-7).
+K8_WIDTHS = [(B, n) for n in (10, 12, 20)]
+K10_WIDTHS = [(1024, 100), (1024, 200), (256, 300), (256, 500)]
+
+
+def limit_case(fn, counts):
+    """Run ``fn`` expecting the wrapper's ValueError before launch:
+    (passes, what happened).  Any other exception, a launch, or a CUDA
+    error at the next synchronize fails."""
+    before = read_counts()
+    try:
+        fn()
+        out = dict(raised=None)
+    except ValueError as e:
+        out = dict(raised=str(e))
+    except Exception as e:                       # noqa: BLE001
+        out = dict(raised=None, other=f"{type(e).__name__}: {e}")
+    torch.cuda.synchronize()
+    launched = {k: read_counts()[k] - before[k] for k in counts}
+    out["launched"] = launched
+    return out["raised"] is not None and not any(launched.values()), out
+
+
+def phase_limits(st, dev):
+    """The part-0 shape check: K1 at n = 240 runs and agrees with its
+    twin; K1 at n = 241, K2 at n = 100, m = 500 (BASELINE "medium"), B7
+    at n = 50, m = 210 and B7-sw at m = 206 raise ValueError before any
+    launch."""
+    t0 = time.perf_counter()
+    ok240, f240 = factor_case(chol.chol_rinv, chol.chol_rinv_plain,
+                              spd_batch(256, 240, SEED, dev), reps=5,
+                              twin_reps=1)
+
+    def lane(m, n):
+        g = np.random.default_rng(SEED + m)
+        M = torch.as_tensor(g.standard_normal((1, m, n), dtype=np.float32),
+                            device=dev)
+        one = torch.ones((1, m), device=dev)
+        return M, one, -one, one, 0.0 * one
+
+    def k2():
+        slot.run_slot_round(slot.slot_init(*lane(500, 100), n_true=100), st,
+                            100, STEPS)
+
+    def b7(m, sw):
+        M, du, dl, sc, imm = lane(m, N)
+        w = dt.SoftWeights(*(0.5 * du for _ in SW_KEYS)) if sw else None
+        dense.run_kernel_round(dense.dense_init(M, du, dl, sc, imm,
+                                                soft=du, sw=w), st, N, STEPS)
+
+    cases = {
+        "k1_n241": (lambda: chol.chol_rinv(spd_batch(2, 241, SEED, dev)),
+                    ("chol_rinv",)),
+        "k2_n100_m500": (k2, ("slot_round",)),
+        "b7_n50_m210": (lambda: b7(210, False), ("dense_round",)),
+        "b7sw_n50_m206": (lambda: b7(206, True), ("dense_round",))}
+    res = {k: limit_case(fn, c) for k, (fn, c) in cases.items()}
+    emit("limits", t0, k1_n240=f240, smem_optin=smem.available(dev),
+         **{k: v[1] for k, v in res.items()})
+    return ok240 and all(v[0] for v in res.values()), None
+
+
+FACTORS = (("chol_rinv", chol.chol_rinv), ("chol_lanes", chol.chol_rinv_lanes),
+           ("chol_dense", chol.chol_rinv_dense),
+           ("chol_blk", chol.chol_rinv_blk))
+
+
+def stage_batches(gen, dev):
+    """scripts/profile_stages.py's data: 4 batches of B = 1024, n = 50,
+    m = 100, ms = 0, 25 active, kappa 1e2 from one default_rng(0)."""
+    rng = np.random.default_rng(0)
+    keys = ('H', 'f', 'A', 'bupper', 'blower')
+    out = []
+    for _ in range(STAGE_BATCHES):
+        d = gen.generate_test_qp_batch(B_STAGE, N, M_ROWS, 0, 25, KAPPA,
+                                       rng=rng, dtype=np.float32)
+        out.append([torch.as_tensor(d[k], device=dev) for k in keys]
+                   + [torch.zeros((B_STAGE, M_ROWS), dtype=torch.int32,
+                                  device=dev)])
+    return out
+
+
+def per_batch_ms(fn, batches, windows=3):
+    """profile_stages' timing: ms per batch, best of ``windows`` windows
+    over the batches, each ending in a synchronize, after a warm-up."""
+    for b in batches:
+        fn(*b)
+    torch.cuda.synchronize()
+    return 1e3 * best_window(lambda: [fn(*b) for b in batches], calls=1,
+                             windows=windows) / len(batches)
+
+
+def phase_stages(full, d, st, gen, card):
+    """The factorization stage (scripts/profile_stages.py): per-stage ms
+    on its 4 batches (K1, B8, B9, B10, the library, the regularized
+    wrapper, the transform, the whole kernel solve); then config 2
+    (B = 10240) factored by each of K1, B8, B9 and B10, each lane's ok by
+    the pivot-ratio test, and solved on that factor through the slot
+    tier (``_kernel_batch_core(fact=)``), each in its own count window:
+    the gate of the slice phase, the factor's own kernel launched, and K1
+    not launched unless it is the factor."""
+    t0 = time.perf_counter()
+    batches = stage_batches(gen, full[0].device)
+
+    def transform_full(H, f, A, bu, bl, sense):
+        Rinv = chol.batched_rinv_regularized(H, st)[0]
+        return transform.build_ldp(f, A, bu, bl, sense, 0, st, Rinv=Rinv)
+
+    stages = {name: per_batch_ms(lambda H, *_: fn(H), batches)
+              for name, fn in FACTORS}
+    stages["library"] = per_batch_ms(lambda H, *_: library_rinv(H), batches)
+    stages["regularized"] = per_batch_ms(
+        lambda H, *_: chol.batched_rinv_regularized(H, st), batches)
+    stages["transform"] = per_batch_ms(transform_full, batches)
+    stages["solve"] = per_batch_ms(
+        lambda *b: dt.solve_batch_kernel(*b, st=st, has_soft=False), batches,
+        windows=2)
+    stages["active_set_and_host_loop"] = stages["solve"] - stages["transform"]
+    del batches
+
+    Hs = (0.5 * (full[0] + full[0].transpose(1, 2))).contiguous()
+    sqrt_zt = torch.sqrt(torch.tensor(st.zero_tol, device=Hs.device))
+    no = torch.zeros(B, dtype=torch.bool, device=Hs.device)
+    zero = torch.zeros(B, device=Hs.device)
+    ok, e2e, windows = True, {}, {}
+    for name, fn in FACTORS:
+        reset_counts()
+        tw = time.perf_counter()
+        R = fn(Hs)
+        fact = (R, chol.pivot_ok(R, sqrt_zt), no, zero)
+        r = pbatch._kernel_batch_core(*full, st, fact=fact)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+        launches = read_counts()
+        x, flags = r.x.cpu().numpy(), r.exitflag.cpu().numpy()
+        err = np.linalg.norm(x.astype(np.float64) - d['x'], axis=1)
+        acc = float(np.mean((flags == 1) & (err <= ACC_TOL)))
+        silent = int(np.sum((flags == 1) & (err > ACC_TOL)))
+        good = x.shape == (B, N) and bool(np.isfinite(x).all()) \
+            and acc >= ACC_RATE and silent == 0 and launches[name] >= 1 \
+            and (name == "chol_rinv" or launches["chol_rinv"] == 0)
+        ok = ok and good
+        e2e[name] = dict(ok_lanes=int(fact[1].sum()), accuracy_pass_rate=acc,
+                         silent_wrong=silent, optimal_rate=float(
+                             np.mean(flags == 1)), max_err_optimal=float(
+                             err[flags == 1].max()) if (flags == 1).any()
+                         else None, launches=launches, wall_s=wall,
+                         passes=good)
+        windows[f"stages_{name}"] = launches
+        del R, fact, r
+    emit("stages", t0, B_stage=B_STAGE, batches=STAGE_BATCHES,
+         ms_per_batch=stages, config2=e2e, card=card)
+    return ok, windows
 
 
 def config3(gen):
@@ -1556,6 +1787,29 @@ def lp_recheck(d, b, x, st):
                             and sign_ok))
 
 
+def lp_f64(d, lanes):
+    """``lanes`` of configLP re-solved by the port's per-pass path
+    (``fused=False``) on f64 CPU tensors: per lane its flag, bench_lp's
+    gap and feasibility, and whether it is flag 1 within the gate (then
+    its loudness on the card is the f32 arithmetic's, not the path's)."""
+    if not lanes:
+        return {}
+    sub = {k: v[lanes] for k, v in d.items()}
+    args = [torch.as_tensor(sub[k]).double()
+            for k in ('f', 'A', 'bupper', 'blower')]
+    r = dt.solve_batch_lp_kernel(*args, torch.as_tensor(sub['sense']),
+                                 dt.as_settings({"iter_limit": 3000},
+                                                torch.float64),
+                                 fused=False, device="cpu")
+    gap, feas = lp_gate(sub, r.x.numpy())
+    flags = r.exitflag.numpy()
+    return {b: dict(flag=int(flags[i]), gap=float(gap[i]),
+                    feasibility=float(feas[i]), solved_within_gate=bool(
+                        flags[i] == 1 and gap[i] < LP_TOL
+                        and feas[i] < LP_TOL))
+            for i, b in enumerate(lanes)}
+
+
 def lp_flags(o):
     """(failed, lane_run, lflag) of a B6 segment's outputs, (B, 3)."""
     return torch.stack([o[9].double(), o[5].double(), o[6].double()], 1)
@@ -1786,6 +2040,9 @@ def lp_path(args, d, st, fused, card):
                            jax_flags_same_lane=int(b) in JAX_LP_BEYOND[path],
                            **lp_recheck(d, b, x[b], st)) for b in beyond}
     legal = (flags == 1) | (flags < 0)
+    excess = [int(b) for b in np.flatnonzero(flags != 1)
+              if b not in JAX_LP_LOUD[path]]
+    f64_lanes = lp_f64(d, excess) if not fused else None
     best = None
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1804,7 +2061,8 @@ def lp_path(args, d, st, fused, card):
         flags={int(k): int(v) for k, v in zip(*np.unique(
             flags, return_counts=True))},
         loud_lanes=np.flatnonzero(flags != 1).tolist(),
-        jax_loud_lanes=list(JAX_LP_LOUD[path]), optimal_rate=opt_rate,
+        jax_loud_lanes=list(JAX_LP_LOUD[path]), loud_lanes_f64=f64_lanes,
+        optimal_rate=opt_rate,
         optimal_gate=LP_OPT[path], accuracy_pass_rate=acc,
         beyond_gate=checks, beyond_limit=len(JAX_LP_BEYOND[path]),
         max_gap_optimal=float(gap[opt].max()) if opt.any() else None,
@@ -1833,8 +2091,9 @@ def phase_lp(args, d, st, card):
     return ok_p and ok_f, {"lp_per_pass": l_p, "lp_fused": l_f}
 
 
-PHASES = ("k1", "k2", "slice", "k7", "soft", "sw", "k3", "mpc", "k4",
-          "prox", "hiqp", "k5", "avi", "k6", "lp")
+PHASES = ("k1", "k2", "slice", "k8", "k9", "k10", "stages", "limits", "k7",
+          "soft", "sw", "k3", "mpc", "k4", "prox", "hiqp", "k5", "avi", "k6",
+          "lp")
 
 
 def main():
@@ -1859,6 +2118,14 @@ def main():
     run("k1", phase_k1, full[0])
     run("k2", phase_k2, [a[:B_K2] for a in full], st)
     run("slice", phase_slice, full, d, st, card)
+    run("k8", phase_factor, "k8", chol.chol_rinv_lanes,
+        chol.chol_rinv_lanes_plain, full[0], K8_WIDTHS, dev)
+    run("k9", phase_factor, "k9", chol.chol_rinv_dense,
+        chol.chol_rinv_dense_plain, full[0], [], dev)
+    run("k10", phase_factor, "k10", chol.chol_rinv_blk,
+        chol.chol_rinv_blk_plain, full[0], K10_WIDTHS, dev)
+    run("stages", phase_stages, full, d, st, gen, card)
+    run("limits", phase_limits, st, dev)
     d4b = config4b()
     args4b = [torch.as_tensor(d4b[k], device=dev)
               for k in ('f', 'A', 'bupper', 'blower', 'sense')]
@@ -1897,6 +2164,7 @@ def main():
     paths = {p: res[p][1] for p in ("slice", "mpc", "prox", "soft", "sw",
                                     "hiqp", "avi")}
     paths.update(res["lp"][1])
+    paths.update(res["stages"][1])
 
     def entry(name, source, replaces, fields):
         by_path = {p: v[name] for p, v in paths.items()}
@@ -1908,6 +2176,12 @@ def main():
     print(json.dumps({"kernels": [
         entry("chol_rinv", "chol_rinv.cu", "daqp_tpu/ops/chol.py:607",
               {**res["k1"][1], **res["prox"][2]}),
+        entry("chol_lanes", "chol_lanes.cu", "daqp_tpu/ops/chol.py:127",
+              res["k8"][1]),
+        entry("chol_dense", "chol_dense.cu", "daqp_tpu/ops/chol.py:563",
+              res["k9"][1]),
+        entry("chol_blk", "chol_blk.cu", "daqp_tpu/ops/chol.py:644",
+              res["k10"][1]),
         entry("slot_round", "slot_round.cu",
               "daqp_tpu/ops/pallas_slot.py:663", res["k2"][1]),
         entry("mpc_segment", "mpc_segment.cu",

@@ -27,10 +27,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: name -> argtypes; every entry returns cudaGetLastError()
+# C entry points: name -> argtypes; every entry returns
+# cudaGetLastError(), or the error of cudaFuncSetAttribute
 _SIGNATURES = {
     # (H, Rinv, B, n, tiny, stream)
     "chol_rinv_f32": [_P, _P, _I, _I, _F, _P],
+    # (the (n, n, B) lanes-last buffer, in place, B, n, tiny, stream)
+    "chol_lanes_f32": [_P, _I, _I, _F, _P],
+    # (H, Rinv, B, n, matrices per block, tiny, stream)
+    "chol_dense_f32": [_P, _P, _I, _I, _I, _F, _P],
+    # (H, X = L^{-1}, B, n, tiny, stream)
+    "chol_blk_f32": [_P, _P, _I, _I, _F, _P],
     # (host array of 53 device pointers, B, m, n, K, n_true, steps,
     #  dual_tol, primal_tol, pivot_tol, sing_tol, progress_tol, cycle_tol,
     #  bland, stream)

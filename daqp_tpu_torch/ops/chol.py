@@ -1,20 +1,48 @@
-"""K1: batched Cholesky + triangular inverse, and the regularized
-factorization built on it.
+"""Batched Cholesky + triangular inverse: K1, B8, B9 and B10, the
+regularized factorization built on K1, and the XLA-only formulations.
 
-Counterparts: ``daqp_tpu/ops/chol.py:607 batched_chol_rinv_tile`` (the
-TPU kernel ``_tile_chol_kernel_loop``, :235) and ``:779
-batched_rinv_regularized``.  ``chol_rinv`` launches the CUDA kernel
-(``csrc/chol_rinv.cu``) on a CUDA tensor and runs ``chol_rinv_plain`` on
-a CPU tensor.
+Counterparts in ``daqp_tpu/ops/chol.py``, each computing Rinv = (L^{-1})'
+(upper, H = R'R) of a batch of SPD (B, n, n) matrices with pivots
+clamped to ``TINY``:
+
+* ``chol_rinv`` (K1, ``csrc/chol_rinv.cu``): ``:607 batched_chol_rinv_tile``
+  (the TPU kernel ``_tile_chol_kernel_loop``, :235); twin
+  ``chol_rinv_plain``;
+* ``chol_rinv_lanes`` (B8, ``csrc/chol_lanes.cu``): ``:127
+  batched_chol_rinv_pallas`` (``_chol_kernel``, :22), the lanes-last
+  round-1 kernel; twin ``chol_rinv_lanes_plain``;
+* ``chol_rinv_dense`` (B9, ``csrc/chol_dense.cu``): ``:563
+  batched_chol_rinv_dense`` (``_chol_kernel_dense``, :448); twin
+  ``chol_rinv_dense_plain``;
+* ``chol_rinv_blk`` (B10, ``csrc/chol_blk.cu``): ``:644
+  batched_chol_rinv_blk`` (``_tile_chol_kernel_blk``, :319), panel-8;
+  twin ``chol_rinv_blk_plain``;
+* ``batched_rinv_regularized`` (:779) on K1;
+* in torch ops, as the JAX package leaves them to XLA:
+  ``batched_chol_rinv`` (:843), ``batched_invsqrt`` (:84) and
+  ``batched_chol_rinv_mxu`` (:722, with ``_chol_small_inv``, :692).
+
+Each kernel wrapper launches its CUDA kernel on a CUDA tensor (f32,
+contiguous (B, n, n)) and runs its twin on a CPU tensor; a shape whose
+block needs more shared memory than the card allows raises ValueError
+before launch (``smem``).  The twins follow their TPU kernel's
+expression order; the padding, one-hot masks and lane tiles of the TPU
+layouts are left behind.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build, host_any
+from . import _build, host_any, smem
 
 TINY = 1e-30
-launches = 0        # kernel launches of chol_rinv (reset by the caller)
+PB = 8              # B10's panel width
+# kernel launches of chol_rinv (K1), chol_rinv_lanes (B8), chol_rinv_dense
+# (B9) and chol_rinv_blk (B10); the caller resets them
+launches = 0
+lanes_launches = 0
+dense_launches = 0
+blk_launches = 0
 
 
 def chol_rinv_plain(H: torch.Tensor) -> torch.Tensor:
@@ -40,40 +68,227 @@ def chol_rinv_plain(H: torch.Tensor) -> torch.Tensor:
     return X.transpose(1, 2).contiguous()
 
 
+def _unblocked_rinv(H: torch.Tensor, by_row: bool) -> torch.Tensor:
+    """The round-1 formulation (B8 and ``batched_chol_rinv``): step j
+    takes row j (``by_row``) or column j of the symmetric working matrix,
+    scales it from the diagonal on by piv = sqrt(max(d, TINY)) (so
+    L[j, j] = d / piv), and subtracts its outer product from the rows
+    below; then X[i] = (e_i - sum_{k<i} L[i, k] X[k]) / L[i, i]."""
+    B, n, _ = H.shape
+    A = H.clone()
+    Lt = torch.zeros_like(A)                   # Lt[:, j, i] = L[i, j]
+    tiny_t = torch.tensor(TINY, dtype=H.dtype, device=H.device)
+    below = torch.arange(n, device=H.device)
+    for j in range(n):
+        v = A[:, j, :] if by_row else A[:, :, j]
+        piv = torch.sqrt(torch.maximum(v[:, j], tiny_t))
+        coln = v / piv[:, None] * (below >= j).to(H.dtype)
+        Lt[:, j] = coln
+        A[:, j + 1:] -= coln[:, j + 1:, None] * coln[:, None, :]
+    X = torch.zeros_like(A)
+    eye = torch.eye(n, dtype=H.dtype, device=H.device)
+    for i in range(n):
+        acc = (Lt[:, :i, i, None] * X[:, :i]).sum(1)
+        X[:, i] = (eye[i] - acc) / Lt[:, i, i, None]
+    return X.transpose(1, 2).contiguous()
+
+
+def chol_rinv_lanes_plain(H: torch.Tensor) -> torch.Tensor:
+    """B8's twin: ``_chol_kernel``'s expressions (row j read by
+    symmetry, L[j, j] = d / piv, division in the substitution)."""
+    return _unblocked_rinv(H, by_row=True)
+
+
+def batched_chol_rinv(H: torch.Tensor) -> torch.Tensor:
+    """``daqp_tpu/ops/chol.py:843``: B8's expressions with column j read
+    instead of row j (the same for symmetric H).  A non-PD lane gives a
+    zero, negative or NaN diagonal that the caller's guards catch."""
+    return _unblocked_rinv(H, by_row=False)
+
+
+def chol_rinv_dense_plain(H: torch.Tensor) -> torch.Tensor:
+    """B9's twin, ``_chol_kernel_dense``'s steps without its masks: per
+    column j one pass downdates the trailing matrix and writes column j
+    (piv on the diagonal, zeros above); per row i one pass accumulates
+    sum_{k<i} L[i, k] X[k, :] and writes row i of X in place (-inv acc,
+    inv, zeros)."""
+    B, n, _ = H.shape
+    A = H.clone()
+    tiny_t = torch.tensor(TINY, dtype=H.dtype, device=H.device)
+    idx = torch.arange(n, device=H.device)
+    for j in range(n):
+        col = A[:, :, j]
+        piv = torch.sqrt(torch.maximum(col[:, j], tiny_t))
+        colL = torch.where(idx > j, col / piv[:, None], 0.0)
+        Lcol = colL + (idx == j).to(H.dtype) * piv[:, None]
+        A -= colL[:, :, None] * colL[:, None, :]
+        A[:, :, j] = Lcol
+    for i in range(n):
+        inv = 1.0 / A[:, i, i]
+        acc = (A[:, :i] * A[:, i, :i, None]).sum(1)
+        row = torch.where(idx == i, inv[:, None], -inv[:, None] * acc)
+        A[:, i] = torch.where(idx > i, 0.0, row)
+    return A.transpose(1, 2).contiguous()
+
+
+def chol_rinv_blk_plain(H: torch.Tensor) -> torch.Tensor:
+    """B10's twin, ``_tile_chol_kernel_blk``'s panel order with a ragged
+    last panel instead of identity padding.  Phase 1 per 8-column panel:
+    micro-steps (pivot, column, downdate of the panel's remaining
+    columns), then one rank-8 downdate of the trailing columns, t = 0..7
+    in turn.  Phase 2 per 8 rows: the off-block sums over the finished
+    rows k < i0 in ascending k, then the 8x8 diagonal solve row by row."""
+    B, n, _ = H.shape
+    A = H.clone()
+    tiny_t = torch.tensor(TINY, dtype=H.dtype, device=H.device)
+    idx = torch.arange(n, device=H.device)
+    for j0 in range(0, n, PB):
+        j1 = min(j0 + PB, n)
+        for j in range(j0, j1):
+            piv = torch.sqrt(torch.maximum(A[:, j, j], tiny_t))
+            col = torch.where(idx > j, A[:, :, j] / piv[:, None], 0.0)
+            A[:, :, j] = col + (idx == j).to(H.dtype) * piv[:, None]
+            if j + 1 < j1:
+                cpan = A[:, j + 1:j1, j]
+                A[:, :, j + 1:j1] -= col[:, :, None] * cpan[:, None, :]
+        if j1 < n:
+            pan = A[:, :, j0:j1] * (idx[:, None] > torch.arange(
+                j0, j1, device=H.device)).to(H.dtype)   # strictly below
+            blk = A[:, :, j1:]
+            for t in range(j1 - j0):
+                blk = blk - pan[:, :, t, None] * pan[:, None, j1:, t]
+            A[:, :, j1:] = blk
+    for i0 in range(0, n, PB):
+        i1 = min(i0 + PB, n)
+        P = A[:, i0:i1].clone()                         # L rows
+        acc = torch.zeros_like(P)
+        for k in range(i0):
+            acc = acc + P[:, :, k, None] * A[:, None, k]
+        rows = []
+        for t, i in enumerate(range(i0, i1)):
+            inv = 1.0 / P[:, t, i]
+            r = acc[:, t]
+            for s in range(t):
+                r = r + P[:, t, i0 + s, None] * rows[s]
+            row = torch.where(idx == i, inv[:, None], -inv[:, None] * r)
+            rows.append(torch.where(idx > i, 0.0, row))
+        A[:, i0:i1] = torch.stack(rows, 1)
+    return A.transpose(1, 2).contiguous()
+
+
+def _cuda_input(fn: str, H: torch.Tensor) -> None:
+    if H.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {H.device}")
+    if H.dtype != torch.float32:
+        raise TypeError(f"{fn}: CUDA kernel takes float32, got {H.dtype}")
+    if H.dim() != 3 or H.shape[1] != H.shape[2]:
+        raise ValueError(f"{fn}: expected (B, n, n), got {tuple(H.shape)}")
+    if not H.is_contiguous():
+        raise ValueError(f"{fn}: H must be contiguous")
+
+
+def _stream(H: torch.Tensor):
+    return torch.cuda.current_stream(H.device).cuda_stream
+
+
 def chol_rinv(H: torch.Tensor) -> torch.Tensor:
-    """K1 wrapper: the CUDA kernel for a CUDA tensor (f32, contiguous
-    (B, n, n)), the plain twin for a CPU tensor."""
+    """K1 wrapper: the CUDA kernel for a CUDA tensor, the plain twin for
+    a CPU tensor."""
     global launches
     if H.device.type == "cpu":
         return chol_rinv_plain(H)
-    if H.device.type != "cuda":
-        raise ValueError(f"chol_rinv: unsupported device {H.device}")
-    if H.dtype != torch.float32:
-        raise TypeError(f"chol_rinv: CUDA kernel takes float32, got {H.dtype}")
-    if H.dim() != 3 or H.shape[1] != H.shape[2]:
-        raise ValueError(
-            f"chol_rinv: expected (B, n, n), got {tuple(H.shape)}")
-    if not H.is_contiguous():
-        raise ValueError("chol_rinv: H must be contiguous")
+    _cuda_input("chol_rinv", H)
     B, n, _ = H.shape
+    smem.check("chol_rinv (K1)", dict(n=n), smem.chol_floats(n), H.device)
     out = torch.empty_like(H)
     if B == 0:
         return out
-    lib = _build.library()
-    stream = torch.cuda.current_stream(H.device).cuda_stream
-    _build.check(lib.chol_rinv_f32(H.data_ptr(), out.data_ptr(), B, n,
-                                   TINY, stream), "chol_rinv_f32")
+    _build.check(_build.library().chol_rinv_f32(
+        H.data_ptr(), out.data_ptr(), B, n, TINY, _stream(H)),
+        "chol_rinv_f32")
     launches += 1
     return out
 
 
-def _attempt(Hb: torch.Tensor, sqrt_zt: torch.Tensor):
-    Rinv = chol_rinv(Hb)
+def chol_rinv_lanes(H: torch.Tensor) -> torch.Tensor:
+    """B8 wrapper: the lanes-last kernel (one thread per matrix) on a
+    CUDA tensor, working in place on an (n, n, B) copy of H that comes
+    back transposed; the twin on a CPU tensor."""
+    global lanes_launches
+    if H.device.type == "cpu":
+        return chol_rinv_lanes_plain(H)
+    _cuda_input("chol_rinv_lanes", H)
+    B, n, _ = H.shape
+    if B == 0:
+        return torch.empty_like(H)
+    work = H.permute(1, 2, 0).contiguous()
+    _build.check(_build.library().chol_lanes_f32(
+        work.data_ptr(), B, n, TINY, _stream(H)), "chol_lanes_f32")
+    lanes_launches += 1
+    return work.permute(2, 1, 0).contiguous()        # Rinv[b] = X[b]'
+
+
+def _dense_warps(n: int) -> int:
+    """B9's matrices (warps) per block: 4 while they fit in the 48 KB a
+    block gets without opting in, else 2, else 1."""
+    per = smem.F32 * smem.chol_floats(n)
+    return next((w for w in (4, 2) if w * per <= 48 * 1024), 1)
+
+
+def chol_rinv_dense(H: torch.Tensor) -> torch.Tensor:
+    """B9 wrapper: one warp per matrix, ``_dense_warps(n)`` matrices per
+    block, on a CUDA tensor; the twin on a CPU tensor."""
+    global dense_launches
+    if H.device.type == "cpu":
+        return chol_rinv_dense_plain(H)
+    _cuda_input("chol_rinv_dense", H)
+    B, n, _ = H.shape
+    warps = _dense_warps(n)
+    smem.check("chol_rinv_dense (B9)", dict(n=n, warps=warps),
+               warps * smem.chol_floats(n), H.device)
+    out = torch.empty_like(H)
+    if B == 0:
+        return out
+    _build.check(_build.library().chol_dense_f32(
+        H.data_ptr(), out.data_ptr(), B, n, warps, TINY, _stream(H)),
+        "chol_dense_f32")
+    dense_launches += 1
+    return out
+
+
+def chol_rinv_blk(H: torch.Tensor) -> torch.Tensor:
+    """B10 wrapper: the panel-blocked kernel (the matrix in device
+    memory, one panel in shared memory) on a CUDA tensor; the twin on a
+    CPU tensor."""
+    global blk_launches
+    if H.device.type == "cpu":
+        return chol_rinv_blk_plain(H)
+    _cuda_input("chol_rinv_blk", H)
+    B, n, _ = H.shape
+    smem.check("chol_rinv_blk (B10)", dict(n=n), smem.chol_blk_floats(n),
+               H.device)
+    X = torch.empty_like(H)
+    if B == 0:
+        return X
+    _build.check(_build.library().chol_blk_f32(
+        H.data_ptr(), X.data_ptr(), B, n, TINY, _stream(H)), "chol_blk_f32")
+    blk_launches += 1
+    return X.transpose(1, 2).contiguous()
+
+
+def pivot_ok(Rinv: torch.Tensor, sqrt_zt: torch.Tensor) -> torch.Tensor:
+    """The reference's pivot-ratio test on a factor (utils.c:253-283):
+    finite, and the smallest pivot of R'R above sqrt(zero_tol) times the
+    largest; (B,) bool."""
     rd = torch.diagonal(Rinv, dim1=1, dim2=2)
     piv = 1.0 / torch.clamp(rd * rd, min=1e-38)          # pivots of R'R
     finite = torch.isfinite(Rinv).all(dim=2).all(dim=1)
-    ok = finite & (piv.amin(1) > sqrt_zt * piv.amax(1))
-    return Rinv, ok
+    return finite & (piv.amin(1) > sqrt_zt * piv.amax(1))
+
+
+def _attempt(Hb: torch.Tensor, sqrt_zt: torch.Tensor):
+    Rinv = chol_rinv(Hb)
+    return Rinv, pivot_ok(Rinv, sqrt_zt)
 
 
 def batched_rinv_regularized(H: torch.Tensor, st):
@@ -110,3 +325,68 @@ def batched_rinv_regularized(H: torch.Tensor, st):
         eps = eps * 2.0
         tries += 1
     return R, ok, (~ok0) & ok, eps_used
+
+
+def batched_invsqrt(H: torch.Tensor, iters: int = 14) -> torch.Tensor:
+    """``daqp_tpu/ops/chol.py:84``: (B, n, n) SPD -> symmetric
+    S = H^{-1/2} by the coupled Newton-Schulz (Denman-Beavers) iteration,
+    batched products only (f32 products in full f32: TF32 is off)."""
+    B, n, _ = H.shape
+    eye = torch.eye(n, dtype=H.dtype, device=H.device).expand(B, n, n)
+    c = (H * H).sum((1, 2), keepdim=True).sqrt()
+    Y, Z = H / c, eye
+    for _ in range(iters):
+        T = 1.5 * eye - 0.5 * torch.matmul(Z, Y)
+        Y, Z = torch.matmul(Y, T), torch.matmul(T, Z)
+    return Z / torch.sqrt(c)
+
+
+def _chol_small_inv(A: torch.Tensor, tiny: float):
+    """``daqp_tpu/ops/chol.py:692``: (B, p, p) SPD -> (R, Rinv), both
+    upper with A = R'R, by an unrolled Cholesky and back-substitution;
+    pivots clamp to ``tiny``."""
+    B, p, _ = A.shape
+    col = torch.arange(p, device=A.device)
+    tiny_t = torch.tensor(tiny, dtype=A.dtype, device=A.device)
+    rows = []
+    for i in range(p):
+        acc = A[:, i, :]
+        for k in range(i):
+            acc = acc - rows[k][:, i:i + 1] * rows[k]
+        piv = torch.sqrt(torch.maximum(acc[:, i], tiny_t))
+        rows.append(torch.where(col >= i, acc / piv[:, None], 0.0))
+    xrows = [None] * p
+    for i in reversed(range(p)):
+        inv = 1.0 / rows[i][:, i]
+        acc = torch.zeros((B, p), dtype=A.dtype, device=A.device)
+        for k in range(i + 1, p):
+            acc = acc + rows[i][:, k:k + 1] * xrows[k]
+        xi = torch.where(col == i, inv[:, None], -inv[:, None] * acc)
+        xrows[i] = torch.where(col >= i, xi, 0.0)
+    return torch.stack(rows, 1), torch.stack(xrows, 1)
+
+
+def batched_chol_rinv_mxu(H: torch.Tensor, tiny: float = TINY) -> torch.Tensor:
+    """``daqp_tpu/ops/chol.py:722``: blocked right-looking Cholesky and
+    blocked back-substitution whose panel and trailing updates are
+    batched products, with the 8x8 diagonal blocks by
+    ``_chol_small_inv``.  A ragged last block replaces the identity
+    padding (the padded block is decoupled: same result)."""
+    B, n, _ = H.shape
+    A22 = H
+    panels = []                       # (Rkk_inv, Rk_rest) per block row
+    for k0 in range(0, n, PB):
+        p = min(PB, n - k0)
+        _, Rkk_inv = _chol_small_inv(A22[:, :p, :p], tiny)
+        Rk_rest = torch.matmul(Rkk_inv.transpose(1, 2), A22[:, :p, p:])
+        A22 = A22[:, p:, p:] - torch.matmul(Rk_rest.transpose(1, 2),
+                                            Rk_rest)
+        panels.append((Rkk_inv, Rk_rest))
+    Xlow = panels[-1][0]
+    for Dinv, Ri_rest in reversed(panels[:-1]):
+        p, r = Dinv.shape[-1], Xlow.shape[-1]
+        Xi = torch.cat([Dinv, -torch.matmul(
+            Dinv, torch.matmul(Ri_rest, Xlow))], dim=2)
+        Xlow = torch.cat([Xi, torch.cat([Xlow.new_zeros((B, r, p)), Xlow],
+                                        dim=2)], dim=1)
+    return Xlow

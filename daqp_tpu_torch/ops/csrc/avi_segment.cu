@@ -286,10 +286,15 @@ extern "C" int avi_segment_f32(const void* const* ptrs, int B, int m, int n,
   const Tol tol{dual_tol, primal_tol, pivot_tol, sing_tol, progress_tol,
                 cycle_tol, bland};
   const size_t smem = avi_smem_floats(m, n, K) * sizeof(float);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(avi_segment_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        avi_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();              // clear it: no launch follows
+      return static_cast<int>(e);
+    }
+  }
   avi_segment_kernel<<<B, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       P, m, n, K, n_true, steps, nP, tol);

@@ -90,10 +90,15 @@ chol_rinv_kernel(const float* __restrict__ H, float* __restrict__ Rinv,
 extern "C" int chol_rinv_f32(const float* H, float* Rinv, int B, int n,
                              float tiny, void* stream) {
   const size_t smem = (static_cast<size_t>(n) * (n | 1) + n) * sizeof(float);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(chol_rinv_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chol_rinv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();              // clear it: no launch follows
+      return static_cast<int>(e);
+    }
+  }
   chol_rinv_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       H, Rinv, n, tiny);
   return static_cast<int>(cudaGetLastError());

@@ -733,9 +733,15 @@ extern "C" int dense_round_f32(const void* const* ptrs, int B, int m, int n,
                     rho_soft, has_soft, has_sw};
   const size_t smem = dense_smem_floats(m, n, has_sw != 0) * sizeof(float);
   auto kernel = has_sw ? dense_round_kernel<true> : dense_round_kernel<false>;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();              // clear it: no launch follows
+      return static_cast<int>(e);
+    }
+  }
   kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       P, m, n, n_true, steps, dt);
   return static_cast<int>(cudaGetLastError());

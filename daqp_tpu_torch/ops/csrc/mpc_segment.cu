@@ -156,10 +156,15 @@ extern "C" int mpc_segment_f32(const void* const* ptrs, int S, int m, int n,
   const Tol tol{dual_tol, primal_tol, pivot_tol, sing_tol, progress_tol,
                 cycle_tol, bland};
   const size_t smem = slot_smem_floats(m, n, K) * sizeof(float);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(mpc_segment_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mpc_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();              // clear it: no launch follows
+      return static_cast<int>(e);
+    }
+  }
   mpc_segment_kernel<<<S, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       P, m, n, K, n_true, steps, nP, tol);

@@ -133,10 +133,15 @@ extern "C" int slot_round_f32(const void* const* ptrs, int B, int m, int n,
   const Tol tol{dual_tol, primal_tol, pivot_tol, sing_tol, progress_tol,
                 cycle_tol, bland};
   const size_t smem = slot_smem_floats(m, n, K) * sizeof(float);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(slot_round_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        slot_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();              // clear it: no launch follows
+      return static_cast<int>(e);
+    }
+  }
   slot_round_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       P, m, n, K, n_true, steps, tol);
   return static_cast<int>(cudaGetLastError());

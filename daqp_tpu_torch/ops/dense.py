@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import host_any
+from . import host_any, smem
 from .slot import (MAX_ROUNDS, STEPS, _HELD, _check, _cuda_device,
                    _first_min, _launch)
 from ..types import (Settings, DAQP_INF, EXIT_CYCLE, EXIT_INFEASIBLE,
@@ -521,6 +521,9 @@ def run_kernel_round(s: DenseState, st: Settings, n_true: int,
     has_sw = s.sw_dls is not None
     names = CONST + STATE + ((SW_CONST + SW_STATE) if has_sw else ())
     _check("run_kernel_round", dev, _state_items(s, names))
+    smem.check("run_kernel_round (B7-sw)" if has_sw
+               else "run_kernel_round (B7)", dict(m=m, n=n),
+               smem.dense_floats(m, n, has_sw), dev)
     out_names = STATE + (SW_STATE if has_sw else ())
     outs = {name: torch.empty_like(getattr(s, name)) for name in out_names}
     if B == 0:

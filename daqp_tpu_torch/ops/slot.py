@@ -42,7 +42,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, host_any
+from . import _build, host_any, smem
 from ..types import (Settings, DAQP_INF, EXIT_CYCLE, EXIT_INFEASIBLE,
                      EXIT_ITERLIMIT, EXIT_OPTIMAL, EXIT_REFACTOR,
                      EXIT_RUNNING, EXIT_UNBOUNDED, PRICING_BLAND)
@@ -369,6 +369,8 @@ def run_slot_round(s: SlotState, st: Settings, n_true: int,
     B, m, n = s.M.shape
     K = s.E.shape[1]
     _check("run_slot_round", dev, _state_items(s, CONST + STATE))
+    smem.check("run_slot_round (K2)", dict(m=m, n=n, K=K),
+               smem.slot_floats(m, n, K), dev)
     outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
     if B == 0:
         return s
@@ -740,6 +742,8 @@ def run_mpc_segment(s: SlotState, duq, dlq, st: Settings, n_true: int,
     _check("run_mpc_segment", dev,
            _state_items(s, SEG_CONST + STATE)
            + [("duq", duq, (S, P, m), f32), ("dlq", dlq, (S, P, m), f32)])
+    smem.check("run_mpc_segment (B3)", dict(m=m, n=n, K=K),
+               smem.slot_floats(m, n, K), dev)
     outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
     useq = torch.empty((S, P, n), dtype=f32, device=dev)
     fvseq = torch.empty((S, P), dtype=f32, device=dev)
@@ -847,6 +851,8 @@ def run_prox_segment(s: SlotState, x, lane_run, stall, best_diff, lflag,
            + [(k, v, (B, n) if k == "x" else (B,),
                torch.int32 if k == "lflag" else f32)
               for k, v in lane.items()])
+    smem.check("run_prox_segment (B4)", dict(m=m, n=n, K=K),
+               smem.prox_floats(m, n, K), dev)
     outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
     lane_out = {k: torch.empty_like(v) for k, v in lane.items()}
     failed = torch.empty((B,), dtype=f32, device=dev)
@@ -1017,6 +1023,8 @@ def run_avi_segment(s: SlotState, x, y, xold, minres, ctr, tlim, lane_run,
            + [(k, v, (B, n) if k in ("x", "y", "xold") else (B,),
                torch.int32 if k == "lflag" else f32)
               for k, v in lane.items()])
+    smem.check("run_avi_segment (B5)", dict(m=m, n=n, K=K),
+               smem.avi_floats(m, n, K), dev)
     outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
     lane_out = {k: torch.empty_like(v) for k, v in lane.items()}
     failed = torch.empty((B,), dtype=f32, device=dev)
@@ -1244,6 +1252,8 @@ def run_lp_segment(s: SlotState, x, eps, stall, best, lane_run, lflag, tot,
            + [(k, v, (B, n) if k == "x" else (B,),
                torch.int32 if k == "lflag" else f32)
               for k, v in lane.items()])
+    smem.check("run_lp_segment (B6)", dict(m=m, n=n, K=K),
+               smem.lp_floats(m, n, K), dev)
     outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
     lane_out = {k: torch.empty_like(v) for k, v in lane.items()}
     failed = torch.empty((B,), dtype=f32, device=dev)

@@ -1,0 +1,75 @@
+"""Shared memory per block of each CUDA kernel, and the check before a
+launch.
+
+The formulas mirror the kernels' allocators in ``csrc/``:
+``slot_smem_floats`` (``slot_step.cuh``; K2 and B3 as they are, B4-B6 plus
+their own arrays), ``dense_smem_floats`` (``dense_round.cu``, B7),
+K1's ``n (n|1) + n`` (``chol_rinv.cu``), which B9 holds per warp, and
+B10's panel of 9n floats (``chol_blk.cu``).  B8 keeps no shared memory.
+A lane that needs more than the card lets one block opt in to raises
+``ValueError`` before anything is enqueued.
+"""
+from __future__ import annotations
+
+import torch
+
+F32 = 4                 # bytes per float
+K_WARPS = 4             # slot_step.cuh: kThreads / 32
+RED_STRIDE = 6          # slot_step.cuh: kRedStride
+
+
+def slot_floats(m: int, n: int, K: int) -> int:
+    """K2 and B3 (``slot_smem_floats``)."""
+    return (K * (K | 1) + K * (n | 1) + m * (n | 1) + 7 * m + 15 * K + 4 * n
+            + K_WARPS * RED_STRIDE)
+
+
+def prox_floats(m: int, n: int, K: int) -> int:
+    """B4 (``prox_segment.cu prox_smem_floats``)."""
+    return slot_floats(m, n, K) + n * (n | 1) + 5 * n + 2 * m
+
+
+def avi_floats(m: int, n: int, K: int) -> int:
+    """B5 (``avi_segment.cu avi_smem_floats``)."""
+    return slot_floats(m, n, K) + 5 * n * (n | 1) + 7 * n + 2 * m
+
+
+def lp_floats(m: int, n: int, K: int) -> int:
+    """B6 (``lp_segment.cu lp_smem_floats``)."""
+    return slot_floats(m, n, K) + 5 * n + 4 * m
+
+
+def dense_floats(m: int, n: int, has_sw: bool) -> int:
+    """B7, plain/soft or SOFT_WEIGHTS (``dense_smem_floats``)."""
+    return (m * (m | 1) + m * (n | 1) + 17 * m + 2 * n + K_WARPS * RED_STRIDE
+            + (8 * m + 2 if has_sw else 0))
+
+
+def chol_floats(n: int) -> int:
+    """K1's block, and one B9 matrix (one warp)."""
+    return n * (n | 1) + n
+
+
+def chol_blk_floats(n: int) -> int:
+    """B10: the n x 8 panel at row stride 9."""
+    return 9 * n
+
+
+def available(dev) -> int:
+    """Bytes of shared memory one block may opt in to on ``dev``."""
+    return torch.cuda.get_device_properties(
+        dev).shared_memory_per_block_optin
+
+
+def check(kernel: str, shape: dict, floats: int, dev=None,
+          limit: int | None = None) -> None:
+    """Raise ``ValueError`` if one block of ``kernel`` at ``shape`` needs
+    more than ``limit`` bytes of shared memory (default: what ``dev``
+    allows)."""
+    need = F32 * floats
+    limit = available(dev) if limit is None else limit
+    if need > limit:
+        dims = ", ".join(f"{k}={v}" for k, v in shape.items())
+        raise ValueError(
+            f"{kernel}: one lane at {dims} needs {need} bytes of shared "
+            f"memory per block; the card allows {limit}")

@@ -1,0 +1,158 @@
+"""B8, B9 and B10 (daqp_tpu_torch.ops.chol): each plain twin against the
+JAX kernel it replaces (Pallas interpret mode) and the f64 inverse; the
+XLA-only formulations against their JAX functions; the shared-memory
+formulas at the edges of an H100 block; the CPU route of each wrapper;
+and the factorization stage end to end: config-2-like batches solved on
+each twin's factor against the JAX package's solve."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from daqp_tpu import batch as batch_mod
+from daqp_tpu.api import _as_settings
+from daqp_tpu.ops import chol
+import daqp_tpu_torch as dt
+from daqp_tpu_torch import batch as pbatch
+from daqp_tpu_torch.ops import chol as pchol, smem
+from tests.gen import generate_test_qp_batch
+
+H100_SMEM = 232448          # bytes one block may opt in to on an H100
+
+JAX_KERNELS = {
+    "B8": (lambda h: chol.batched_chol_rinv_pallas(h, interpret=True),
+           pchol.chol_rinv_lanes_plain),
+    "B9": (lambda h: chol.batched_chol_rinv_dense(h, interpret=True),
+           pchol.chol_rinv_dense_plain),
+    "B10": (lambda h: chol.batched_chol_rinv_blk(h, interpret=True),
+            pchol.chol_rinv_blk_plain),
+}
+
+
+def _spd_batch(B, n, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n))
+    return np.einsum('bij,bkj->bik', A, A) + np.eye(n)
+
+
+def _f64_rinv(H):
+    return np.stack([np.linalg.inv(np.linalg.cholesky(
+        h.astype(np.float64)).T) for h in H])
+
+
+# The twins run their TPU kernel's per-element arithmetic; only sums are
+# taken in another order (and XLA may fuse a multiply-add).  f64 leaves
+# ~1e-14 relative, f32 ~1e-6; the gates are test_torch_chol.py's.
+# B10 at n = 13 and 20 has a ragged last panel, at 16 an exact one.
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-10),
+                                        (np.float32, 1e-4)])
+@pytest.mark.parametrize("kernel,n", [("B8", 12), ("B8", 13), ("B9", 12),
+                                      ("B9", 13), ("B10", 13), ("B10", 16),
+                                      ("B10", 20)])
+def test_twin_matches_jax_kernel(kernel, n, dtype, rtol):
+    jax_fn, twin = JAX_KERNELS[kernel]
+    H = _spd_batch(128, n, seed=n).astype(dtype)
+    Rj = np.asarray(jax.jit(jax_fn)(jnp.asarray(H)))
+    Rp = twin(torch.as_tensor(H)).numpy()
+    assert Rp.dtype == dtype
+    assert np.abs(np.tril(Rp, -1)).max() == 0.0          # upper triangular
+    assert np.abs(Rp - Rj).max() <= rtol * np.abs(Rj).max()
+    # and the f64 inverse, as tests/test_chol_ops.py:26-33 holds B8
+    assert np.abs(Rp - _f64_rinv(H)).max() < 1e-4
+
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-10),
+                                        (np.float32, 1e-4)])
+def test_blk_twin_at_n100(dtype, rtol):
+    # thirteen panels, the last of 4 columns; no JAX needed
+    H = _spd_batch(4, 100, seed=100).astype(dtype)
+    R = pchol.chol_rinv_blk_plain(torch.as_tensor(H)).numpy()
+    ref = _f64_rinv(H)
+    assert np.abs(R - ref).max() <= rtol * np.abs(ref).max()
+
+
+# The XLA formulations in f64 (conftest enables x64): the same products
+# and steps on both sides, so rounding-level agreement; Newton-Schulz's
+# 14 coupled products amplify it a little.
+@pytest.mark.parametrize("name,B,n,rtol", [
+    ("batched_chol_rinv", 4, 10, 1e-10),
+    ("batched_invsqrt", 8, 16, 1e-8),
+    ("batched_chol_rinv_mxu", 16, 13, 1e-10)])
+def test_xla_formulations_match_jax(name, B, n, rtol):
+    H = _spd_batch(B, n, seed=B + n)
+    Rj = np.asarray(jax.jit(getattr(chol, name))(jnp.asarray(H)))
+    Rp = getattr(pchol, name)(torch.as_tensor(H)).numpy()
+    assert np.abs(Rp - Rj).max() <= rtol * np.abs(Rj).max()
+    if name != "batched_invsqrt":
+        assert np.abs(Rp - _f64_rinv(H)).max() <= 1e-10
+
+
+# Each kernel's shared memory per block (the allocators of csrc/) against
+# an H100's 232,448 bytes: K1 fits n = 240, not 241; K2 fits config 2
+# (n = 50, m = 100, K = 51), not BASELINE "medium" (n = 100, m = 500,
+# ~305 KB); B7 at n = 50 fits m = 209, not 210, and its SOFT_WEIGHTS
+# variant m = 205, not 206.
+@pytest.mark.parametrize("kernel,floats,fits", [
+    ("K1", smem.chol_floats(240), True),
+    ("K1", smem.chol_floats(241), False),
+    ("K2", smem.slot_floats(100, 50, 51), True),
+    ("K2", smem.slot_floats(500, 100, 101), False),
+    ("B7", smem.dense_floats(209, 50, False), True),
+    ("B7", smem.dense_floats(210, 50, False), False),
+    ("B7-sw", smem.dense_floats(205, 50, True), True),
+    ("B7-sw", smem.dense_floats(206, 50, True), False)])
+def test_shared_memory_edges(kernel, floats, fits):
+    if fits:
+        smem.check(kernel, {}, floats, limit=H100_SMEM)
+    else:
+        with pytest.raises(ValueError, match=f"{4 * floats} bytes"):
+            smem.check(kernel, {}, floats, limit=H100_SMEM)
+    if kernel == "K2" and not fits:
+        assert 4 * floats == 305364
+
+
+@pytest.mark.parametrize("wrapper,twin,count", [
+    (pchol.chol_rinv_lanes, pchol.chol_rinv_lanes_plain, "lanes_launches"),
+    (pchol.chol_rinv_dense, pchol.chol_rinv_dense_plain, "dense_launches"),
+    (pchol.chol_rinv_blk, pchol.chol_rinv_blk_plain, "blk_launches")])
+def test_cpu_tensor_runs_twin(monkeypatch, wrapper, twin, count):
+    # a CPU tensor takes the twin and launches nothing; any other device
+    # that is not CUDA raises (no quiet fallback)
+    monkeypatch.setattr(pchol, count, 0)
+    H = torch.as_tensor(_spd_batch(8, 9, seed=9), dtype=torch.float32)
+    assert torch.equal(wrapper(H), twin(H))
+    assert getattr(pchol, count) == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        wrapper(torch.empty((2, 3, 3), device="meta"))
+
+
+def test_stage_solves_on_each_factor_match_jax():
+    # the factorization stage end to end: each twin's factor, the pivot
+    # ratio test for ok, then the slot tier through _kernel_batch_core's
+    # fact= (as the JAX core takes it), against the JAX package's own
+    # solve (factor by its tile kernel) and the constructed optimum
+    KEYS = ('H', 'f', 'A', 'bupper', 'blower', 'sense')
+    d = generate_test_qp_batch(128, 12, 30, 0, 8, 1e2, rng=47,
+                               dtype=np.float32)
+    over = {"iter_limit": 500}
+    rj = batch_mod.solve_batch_pallas_jit(
+        *[jnp.asarray(d[k]) for k in KEYS], st=_as_settings(
+            over, jnp.float32), ms=0, has_soft=False, interpret=True)
+    fj, xj = np.asarray(rj.exitflag), np.asarray(rj.x)
+    args = [torch.as_tensor(d[k]) for k in KEYS]
+    st = dt.as_settings(over, torch.float32)
+    sqrt_zt = torch.sqrt(torch.tensor(st.zero_tol))
+    no = torch.zeros(128, dtype=torch.bool)
+    for twin in (pchol.chol_rinv_plain, pchol.chol_rinv_lanes_plain,
+                 pchol.chol_rinv_dense_plain, pchol.chol_rinv_blk_plain):
+        R = twin(args[0])
+        ok = pchol.pivot_ok(R, sqrt_zt)
+        assert bool(ok.all()), twin.__name__
+        rp = pbatch._kernel_batch_core(*args, st, fact=(R, ok, no,
+                                                        torch.zeros(128)))
+        fp, xp = rp.exitflag.numpy(), rp.x.numpy()
+        assert (fp == fj).mean() >= 0.98, twin.__name__
+        both = (fp == 1) & (fj == 1)
+        assert np.linalg.norm(xp - xj, axis=1)[both].max() < 2e-3
+        assert np.linalg.norm(xp - d['x'], axis=1)[fp == 1].max() < 2e-3
