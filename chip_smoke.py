@@ -55,14 +55,14 @@ before and read just after:
   the factor's kernel).
 
 Phases ``k1``-``k10`` hold each kernel against its plain twin at the
-paths' shapes (``k8`` also at n = 10, 12, 20 and ``k10`` at n = 100-500,
-beside K1); ``limits`` shows that a shape beyond a block's shared memory
-raises ValueError before launch.  Each phase prints one JSON line with
-its seconds;
-then come the kernel table, the card's name and power limit, and as the
-last line ``{"ok": true, "device": ...}``.  Any failed check or error
-exits non-zero without that line; so does a machine without a CUDA
-device.
+paths' shapes (``k8`` also at n = 10, 12, 20, ``k10`` at n = 100-500,
+beside K1, and ``k7`` also at the streams' 256-lane chunk and at the
+largest m whose block fits); ``limits`` shows that a shape beyond a
+block's shared memory raises ValueError before launch.  Each phase
+prints one JSON line with its seconds; then come the kernel table,
+the card's name and power limit, and as the last line
+``{"ok": true, "device": ...}``.  Any failed check or error exits
+non-zero without that line; so does a machine without a CUDA device.
 """
 import importlib
 import importlib.util
@@ -84,6 +84,8 @@ ROOT = Path(__file__).resolve().parent
 # config 2 (bench.py:63-79)
 B, N, M_ROWS, N_ACT, KAPPA, SEED = 10240, 50, 100, 40, 1e2, 2026
 B_K2 = 1024
+B_CHUNK = 256         # the streams' chunk: B7's launch shape (k7 case e)
+B_EDGE = 64           # lanes of k7 case f, at the largest m that fits
 STEPS = 192
 # config 3 (bench_extra.py:49-61) and config 4 (bench_extra.py:101-113)
 S3, T3, SEG3, SEED3, DRIFT3 = 512, 20, 10, 7, 0.02
@@ -282,20 +284,39 @@ def state_bytes(s, names):
     return nbytes(*(getattr(s, k) for k in names))
 
 
-def dense_step_flops(m, n):
-    """Operations of one dense-mask step (dense_round.cu): E pass 1
-    (lam* and a_p, 4 m^2), E pass 2 (a = E g, 2 m^2), the rank-one E
-    update (deletion and add, 4 m^2), and three M passes u = M'lam*,
-    mu = M u, g = M m_j (6 m n).  The pending Gram column (2 m n, only
-    while an entry is pending) is not counted."""
-    return 10 * m * m + 6 * m * n
+def dense_step_flops(k, m, n):
+    """Operations one dense-mask step needs with k active rows (E is zero
+    off the active block, dense_round.cu): lam* = -E d_W, a_p = E g_p
+    and a = E g (6 k^2), the rank-one E update (deletion and add, 4 k^2),
+    u = -M'(lam* o act) over the active rows (2 k n), mu = M u and the
+    add's Gram column g = M m_j (4 m n).  The pending Gram column (2 m n,
+    only while an entry is pending) is not counted."""
+    return 10 * k * k + 2 * k * n + 4 * m * n
 
 
-def sw_step_flops(m, n):
+def sw_step_flops(k, m, n):
     """A dense-mask step of the SOFT_WEIGHTS variant: the blocker's Gram
-    column g_bk = M m_rm (2 m n), its Schur column E g_bk (2 m^2) and its
-    rank-one term in the E update (2 m^2) on top of a soft step."""
-    return dense_step_flops(m, n) + 4 * m * m + 2 * m * n
+    column g_bk = M m_rm (2 m n), its Schur column E g_bk (2 k^2) and its
+    rank-one term in the E update (2 k^2) on top of a soft step."""
+    return dense_step_flops(k, m, n) + 4 * k * k + 2 * m * n
+
+
+def dense_round_flops(s0, sk, n):
+    """Operations of one round from ``s0`` to ``sk``: per lane its steps
+    at k the mean of its active counts before and after the round."""
+    k = 0.5 * ((s0.act_up + s0.act_lo).sum(1) + (sk.act_up + sk.act_lo)
+               .sum(1))
+    steps = sk.iterations - s0.iterations
+    step = sw_step_flops if s0.sw_dls is not None else dense_step_flops
+    return (steps.double() * step(k.double(), s0.M.shape[1], n)).sum().item()
+
+
+def off_block_lanes(s):
+    """Lanes whose E is not exactly zero off the active block (the
+    precondition of B7's active-row walk)."""
+    act = s.act_up + s.act_lo
+    off = (act[:, :, None] * act[:, None, :]) == 0
+    return int(((s.E != 0) & off).any(2).any(1).sum())
 
 
 def reset_counts():
@@ -350,7 +371,8 @@ def phase_env(card):
                           text=True, check=True).stdout
     log = _build.BUILD_DIR / "nvcc.log"
     ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "Compiling entry" in ln] \
+             if "registers" in ln or "Compiling entry" in ln
+             or "spill" in ln] \
         if log.exists() else []
     emit("env", t0, torch=torch.__version__, cuda=torch.version.cuda,
          nvcc=[ln for ln in nvcc.splitlines() if "release" in ln][0],
@@ -1028,7 +1050,8 @@ def k7_case(s0, st, n, has_soft=True):
     """One B7 round against its twin from ``s0``: exit flags and working
     sets (act_up, act_lo, and on a SOFT_WEIGHTS state sfix) agree on
     K2_AGREE of the lanes, ||du||_inf <= K2_DU (1 + ||u||_inf) on agreeing
-    optimal lanes (flag 1 or 2).
+    optimal lanes (flag 1 or 2), and the kernel leaves E zero off the
+    active block on every lane, as the next round's walk needs.
 
     On a SOFT_WEIGHTS state the f32 twin itself parts from the same twin
     in f64 on more lanes than K2_AGREE allows (slack transitions decided
@@ -1063,8 +1086,8 @@ def k7_case(s0, st, n, has_soft=True):
     sw_out = dense.SW_STATE if has_sw else ()
     bnd = bound(state_bytes(s0, dense.CONST + dense.STATE + sw_in)
                 + state_bytes(sk, dense.STATE + sw_out),
-                steps_done * (sw_step_flops(m, n) if has_sw
-                              else dense_step_flops(m, n)))
+                dense_round_flops(s0, sk, n))
+    off_block = off_block_lanes(sk)
     flags = {int(k): int(v) for k, v in zip(
         *torch.unique(sk.status, return_counts=True))}
     rate = agree.float().mean().item()
@@ -1076,32 +1099,88 @@ def k7_case(s0, st, n, has_soft=True):
                optimal_agreeing=int(opt.sum()),
                du_inf=gmax(du.cpu().numpy()), du_rel=du_rel,
                du_rel_tol=K2_DU, kernel_flags=flags, steps_done=steps_done,
-               ms=ms, plain_ms=plain_ms, **bnd)
-    return rate >= agree_gate and du_rel <= K2_DU, out
+               e_off_block_lanes=off_block, ms=ms, plain_ms=plain_ms, **bnd)
+    return rate >= agree_gate and du_rel <= K2_DU and off_block == 0, out
 
 
-def phase_k7(args_soft, args_hard, args4b, sw_k, st):
+def first_chunk(full, st):
+    """The lanes of the first B_CHUNK-lane chunk of
+    ``solve_batch_kernel_stream(sort_stream=True)`` on ``full``: the
+    stream's difficulty order over the whole batch."""
+    Rinv = chol.batched_rinv_regularized(full[0], st)[0]
+    nv = pbatch._difficulty_nviol(*full[1:5], 0, Rinv)
+    return torch.argsort(nv, stable=True)[:B_CHUNK]
+
+
+def edge_m(sw, dev):
+    """The largest m at n = N whose B7 block fits the card's shared
+    memory (the plain/soft or the SOFT_WEIGHTS layout)."""
+    m = M_ROWS
+    while smem.F32 * smem.dense_floats(m + 1, N, sw) <= smem.available(dev):
+        m += 1
+    return m
+
+
+def edge_state(m, sw, dev):
+    """B_EDGE random feasible LDP lanes at n = N with m rows: M standard
+    normal / sqrt(n), the box [M x0 - 0.2 - 0.8 U, M x0 + 0.2 + 0.8 U]
+    around a point x0 ~ N(0, 0.25 I) (seed SEED + m), rows 0-19 soft and,
+    if ``sw``, sw_weights' SOFT_WEIGHTS data on them."""
+    g = np.random.default_rng(SEED + m)
+    M = g.standard_normal((B_EDGE, m, N)) / np.sqrt(N)
+    b0 = np.einsum("bmn,bn->bm", M, 0.5 * g.standard_normal((B_EDGE, N)))
+    du = b0 + 0.2 + 0.8 * g.random((B_EDGE, m))
+    dl = b0 - 0.2 - 0.8 * g.random((B_EDGE, m))
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    one = torch.ones((B_EDGE, m), device=dev)
+    soft = (torch.arange(m, device=dev) < SOFT_ROWS).float()
+    w = sw_weights(B_EDGE, m) if sw else None
+    return dense.dense_init(
+        t(M), t(du), t(dl), one, 0.0 * one, soft.expand(B_EDGE, m)
+        .contiguous(), sw=None if w is None else sw_tensors(w, dev))
+
+
+def phase_k7(args_soft, args_hard, args4b, sw_k, chunk, st):
     """B7 against its twin: (a) one cold round on the first B_K2 config-2
     lanes with rows 0-19 SOFT; (b) config 4b's first level, rho 3e-2;
     (c) the kernel's plain variant (has_soft False) on the same config-2
     lanes with every row hard; (d) the SOFT_WEIGHTS variant on the lanes
-    of (a) with the sw phase's weights ``sw_k``."""
+    of (a) with the sw phase's weights ``sw_k``; (e) the first 256-lane
+    chunk of the soft and sw streams, ``chunk`` = (its soft args, its sw
+    weights), the kernel's launch shape there; (f) B_EDGE random lanes
+    at the largest m whose block fits, in the soft and the SOFT_WEIGHTS
+    variant."""
     t0 = time.perf_counter()
+    dev = args_soft[0].device
     ok_a, a = k7_case(dense_state(args_soft, st), st, N)
     s4, st4 = level1_state(args4b, st)
     ok_b, b = k7_case(s4, st4, N4B)
     ok_c, c = k7_case(dense_state(args_hard, st), st, N, has_soft=False)
     ok_d, sw = k7_case(dense_state(args_soft, st, sw_k), st, N)
+    ok_e, e = k7_case(dense_state(chunk[0], st), st, N)
+    ok_esw, esw = k7_case(dense_state(chunk[0], st, chunk[1]), st, N)
+    ok_f, f = k7_case(edge_state(edge_m(False, dev), False, dev), st, N)
+    ok_fsw, fsw = k7_case(edge_state(edge_m(True, dev), True, dev), st, N)
     emit("k7", t0, config2_soft=a, config4b_level1=b, config2_hard=c,
-         config2_sw=sw)
-    return ok_a and ok_b and ok_c and ok_d, dict(
+         config2_sw=sw, chunk256_soft=e, chunk256_sw=esw, edge_soft=f,
+         edge_sw=fsw)
+    ok = ok_a and ok_b and ok_c and ok_d and ok_e and ok_esw and ok_f \
+        and ok_fsw
+    return ok, dict(
         max_abs_err=max(a["du_inf"], b["du_inf"], sw["du_inf"]), ms=a["ms"],
         plain_ms=a["plain_ms"], library_ms=None, bound_ms=a["bound_ms"],
         bound_by=a["bound_by"], ms_config4b=b["ms"],
         plain_ms_config4b=b["plain_ms"], bound_ms_config4b=b["bound_ms"],
         ms_sw=sw["ms"], plain_ms_sw=sw["plain_ms"],
         bound_ms_sw=sw["bound_ms"], bound_by_sw=sw["bound_by"],
-        max_abs_err_sw=sw["du_inf"])
+        max_abs_err_sw=sw["du_inf"], ms_b256=e["ms"],
+        plain_ms_b256=e["plain_ms"], bound_ms_b256=e["bound_ms"],
+        ms_sw_b256=esw["ms"], plain_ms_sw_b256=esw["plain_ms"],
+        bound_ms_sw_b256=esw["bound_ms"], m_edge=f["m"],
+        m_edge_sw=fsw["m"])
 
 
 def soft_sense(sense):
@@ -2130,8 +2209,11 @@ def main():
     args4b = [torch.as_tensor(d4b[k], device=dev)
               for k in ('f', 'A', 'bupper', 'blower', 'sense')]
     args_k = [a[:B_K2] for a in full]
+    lanes = first_chunk(full, st)
+    args_c = [a[lanes] for a in full[:5]] + [soft_sense(full[5][lanes])]
     run("k7", phase_k7, args_k[:5] + [soft_sense(args_k[5])], args_k, args4b,
-        sw_tensors(sw_np, dev, slice(0, B_K2)), st)
+        sw_tensors(sw_np, dev, slice(0, B_K2)),
+        (args_c, sw_tensors(sw_np, dev, lanes.cpu().numpy())), st)
     run("soft", phase_soft, full, d, st, card)
     run("sw", phase_sw, full, d, sw_np, st, card)
     del full

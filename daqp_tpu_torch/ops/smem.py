@@ -16,6 +16,9 @@ import torch
 F32 = 4                 # bytes per float
 K_WARPS = 4             # slot_step.cuh: kThreads / 32
 RED_STRIDE = 6          # slot_step.cuh: kRedStride
+DENSE_THREADS = 128     # dense_round.cu: kDenseThreads
+DENSE_WARPS = DENSE_THREADS // 32
+DENSE_RED = 6           # dense_round.cu: kDenseRed
 
 
 def slot_floats(m: int, n: int, K: int) -> int:
@@ -40,9 +43,12 @@ def lp_floats(m: int, n: int, K: int) -> int:
 
 
 def dense_floats(m: int, n: int, has_sw: bool) -> int:
-    """B7, plain/soft or SOFT_WEIGHTS (``dense_smem_floats``)."""
-    return (m * (m | 1) + m * (n | 1) + 17 * m + 2 * n + K_WARPS * RED_STRIDE
-            + (8 * m + 2 if has_sw else 0))
+    """B7, plain/soft or SOFT_WEIGHTS (``dense_smem_floats``): E, M, 17
+    m-vectors (the active-row list among them), u and u_new, two halves
+    of reduction scratch and 4 counters; SOFT_WEIGHTS 7 m-vectors and 2
+    scalars more."""
+    return (m * (m | 1) + m * (n | 1) + 17 * m + 2 * n
+            + 2 * DENSE_WARPS * DENSE_RED + 4 + (7 * m + 2 if has_sw else 0))
 
 
 def chol_floats(n: int) -> int:

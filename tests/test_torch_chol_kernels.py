@@ -4,6 +4,9 @@ XLA-only formulations against their JAX functions; the shared-memory
 formulas at the edges of an H100 block; the CPU route of each wrapper;
 and the factorization stage end to end: config-2-like batches solved on
 each twin's factor against the JAX package's solve."""
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -110,6 +113,30 @@ def test_shared_memory_edges(kernel, floats, fits):
             smem.check(kernel, {}, floats, limit=H100_SMEM)
     if kernel == "K2" and not fits:
         assert 4 * floats == 305364
+
+
+def test_dense_mirror_reads_kernel_constants():
+    # ops/smem.py's B7 constants are the ones dense_round.cu compiles with,
+    # and its formula is the allocator's own (kernel source text, no nvcc)
+    src = (Path(pchol.__file__).parent / "csrc" / "dense_round.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kDenseThreads") == smem.DENSE_THREADS
+    assert const("kDenseRed") == smem.DENSE_RED
+    assert smem.DENSE_WARPS == smem.DENSE_THREADS // 32
+    body = re.search(r"dense_smem_floats\(int m, int n,\s*bool has_sw\) \{"
+                     r"(.*?)\}", src, re.S).group(1)
+    expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1",
+                  body.replace("return", "").replace(";", ""))
+    expr = "(" + re.sub(r"\(has_sw \? (.*?) : 0\)",
+                        r"((\1) if has_sw else 0)", expr, flags=re.S) + ")"
+    for m, n, sw in [(100, 50, False), (100, 50, True), (24, 12, False),
+                     (209, 50, False), (205, 50, True)]:
+        assert eval(expr, {"kDenseWarps": smem.DENSE_WARPS,
+                           "kDenseRed": smem.DENSE_RED},
+                    dict(m=m, n=n, has_sw=sw)) == smem.dense_floats(m, n, sw)
 
 
 @pytest.mark.parametrize("wrapper,twin,count", [
