@@ -19,8 +19,21 @@ profiled call, the device time summed over kernels, the device's busy and
 idle shares of the wall, the host syncs, and the kernels that took most
 device time with their launch counts.  The Chrome traces go to
 ``chiprun_out/profile_<cell>.json.gz``.  Without a CUDA device it exits 2.
+
+    python3 chip_profile.py --probe k2
+
+instead builds an instrumented copy of the kernels' sources under
+``build/probe_k2`` (K2 alone, compiled with ``-DSLOT_PROBE``; the normal
+library is not touched), runs one K2 round on ``chip_smoke.py``'s k2 case
+e (the first 256-lane chunk of the sorted config-2 stream) and prints the
+SM cycles per step of each phase of the slot step (``slot_step.cuh``,
+``SLOT_PROBE_MARK``), the prefix's cycles per lane, and the probe's cost:
+the instrumented round's time beside the normal kernel's.
 """
+import ctypes
 import json
+import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -32,8 +45,14 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 import daqp_tpu_torch as dt
 from daqp_tpu_torch import ops
+from daqp_tpu_torch.ops import _build, slot
 
 OUT = Path(__file__).resolve().parent / "chiprun_out"
+PROBE_DIR = Path(__file__).resolve().parent / "build" / "probe_k2"
+# the phases of slot_steps between SLOT_PROBE_MARKs, in order
+PROBE_PHASES = ("prefix", "ratio_test_and_u", "pricing_and_reduce",
+                "gram_column_and_reduce", "schur_vector_removal_and_reduce",
+                "pending_column_bookkeeping_and_e_update")
 
 
 def device_us(evt):
@@ -71,12 +90,83 @@ def profiled(cell, fn, card):
         "card": card}), flush=True)
 
 
+def probe_library():
+    """K2 built from a copy of ``csrc/`` with the cycle probe compiled in,
+    bound by ctypes."""
+    src = PROBE_DIR / "csrc"
+    shutil.copytree(_build._CSRC, src, dirs_exist_ok=True)
+    so = PROBE_DIR / "libslot_probe.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DSLOT_PROBE",
+                    "-shared", "-o", str(so), str(src / "slot_round.cu")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    lib.slot_round_f32.argtypes = _build._SIGNATURES["slot_round_f32"]
+    lib.slot_probe_read.argtypes = [ctypes.c_void_p]
+    for fn in (lib.slot_round_f32, lib.slot_probe_read, lib.slot_probe_reset):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def probe_round(lib, s, st, n_true, steps):
+    """One instrumented K2 round from ``s`` (the pointer table of
+    ``slot.run_slot_round``)."""
+    B, m, n = s.M.shape
+    outs = [torch.empty_like(getattr(s, k)) for k in slot.STATE]
+    ptrs = [getattr(s, k).data_ptr() for k in slot.CONST + slot.STATE] \
+        + [x.data_ptr() for x in outs]
+    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    rc = lib.slot_round_f32(
+        ctypes.addressof(table), B, m, n, s.E.shape[1], n_true, steps,
+        st.dual_tol, st.primal_tol, st.pivot_tol, st.sing_tol,
+        st.progress_tol, st.cycle_tol, 0,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "slot_round_f32 (probe)")
+
+
+def probe_k2(dev, card):
+    st = dt.as_settings({"iter_limit": 1000}, torch.float32)
+    gen = cs.load("daqp_test_gen", "tests/gen.py")
+    d = gen.generate_test_qp_batch(cs.B, cs.N, cs.M_ROWS, 0, cs.N_ACT,
+                                   cs.KAPPA, rng=cs.SEED, dtype=np.float32)
+    full = [torch.as_tensor(d[k], device=dev)
+            for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
+    lanes = cs.first_chunk(full, st)
+    s0 = cs.slot_state([a[lanes] for a in full], st)
+    lib = probe_library()
+    probe_round(lib, s0, st, cs.N, cs.STEPS)            # warm-up
+    torch.cuda.synchronize()
+    _build.check(lib.slot_probe_reset(), "slot_probe_reset")
+    probe_round(lib, s0, st, cs.N, cs.STEPS)
+    torch.cuda.synchronize()
+    words = (ctypes.c_ulonglong * (len(PROBE_PHASES) + 1))()
+    _build.check(lib.slot_probe_read(ctypes.addressof(words)),
+                 "slot_probe_read")
+    steps, ran = words[-1], int((s0.status == dt.EXIT_RUNNING).sum())
+    per_step = {ph: words[i] / steps for i, ph in enumerate(PROBE_PHASES)
+                if i > 0}
+    total = sum(per_step.values())
+    print(json.dumps({
+        "probe": "k2", "case": "chunk256", "B": len(lanes), "steps": steps,
+        "prefix_cycles_per_lane": words[0] / ran,
+        "cycles_per_step": per_step, "cycles_per_step_total": total,
+        "share": {ph: v / total for ph, v in per_step.items()},
+        "ms_probe": cs.cuda_ms(lambda: probe_round(lib, s0, st, cs.N,
+                                                   cs.STEPS), 5),
+        "ms_kernel": cs.cuda_ms(lambda: slot.run_slot_round(
+            s0, st, cs.N, cs.STEPS), 5),
+        "card": card}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     card = cs.card_line()
+    if sys.argv[1:] == ["--probe", "k2"]:
+        probe_k2(dev, card)
+        print(card, flush=True)
+        return 0
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)
     gen = cs.load("daqp_test_gen", "tests/gen.py")
     keys = ('H', 'f', 'A', 'bupper', 'blower', 'sense')

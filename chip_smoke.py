@@ -55,9 +55,10 @@ before and read just after:
   the factor's kernel).
 
 Phases ``k1``-``k10`` hold each kernel against its plain twin at the
-paths' shapes (``k8`` also at n = 10, 12, 20, ``k10`` at n = 100-500,
-beside K1, and ``k7`` also at the streams' 256-lane chunk and at the
-largest m whose block fits); ``limits`` shows that a shape beyond a
+paths' shapes (``k2`` and ``k7`` also at the streams' 256-lane chunk
+and at the largest m whose block fits, ``k2`` also from slots scattered
+by a permutation, ``k8`` also at n = 10, 12, 20, ``k10`` at n = 100-500,
+beside K1); ``limits`` shows that a shape beyond a
 block's shared memory raises ValueError before launch.  Each phase
 prints one JSON line with its seconds; then come the kernel table,
 the card's name and power limit, and as the last line
@@ -84,8 +85,9 @@ ROOT = Path(__file__).resolve().parent
 # config 2 (bench.py:63-79)
 B, N, M_ROWS, N_ACT, KAPPA, SEED = 10240, 50, 100, 40, 1e2, 2026
 B_K2 = 1024
-B_CHUNK = 256         # the streams' chunk: B7's launch shape (k7 case e)
-B_EDGE = 64           # lanes of k7 case f, at the largest m that fits
+B_CHUNK = 256         # the streams' chunk: K2's and B7's launch shape
+B_EDGE = 64           # lanes of k2 and k7 case f, at the largest m that fits
+W_STEPS = 30          # twin steps before k2 case w scatters the slots
 STEPS = 192
 # config 3 (bench_extra.py:49-61) and config 4 (bench_extra.py:101-113)
 S3, T3, SEG3, SEED3, DRIFT3 = 512, 20, 10, 7, 0.02
@@ -267,17 +269,30 @@ def bound(n_bytes, flops):
                 bytes=n_bytes, flops=flops)
 
 
-def step_flops(m, n, K):
-    """Operations of one slot step (slot_step.cuh): u = W'lam* and the
-    Gram column W a (2 K n each), mu = M u (2 m n), the W update and the
-    pending column W prow (2 K n each), a = E g (2 K^2), the E update
-    (~4 K^2) and lam*, a_p = E (.) (4 K^2)."""
-    return 2 * m * n + 8 * K * n + 10 * K * K
+def step_flops(m, n, k):
+    """Operations of one slot step (slot_step.cuh) over k slots: u = W'lam*
+    and the Gram column W a (2 k n each), mu = M u (2 m n), the W update
+    and the pending column W prow (2 k n each), a = E g (2 k^2), the E
+    update (~4 k^2) and lam*, a_p = E (.) (4 k^2).  k = K counts every
+    slot; the step needs only the used ones (E is zero off used x used, W
+    on unused rows)."""
+    return 2 * m * n + 8 * k * n + 10 * k * k
 
 
-def prefix_flops(n, K):
-    """The round prefix g_p = W prow, lam*, a_p = E (.)."""
-    return 2 * K * n + 4 * K * K
+def prefix_flops(n, k):
+    """The round prefix g_p = W prow, lam*, a_p = E (.) over k slots."""
+    return 2 * k * n + 4 * k * k
+
+
+def slot_round_flops(s0, sk, m, n):
+    """Operations of one K2 round from ``s0`` to ``sk``: per lane its
+    steps and, if it ran, the prefix, at k the mean of its used counts
+    before and after the round."""
+    k = 0.5 * (s0.used.sum(1) + sk.used.sum(1)).double()
+    steps = (sk.iterations - s0.iterations).double()
+    ran = (s0.status == dt.EXIT_RUNNING).double()
+    return (steps * step_flops(m, n, k) + ran * prefix_flops(n, k)).sum() \
+        .item()
 
 
 def state_bytes(s, names):
@@ -317,6 +332,24 @@ def off_block_lanes(s):
     act = s.act_up + s.act_lo
     off = (act[:, :, None] * act[:, None, :]) == 0
     return int(((s.E != 0) & off).any(2).any(1).sum())
+
+
+def slot_off_block_lanes(s):
+    """Lanes whose E is not exactly zero off used x used, or whose W is
+    not zero on an unused row (the precondition of the slot step's
+    used-slot list)."""
+    off = (s.used[:, :, None] * s.used[:, None, :]) == 0
+    e_bad = ((s.E != 0) & off).any(2).any(1)
+    w_bad = ((s.W != 0) & (s.used == 0)[:, :, None]).any(2).any(1)
+    return int((e_bad | w_bad).sum())
+
+
+def slot_holes(s):
+    """Lanes with a free slot below a used one."""
+    k = s.used.sum(1)
+    last = torch.where(s.used > 0, torch.arange(
+        s.used.shape[1], device=s.used.device), -1).amax(1)
+    return int((last + 1 > k).sum())
 
 
 def reset_counts():
@@ -439,52 +472,111 @@ def phase_k1(H):
     return ok, kernel_fields(f)
 
 
-def phase_k2(args, st):
-    """One K2 round against its twin from the cold slot state of the
-    first B_K2 config-2 lanes after the port's build_ldp."""
-    t0 = time.perf_counter()
+def slot_state(args, st):
+    """The cold slot state of QP lanes ``args`` (H, f, A, bu, bl, sense)
+    after the port's factorization and build_ldp."""
     Rinv, _, _, _ = chol.batched_rinv_regularized(args[0], st)
     ldpd = transform.build_ldp(*args[1:], 0, st, Rinv=Rinv)
     immut = ((ldpd.sense & dt.IMMUTABLE) > 0).float()
-    s0 = slot.slot_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling,
-                        immut, n_true=N)
-    sk = slot.run_slot_round(s0, st, N, STEPS)
-    sp = slot.run_slot_round_plain(s0, st, N, STEPS)
-    # semantic agreement: exit flag and working set (the m-space active
-    # masks); the slot a row sits in may differ where the paths parted
-    # at an f32 tie and met again.  u is held relative to its scale: after
-    # ~100 f32 rank-one updates of E and before slot_solve's polish, each
-    # side is up to ~1e-3 off the exact f64 u on its own working set
-    # (measured on the H100: kernel 1.1e-3, twin 1.9e-3 at |u| ~ 6-12)
+    return slot.slot_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling,
+                          immut, n_true=ldpd.M.shape[2])
+
+
+def k2_case(s0, st, steps=STEPS):
+    """One K2 round against its twin from ``s0``.
+
+    Semantic agreement: exit flag and working set (the m-space active
+    masks) on K2_AGREE of the lanes; the slot a row sits in may differ
+    where the paths parted at an f32 tie and met again.  u is held
+    relative to its scale: after ~100 f32 rank-one updates of E and
+    before slot_solve's polish, each side is up to ~1e-3 off the exact
+    f64 u on its own working set (measured on the H100: kernel 1.1e-3,
+    twin 1.9e-3 at |u| ~ 6-12).  The kernel must leave E zero off
+    used x used and W zero on unused rows on every lane, as the next
+    round's list needs."""
+    n = s0.M.shape[2]
+    sk = slot.run_slot_round(s0, st, n, steps)
+    sp = slot.run_slot_round_plain(s0, st, n, steps)
     agree = (sk.status == sp.status) & (sk.act_up == sp.act_up).all(1) \
         & (sk.act_lo == sp.act_lo).all(1)
     table = agree & (sk.used == sp.used).all(1) & (sk.sid == sp.sid).all(1)
     opt = agree & (sk.status == dt.EXIT_OPTIMAL)
     du = (sk.u - sp.u).abs().amax(1)[opt]
-    du_rel = (du / (1.0 + sp.u.abs().amax(1)[opt])).max().item()
-    du = du.max().item()
+    du_rel = gmax((du / (1.0 + sp.u.abs().amax(1)[opt])).cpu().numpy())
+    du = gmax(du.cpu().numpy())
     rate = agree.float().mean().item()
-    ex_k, ex_p = map(gmax, exact_gap(ldpd.M, sk, sp, opt))
-    ms = cuda_ms(lambda: slot.run_slot_round(s0, st, N, STEPS), 5)
-    plain_ms = cuda_ms(lambda: slot.run_slot_round_plain(s0, st, N, STEPS), 2)
-    K = N + 1
+    ex_k, ex_p = map(gmax, exact_gap(s0.M, sk, sp, opt))
+    ms = cuda_ms(lambda: slot.run_slot_round(s0, st, n, steps), 5)
+    plain_ms = cuda_ms(lambda: slot.run_slot_round_plain(s0, st, n, steps),
+                       2)
+    Bk, m, _ = s0.M.shape
+    K = s0.E.shape[1]
     steps_done = (sk.iterations - s0.iterations).sum().item()
-    bnd = bound(state_bytes(s0, slot.CONST + slot.STATE)
-                + state_bytes(sk, slot.STATE),
-                steps_done * step_flops(M_ROWS, N, K)
-                + B_K2 * prefix_flops(N, K))
+    n_bytes = state_bytes(s0, slot.CONST + slot.STATE) \
+        + state_bytes(sk, slot.STATE)
+    bnd = bound(n_bytes, slot_round_flops(s0, sk, m, n))
+    ran = int((s0.status == dt.EXIT_RUNNING).sum())
+    old = bound(n_bytes, steps_done * step_flops(m, n, K)
+                + ran * prefix_flops(n, K))
+    off_block = slot_off_block_lanes(sk)
     flags = {int(k): int(v) for k, v in zip(
         *torch.unique(sk.status, return_counts=True))}
-    emit("k2", t0, B=B_K2, n=N, m=M_ROWS, K=K, steps=STEPS,
-         agree_rate=rate, slot_table_agree_rate=table.float().mean().item(),
-         optimal_agreeing=int(opt.sum()), du_inf=du, du_rel=du_rel,
-         du_rel_tol=K2_DU, kernel_vs_exact=ex_k, twin_vs_exact=ex_p,
-         kernel_flags=flags, steps_done=steps_done, ms=ms,
-         plain_ms=plain_ms, **bnd)
-    ok = rate >= K2_AGREE and du_rel <= K2_DU
-    return ok, dict(max_abs_err=du, ms=ms, plain_ms=plain_ms,
-                    library_ms=None, bound_ms=bnd["bound_ms"],
-                    bound_by=bnd["bound_by"])
+    out = dict(B=Bk, n=n, m=m, K=K, steps=steps, agree_rate=rate,
+               slot_table_agree_rate=table.float().mean().item(),
+               optimal_agreeing=int(opt.sum()), du_inf=du, du_rel=du_rel,
+               du_rel_tol=K2_DU, kernel_vs_exact=ex_k, twin_vs_exact=ex_p,
+               kernel_flags=flags, steps_done=steps_done,
+               off_block_lanes=off_block, ms=ms, plain_ms=plain_ms,
+               bound_ms_all_slots=old["bound_ms"], **bnd)
+    return rate >= K2_AGREE and du_rel <= K2_DU and off_block == 0, out
+
+
+def scattered(s, seed):
+    """``s`` with each lane's K slots permuted by a generator from
+    ``seed``: W's rows, E's rows and columns and every per-slot vector
+    move together, an exact relabelling that leaves free slots between
+    used ones."""
+    Bk, K = s.used.shape
+    perm = torch.as_tensor(np.argsort(np.random.default_rng(seed).random(
+        (Bk, K)), axis=1), device=s.used.device)
+    rows = perm[:, :, None]
+    E = s.E.gather(1, rows.expand(-1, -1, K)).gather(
+        2, perm[:, None, :].expand(-1, K, -1))
+    vec = {k: getattr(s, k).gather(1, perm)
+           for k in ("sid", "slo", "dsl", "used", "simm", "lam",
+                     "lam_star")}
+    return s._replace(W=s.W.gather(1, rows.expand(-1, -1, s.W.shape[2])),
+                      E=E.contiguous(), **vec)
+
+
+def phase_k2(args, chunk, st):
+    """K2 against its twin: (a) one cold round on the first B_K2 config-2
+    lanes; (e) the first 256-lane chunk of the sorted config-2 stream
+    (``chunk``, its QP args), K2's launch shape on the main path; (f)
+    B_EDGE random lanes at n = N and the largest m whose block fits;
+    (w) case e's lanes after W_STEPS steps of the twin, each lane's slots
+    permuted, the rest of the round from there."""
+    t0 = time.perf_counter()
+    dev = args[0].device
+    ok_a, a = k2_case(slot_state(args, st), st)
+    s_e = slot_state(chunk, st)
+    ok_e, e = k2_case(s_e, st)
+    M, du, dl = edge_lanes(slot_edge_m(dev), dev)
+    one = torch.ones_like(du)
+    ok_f, f = k2_case(slot.slot_init(M, du, dl, one, 0.0 * one, n_true=N),
+                      st)
+    s_w = scattered(slot.run_slot_round_plain(s_e, st, N, W_STEPS), SEED)
+    holes = slot_holes(s_w)
+    ok_w, w = k2_case(s_w, st, STEPS - W_STEPS)
+    emit("k2", t0, config2=a, chunk256=e, edge=f,
+         scattered=dict(lanes_with_holes=holes, **w))
+    ok = ok_a and ok_e and ok_f and ok_w and holes > 0
+    return ok, dict(
+        max_abs_err=max(a["du_inf"], e["du_inf"], f["du_inf"], w["du_inf"]),
+        ms=a["ms"], plain_ms=a["plain_ms"], library_ms=None,
+        bound_ms=a["bound_ms"], bound_by=a["bound_by"], ms_b256=e["ms"],
+        plain_ms_b256=e["plain_ms"], bound_ms_b256=e["bound_ms"],
+        m_edge=f["m"], ms_edge=f["ms"], ms_scattered=w["ms"])
 
 
 def phase_slice(full, d, st, card):
@@ -581,9 +673,10 @@ def limit_case(fn, counts):
 
 def phase_limits(st, dev):
     """The part-0 shape check: K1 at n = 240 runs and agrees with its
-    twin; K1 at n = 241, K2 at n = 100, m = 500 (BASELINE "medium"), B7
-    at n = 50, m = 210 and B7-sw at m = 206 raise ValueError before any
-    launch."""
+    twin; K1 at n = 241, K2 at n = 100, m = 500 (BASELINE "medium") and
+    at n = 50 one row past the largest m that fits (k2 case f runs that
+    m), B7 at n = 50, m = 210 and B7-sw at m = 206 raise ValueError
+    before any launch."""
     t0 = time.perf_counter()
     ok240, f240 = factor_case(chol.chol_rinv, chol.chol_rinv_plain,
                               spd_batch(256, 240, SEED, dev), reps=5,
@@ -596,9 +689,11 @@ def phase_limits(st, dev):
         one = torch.ones((1, m), device=dev)
         return M, one, -one, one, 0.0 * one
 
-    def k2():
-        slot.run_slot_round(slot.slot_init(*lane(500, 100), n_true=100), st,
-                            100, STEPS)
+    def k2(m, n):
+        slot.run_slot_round(slot.slot_init(*lane(m, n), n_true=n), st, n,
+                            STEPS)
+
+    m_k2 = slot_edge_m(dev) + 1
 
     def b7(m, sw):
         M, du, dl, sc, imm = lane(m, N)
@@ -609,7 +704,8 @@ def phase_limits(st, dev):
     cases = {
         "k1_n241": (lambda: chol.chol_rinv(spd_batch(2, 241, SEED, dev)),
                     ("chol_rinv",)),
-        "k2_n100_m500": (k2, ("slot_round",)),
+        "k2_n100_m500": (lambda: k2(500, 100), ("slot_round",)),
+        f"k2_n50_m{m_k2}": (lambda: k2(m_k2, N), ("slot_round",)),
         "b7_n50_m210": (lambda: b7(210, False), ("dense_round",)),
         "b7sw_n50_m206": (lambda: b7(206, True), ("dense_round",))}
     res = {k: limit_case(fn, c) for k, (fn, c) in cases.items()}
@@ -1112,13 +1208,37 @@ def first_chunk(full, st):
     return torch.argsort(nv, stable=True)[:B_CHUNK]
 
 
-def edge_m(sw, dev):
-    """The largest m at n = N whose B7 block fits the card's shared
-    memory (the plain/soft or the SOFT_WEIGHTS layout)."""
+def edge_m(floats, dev):
+    """The largest m whose block, of ``floats(m)`` floats, fits the
+    card's shared memory."""
     m = M_ROWS
-    while smem.F32 * smem.dense_floats(m + 1, N, sw) <= smem.available(dev):
+    while smem.F32 * floats(m + 1) <= smem.available(dev):
         m += 1
     return m
+
+
+def slot_edge_m(dev):
+    """K2's edge at n = N (``smem.slot_floats``)."""
+    return edge_m(lambda m: smem.slot_floats(m, N, N + 1), dev)
+
+
+def dense_edge_m(sw, dev):
+    """B7's edge at n = N, the plain/soft or the SOFT_WEIGHTS layout."""
+    return edge_m(lambda m: smem.dense_floats(m, N, sw), dev)
+
+
+def edge_lanes(m, dev):
+    """B_EDGE random feasible LDP lanes at n = N with m rows (f32 on
+    ``dev``): M standard normal / sqrt(n), the box [M x0 - 0.2 - 0.8 U,
+    M x0 + 0.2 + 0.8 U] around a point x0 ~ N(0, 0.25 I), seed SEED + m;
+    (M, du, dl)."""
+    g = np.random.default_rng(SEED + m)
+    M = g.standard_normal((B_EDGE, m, N)) / np.sqrt(N)
+    b0 = np.einsum("bmn,bn->bm", M, 0.5 * g.standard_normal((B_EDGE, N)))
+    du = b0 + 0.2 + 0.8 * g.random((B_EDGE, m))
+    dl = b0 - 0.2 - 0.8 * g.random((B_EDGE, m))
+    return tuple(torch.as_tensor(x, dtype=torch.float32, device=dev)
+                 for x in (M, du, dl))
 
 
 def edge_state(m, sw, dev):
@@ -1126,20 +1246,12 @@ def edge_state(m, sw, dev):
     normal / sqrt(n), the box [M x0 - 0.2 - 0.8 U, M x0 + 0.2 + 0.8 U]
     around a point x0 ~ N(0, 0.25 I) (seed SEED + m), rows 0-19 soft and,
     if ``sw``, sw_weights' SOFT_WEIGHTS data on them."""
-    g = np.random.default_rng(SEED + m)
-    M = g.standard_normal((B_EDGE, m, N)) / np.sqrt(N)
-    b0 = np.einsum("bmn,bn->bm", M, 0.5 * g.standard_normal((B_EDGE, N)))
-    du = b0 + 0.2 + 0.8 * g.random((B_EDGE, m))
-    dl = b0 - 0.2 - 0.8 * g.random((B_EDGE, m))
-
-    def t(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
-
+    M, du, dl = edge_lanes(m, dev)
     one = torch.ones((B_EDGE, m), device=dev)
     soft = (torch.arange(m, device=dev) < SOFT_ROWS).float()
     w = sw_weights(B_EDGE, m) if sw else None
     return dense.dense_init(
-        t(M), t(du), t(dl), one, 0.0 * one, soft.expand(B_EDGE, m)
+        M, du, dl, one, 0.0 * one, soft.expand(B_EDGE, m)
         .contiguous(), sw=None if w is None else sw_tensors(w, dev))
 
 
@@ -1162,8 +1274,10 @@ def phase_k7(args_soft, args_hard, args4b, sw_k, chunk, st):
     ok_d, sw = k7_case(dense_state(args_soft, st, sw_k), st, N)
     ok_e, e = k7_case(dense_state(chunk[0], st), st, N)
     ok_esw, esw = k7_case(dense_state(chunk[0], st, chunk[1]), st, N)
-    ok_f, f = k7_case(edge_state(edge_m(False, dev), False, dev), st, N)
-    ok_fsw, fsw = k7_case(edge_state(edge_m(True, dev), True, dev), st, N)
+    ok_f, f = k7_case(edge_state(dense_edge_m(False, dev), False, dev), st,
+                      N)
+    ok_fsw, fsw = k7_case(edge_state(dense_edge_m(True, dev), True, dev),
+                          st, N)
     emit("k7", t0, config2_soft=a, config4b_level1=b, config2_hard=c,
          config2_sw=sw, chunk256_soft=e, chunk256_sw=esw, edge_soft=f,
          edge_sw=fsw)
@@ -2195,7 +2309,9 @@ def main():
         res[name] = fn(*a)
 
     run("k1", phase_k1, full[0])
-    run("k2", phase_k2, [a[:B_K2] for a in full], st)
+    lanes = first_chunk(full, st)
+    run("k2", phase_k2, [a[:B_K2] for a in full], [a[lanes] for a in full],
+        st)
     run("slice", phase_slice, full, d, st, card)
     run("k8", phase_factor, "k8", chol.chol_rinv_lanes,
         chol.chol_rinv_lanes_plain, full[0], K8_WIDTHS, dev)
@@ -2209,7 +2325,6 @@ def main():
     args4b = [torch.as_tensor(d4b[k], device=dev)
               for k in ('f', 'A', 'bupper', 'blower', 'sense')]
     args_k = [a[:B_K2] for a in full]
-    lanes = first_chunk(full, st)
     args_c = [a[lanes] for a in full[:5]] + [soft_sense(full[5][lanes])]
     run("k7", phase_k7, args_k[:5] + [soft_sense(args_k[5])], args_k, args4b,
         sw_tensors(sw_np, dev, slice(0, B_K2)),

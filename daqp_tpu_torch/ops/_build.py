@@ -20,9 +20,13 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "daqp_tpu_torch"
 # no --use_fast_math: the active-set kernels rely on isfinite and IEEE
-# division
+# division.  ptxas picks each kernel's register budget itself (B3-B6 set
+# no blocks per SM); at its default register usage level it left B3 at
+# 128 registers with 8-12 bytes of spill, at level 0 with none (nvcc
+# 12.9, sm_90a)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-Xptxas", "--register-usage-level=0"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

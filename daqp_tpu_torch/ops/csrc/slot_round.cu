@@ -6,18 +6,17 @@
 // Per QP it runs up to `steps` iterations of the shared slot step
 // (slot_step.cuh, the step at pallas_slot.py:256-612) on the slot state.
 //
-// What bounds it on an H100: latency, not bandwidth or FLOPs.  A step is
-// ~56 kFLOP per QP at n = 50, m = 100 (one M pass m x n, five E passes
-// K x K, four W passes K x n) in a chain of dependent phases: two argmin searches, four block
-// reductions and the rank-one updates, each separated by barriers.  A
-// QP's state (E, W, M: 41 KB at n = 50, m = 100, K = 51) is read every
-// step, so it must not live in device memory.
+// What bounds it on an H100: latency, not bandwidth or FLOPs (the step's
+// note in slot_step.cuh).  A QP's state (E, W, M: 48 KB at n = 50,
+// m = 100, K = 51) is read every step, so it lives in shared memory for
+// the whole round.
 //
-// Design: one thread block per QP (batch-leading state), with E, W and M
-// of the lane in dynamic shared memory for the whole round (layout and
-// tie rules in slot_step.cuh).  A block whose lane is not EXIT_RUNNING
-// copies its state through and does no step.  wgmma / TMA are left to
-// later work: the per-step products are matrix-vector, not
+// Design: one block of kThreads = 128 per QP (batch-leading state), E, W
+// and M in dynamic shared memory, loaded and stored a row to a warp;
+// three blocks share an SM (__launch_bounds__(128, 3); at config 2's
+// shape three fit its shared memory).  A lane that is not EXIT_RUNNING,
+// or a round of no steps, is copied through from global to global.
+// wgmma / TMA are left out: the per-step products are matrix-vector, not
 // matrix-matrix.
 #include "slot_step.cuh"
 
@@ -37,21 +36,63 @@ struct Ptrs {
   const void* p[kNumPtrs];
 };
 
-__global__ void __launch_bounds__(kThreads)
+// three blocks to an SM: at n = 50, m = 100 three fit its shared memory
+__global__ void __launch_bounds__(kThreads, 3)
 slot_round_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
                   Tol tol) {
   extern __shared__ float sm[];
   const int t = threadIdx.x;
+  const int lane = t & 31, wid = t >> 5;
   const size_t b = blockIdx.x;
   auto in = [&](int i) { return static_cast<const float*>(P.p[i]); };
   auto out = [&](int i) {
     return static_cast<float*>(const_cast<void*>(P.p[kNumIn + i - AU_]));
   };
-  const Lane L = slot_carve(sm, m, n, K);
+  const size_t KK = static_cast<size_t>(K) * K;
+  const size_t Kn = static_cast<size_t>(K) * n;
+
+  const int stt = static_cast<const int*>(P.p[STT_])[b];
+  if (stt != kRunning || steps <= 0) {
+    // terminal or held lane: the state passes through unchanged
+    for (size_t i = t; i < KK; i += kThreads)
+      out(E_)[b * KK + i] = in(E_)[b * KK + i];
+    for (size_t i = t; i < Kn; i += kThreads)
+      out(W_)[b * Kn + i] = in(W_)[b * Kn + i];
+    for (int i = t; i < m; i += kThreads) {
+      out(AU_)[b * m + i] = in(AU_)[b * m + i];
+      out(AL_)[b * m + i] = in(AL_)[b * m + i];
+    }
+    const int slots[] = {DSL_, USED_, SID_, SLO_, LAM_, LS_};
+    for (int k = t; k < K; k += kThreads)
+      for (int v : slots) out(v)[b * K + k] = in(v)[b * K + k];
+    for (int j = t; j < n; j += kThreads) {
+      out(PROW_)[b * n + j] = in(PROW_)[b * n + j];
+      out(U_)[b * n + j] = in(U_)[b * n + j];
+    }
+    if (t == 0) {
+      const int scalars[] = {PD_, PLM_, PLO_, PID_, PDD_, FV_, BF_, CY_,
+                             RP_, IT_};
+      for (int v : scalars) out(v)[b] = in(v)[b];
+      reinterpret_cast<int*>(out(STT_))[b] = stt;
+    }
+    return;
+  }
 
   // load the lane's state
-  copy_rows_in(L.E, L.ldK, in(E_) + b * K * K, K, K);
-  copy_rows_in(L.W, L.ldn, in(W_) + b * K * n, K, n);
+  const Lane L = slot_carve(sm, m, n, K);
+  for (int i = wid; i < K; i += kWarps) {
+    for (int j = lane; j < K; j += 32)
+      L.E[i * L.ldK + j] = in(E_)[b * KK + static_cast<size_t>(i) * K + j];
+    for (int j = lane; j < n; j += 32)
+      L.W[i * L.ldn + j] = in(W_)[b * Kn + static_cast<size_t>(i) * n + j];
+  }
+  for (int i = wid; i < m; i += kWarps)
+    for (int j = lane; j < n; j += 32)
+      L.M[i * L.ldn + j] = in(M_)[(b * m + i) * n + j];
+  copy_vec(L.du, in(DU_) + b * m, m);
+  copy_vec(L.dl, in(DL_) + b * m, m);
+  copy_vec(L.sc, in(SC_) + b * m, m);
+  copy_vec(L.im, in(IM_) + b * m, m);
   copy_vec(L.au, in(AU_) + b * m, m);
   copy_vec(L.al, in(AL_) + b * m, m);
   copy_vec(L.dsl, in(DSL_) + b * K, K);
@@ -74,22 +115,17 @@ slot_round_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
   c.cy = in(CY_)[b];
   c.rp = in(RP_)[b];
   c.it = in(IT_)[b];
-  c.stt = static_cast<const int*>(P.p[STT_])[b];
+  c.stt = stt;
   c.fb = in(FB_)[b];
+  slot_steps(L, c, L.du, L.dl, m, n, K, n_true, steps, tol);
 
-  if (c.stt == kRunning) {
-    copy_rows_in(L.M, L.ldn, in(M_) + b * m * n, m, n);
-    copy_vec(L.du, in(DU_) + b * m, m);
-    copy_vec(L.dl, in(DL_) + b * m, m);
-    copy_vec(L.sc, in(SC_) + b * m, m);
-    copy_vec(L.im, in(IM_) + b * m, m);
-    slot_steps(L, c, L.du, L.dl, m, n, K, n_true, steps, tol);
+  // write the lane's state back (slot_steps ends on a barrier)
+  for (int i = wid; i < K; i += kWarps) {
+    for (int j = lane; j < K; j += 32)
+      out(E_)[b * KK + static_cast<size_t>(i) * K + j] = L.E[i * L.ldK + j];
+    for (int j = lane; j < n; j += 32)
+      out(W_)[b * Kn + static_cast<size_t>(i) * n + j] = L.W[i * L.ldn + j];
   }
-  __syncthreads();
-
-  // write the lane's state back
-  copy_rows_out(out(E_) + b * K * K, L.E, L.ldK, K, K);
-  copy_rows_out(out(W_) + b * K * n, L.W, L.ldn, K, n);
   for (int i = t; i < m; i += kThreads) {
     out(AU_)[b * m + i] = L.au[i];
     out(AL_)[b * m + i] = L.al[i];
@@ -146,3 +182,19 @@ extern "C" int slot_round_f32(const void* const* ptrs, int B, int m, int n,
       P, m, n, K, n_true, steps, tol);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef SLOT_PROBE
+// The instrumented copy's probe (chip_profile.py --probe k2): the cycles
+// per phase summed over blocks, then the steps run (kProbePhases + 1
+// words).
+extern "C" int slot_probe_reset() {
+  const unsigned long long zero[kProbePhases + 1] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(slot_probe_cycles, zero, sizeof(zero)));
+}
+
+extern "C" int slot_probe_read(unsigned long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, slot_probe_cycles, (kProbePhases + 1) * sizeof(*host)));
+}
+#endif

@@ -1,25 +1,63 @@
 // The slot-space dual active-set step, shared by the kernels that run it:
-// K2 (slot_round.cu), B3 (mpc_segment.cu) and B4 (prox_segment.cu).
+// K2 (slot_round.cu), B3 (mpc_segment.cu), B4 (prox_segment.cu), B5
+// (avi_segment.cu) and B6 (lp_segment.cu); dense_round.cu (B7) takes its
+// helpers.
 //
 // It is the step of daqp_tpu/ops/pallas_slot.py:256-612 (_solve_tile_live,
-// which the TPU kernels _kernel_body, _mpc_kernel_body and
-// _prox_kernel_body all call): the blocking min-ratio search,
-// u = -W'(lam* o used) and mu = M u, Dantzig (or Bland) pricing, the
-// pending retry or priced add, the deletion with its pivot guard
-// (-> kRefactor), the relative singularity gate (-> pending), the W/E
-// rank-one updates and the next lam* = -E (dsl o used), a_p = E (W prow o
-// used).  The multi_add >= 2 and ablate variants of the TPU kernel are not
-// carried over.
+// :188, which the TPU kernels _kernel_body, _mpc_kernel_body,
+// _prox_kernel_body, _avi_kernel_body and _lp_kernel_body all call): the
+// blocking min-ratio search, u = -W'(lam* o used) and mu = M u, Dantzig
+// (or Bland) pricing, the pending retry or priced add, the deletion with
+// its pivot guard (-> kRefactor), the relative singularity gate and the
+// n_true cap (-> pending), the W/E rank-one updates and the next
+// lam* = -E (dsl o used), a_p = E (W prow o used).  The multi_add >= 2 and
+// ablate variants of the TPU kernel are not carried over.
 //
-// One thread block runs one QP.  E (K x K), W (K x n) and M (m x n) of the
-// lane live in dynamic shared memory with odd row strides (conflict-free
-// column walks), the (m,), (K,) and (n,) vectors beside them (slot_carve
-// gives the layout); the lane's scalars live in registers, computed
-// identically by every thread from block-wide reductions (warp shuffles,
-// then one barrier).  Every argmin returns the LOWEST index on ties (and
-// the first NaN), as jnp.argmin does: the blocking slot, the priced row
-// (Bland's rule rests on it) and the free slot all depend on that.
-// No fast-math: the ratio test depends on isfinite and IEEE division.
+// One thread block of kThreads = 128 runs one QP.  E (K x K), W (K x n)
+// and M (m x n) of the lane live in dynamic shared memory with odd row
+// strides, the (m,), (K,) and (n,) vectors beside them (slot_carve gives
+// the layout); the lane's scalars live in registers, computed identically
+// by every thread from block-wide reductions.  Every argmin returns the
+// LOWEST index on ties (and the first NaN), as jnp.argmin does: the
+// blocking slot, the priced row (Bland's rule rests on it) and the free
+// slot all depend on that.  No fast-math: the ratio test depends on
+// isfinite and IEEE division.
+//
+// What bounds it on an H100: latency.  A step is a chain of dependent
+// phases on ~48 KB of shared state (n = 50, m = 100, K = 51): ~30 kFLOP
+// at k = 40 used slots, a small share of the time the chain takes.  So
+// the design shortens each phase's chains and its barriers:
+// - Every matrix-vector product runs on groups of kSG = 8 lanes, each
+//   group 8 output items at once: lane q sums the inputs j = q (mod 8)
+//   in independent chains, and a transposing butterfly (7 shuffles, one
+//   fixed order) leaves one thread with the full sum of each item, which
+//   it then owns: the per-item epilogue (ratio test, pricing, the slot
+//   and pending bookkeeping) runs once, in that thread.  The products
+//   whose items are the used slots (the Gram column g_k, the Schur
+//   vector a, and lam*, a_p with the E update; k ~ 40 items) give each
+//   8 items to a pair of groups, each summing half the inputs (j = 8 h +
+//   q mod 16), so the chains halve.  Rows 8 apart at an odd stride fall
+//   in different banks.
+// - E is zero off used x used and W zero on unused rows (every producer
+//   of the state keeps it so: tests/test_torch_slot_invariant.py; this
+//   step, chip_smoke's k2), so the E and W walks and the E update run over
+//   a list of the used slots, k of K.  Every warp counts the used slots
+//   with ballots before it prices; the last warp also writes them.  The
+//   list keeps slot order, so no argmin's tie rule moves; lam* and a_p
+//   are 0 off it.  A removed slot stays on the update's list (its row and
+//   column go to 0) and an added one is appended.
+// - The W update touches two rows (the removed one to 0, the free one to
+//   the added row).  The E update (2-D: 8 rows to a pair of groups,
+//   columns by lane, no division) runs beside the add's bookkeeping,
+//   taking the added slot's values from registers, and computes the next
+//   step's lam* = -E (dsl o used) from the fresh values (a_p = E g_p, in
+//   a pass of its own, only while an entry is pending).
+// - Five barriers per step: after u, one in each of the three block
+//   reductions (double-buffered scratch, the warps' partials combined by
+//   a butterfly: no trailing barrier; the Gram column's owners sum e.g_k
+//   and max|e| into the second, the Schur vector's owners g_k.a_post
+//   into the third, beside the removal), and after the E update.  A step
+//   that leaves an entry pending adds one, for a_p = E g_p on the new E.
 #pragma once
 
 #include <climits>
@@ -37,7 +75,8 @@ constexpr int kOptimal = 1;
 constexpr int kInfeasible = -1;
 constexpr int kCycle = -2;
 constexpr int kRefactor = 90;
-constexpr int kRedStride = 6;          // 3 sums, max, argmin value, index
+constexpr int kRedStride = 6;          // reduction words per warp
+constexpr int kSG = 8;                 // items per group of lanes
 
 struct Tol {
   float dtol, ptol, pivtol, singtol, progtol, cyctol;
@@ -56,14 +95,16 @@ struct Lane {
   float *E, *W, *M, *du, *dl, *sc, *im, *au, *al, *lo_okv;
   float *dsl, *used, *sid, *slo, *simm, *lam, *ls, *lstar, *a_p, *delta;
   float *g_k, *e, *a, *w, *g_p, *prow, *u, *u_new, *add_row, *red, *end;
+  int* list;                   // the used slots, in slot order
   int ldK, ldn;
 };
 
+// Mirrored by ops/smem.py slot_floats.
 __host__ __device__ inline size_t slot_smem_floats(int m, int n, int K) {
   const int ldK = K | 1, ldn = n | 1;
   return static_cast<size_t>(K) * ldK + static_cast<size_t>(K) * ldn +
-         static_cast<size_t>(m) * ldn + 7 * m + 15 * K + 4 * n +
-         kWarps * kRedStride;
+         static_cast<size_t>(m) * ldn + 7 * m + 16 * K + 4 * n +
+         2 * kWarps * kRedStride;
 }
 
 __device__ __forceinline__ Lane slot_carve(float* sm, int m, int n, int K) {
@@ -99,8 +140,9 @@ __device__ __forceinline__ Lane slot_carve(float* sm, int m, int n, int K) {
   L.u = L.prow + n;
   L.u_new = L.u + n;
   L.add_row = L.u_new + n;
-  L.red = L.add_row + n;
-  L.end = L.red + kWarps * kRedStride;
+  L.red = L.add_row + n;       // block_reduce's words, then the second half
+  L.list = reinterpret_cast<int*>(L.red + 2 * kWarps * kRedStride);
+  L.end = L.red + 2 * kWarps * kRedStride + K;
   return L;
 }
 
@@ -115,7 +157,8 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 }
 
 // Block-wide reduction: NS sums, one max and one lowest-index argmin.
-// Every thread returns the same values (same combination order).
+// Every thread returns the same values (same combination order).  Two
+// barriers; uses the first kWarps * kRedStride words of `red`.
 template <int NS>
 __device__ void block_reduce(float (&s)[NS], float& mx, float& av, int& ai,
                              float* red) {
@@ -201,18 +244,164 @@ __device__ __forceinline__ void ctl_reset(Ctl& c) {
   c.pd = 0.f;
 }
 
+// A group of 8 lanes holds partial sums v[p] of 8 items; lane q gets the
+// full sum of item q (a transposing butterfly: 4 + 2 + 1 shuffles, one
+// fixed order).  The whole warp calls it.
+__device__ __forceinline__ float slot_tsum8(float (&v)[kSG], int q) {
+#pragma unroll
+  for (int h = kSG / 2; h > 0; h >>= 1) {
+    const bool hi = (q & h) != 0;
+#pragma unroll
+    for (int p = 0; p < h; ++p) {
+      const float send = hi ? v[p] : v[p + h];
+      const float keep = hi ? v[p + h] : v[p];
+      v[p] = keep + __shfl_xor_sync(kFull, send, h);
+    }
+  }
+  return v[0];
+}
+
+// acc[p] += A[off[p] + j] x(j) over the columns j = j0, j0 + stride, ...
+// below n.
+template <class X>
+__device__ __forceinline__ void slot_rows8(float (&acc)[kSG], const float* A,
+                                           const int (&off)[kSG], int n,
+                                           int j0, int stride, X x) {
+  for (int j = j0; j < n; j += stride) {
+    const float xj = x(j);
+#pragma unroll
+    for (int p = 0; p < kSG; ++p) acc[p] += A[off[p] + j] * xj;
+  }
+}
+
+// Two groups of 8 lanes (t and t ^ 8) that summed halves of the same 8
+// items' inputs: each ends with the pair's sums (one fixed order).
+__device__ __forceinline__ void slot_pair8(float (&v)[kSG]) {
+#pragma unroll
+  for (int p = 0; p < kSG; ++p) v[p] += __shfl_xor_sync(kFull, v[p], kSG);
+}
+
+// Block-wide reduction of the step: NS sums, then one NaN-propagating max
+// (kMax) and NA lowest-index argmins.  Every thread returns the same
+// values (the same combination order).  One barrier: consecutive calls
+// pass alternate halves of the scratch.
+template <int NS, int NA, bool kMax>
+__device__ __forceinline__ void slot_reduce(float (&s)[NS], float& mx,
+                                            float (&av)[2], int (&ai)[2],
+                                            float* red) {
+  static_assert(NS + (kMax ? 1 : 0) + 2 * NA <= kRedStride, "scratch");
+  constexpr int kA = NS + (kMax ? 1 : 0);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    for (int q = 0; q < NS; ++q) s[q] += __shfl_xor_sync(kFull, s[q], o);
+    if (kMax) mx = max_nan(mx, __shfl_xor_sync(kFull, mx, o));
+    for (int c = 0; c < NA; ++c) {
+      const float ov = __shfl_xor_sync(kFull, av[c], o);
+      const int oi = __shfl_xor_sync(kFull, ai[c], o);
+      if (better(ov, oi, av[c], ai[c])) { av[c] = ov; ai[c] = oi; }
+    }
+  }
+  float* r = red + wid * kRedStride;
+  if (lane == 0) {
+    for (int q = 0; q < NS; ++q) r[q] = s[q];
+    if (kMax) r[NS] = mx;
+    for (int c = 0; c < NA; ++c) {
+      r[kA + 2 * c] = av[c];
+      r[kA + 2 * c + 1] = __int_as_float(ai[c]);
+    }
+  }
+  __syncthreads();
+  // lane l takes warp l's partials and a butterfly over the warps
+  // combines them, in the same order in every warp
+  const float* rw = red + (lane % kWarps) * kRedStride;
+  for (int q = 0; q < NS; ++q) s[q] = rw[q];
+  if (kMax) mx = rw[NS];
+  for (int c = 0; c < NA; ++c) {
+    av[c] = rw[kA + 2 * c];
+    ai[c] = __float_as_int(rw[kA + 2 * c + 1]);
+  }
+  for (int o = 1; o < kWarps; o <<= 1) {
+    for (int q = 0; q < NS; ++q) s[q] += __shfl_xor_sync(kFull, s[q], o);
+    if (kMax) mx = max_nan(mx, __shfl_xor_sync(kFull, mx, o));
+    for (int c = 0; c < NA; ++c) {
+      const float ov = __shfl_xor_sync(kFull, av[c], o);
+      const int oi = __shfl_xor_sync(kFull, ai[c], o);
+      if (better(ov, oi, av[c], ai[c])) { av[c] = ov; ai[c] = oi; }
+    }
+  }
+}
+
+// The number of used slots; the last warp also writes them, in slot
+// order, to L.list.  Every warp calls it; the caller syncs before the
+// list is read.
+__device__ __forceinline__ int slot_list(const Lane& L, int K) {
+  const int lane = threadIdx.x & 31;
+  const bool write = (threadIdx.x >> 5) == kWarps - 1;
+  int k = 0;
+  for (int base = 0; base < K; base += 32) {
+    const int s = base + lane;
+    const bool on = s < K && L.used[s] > 0.f;
+    const unsigned bal = __ballot_sync(kFull, on);
+    if (write && on) L.list[k + __popc(bal & ((1u << lane) - 1u))] = s;
+    k += __popc(bal);
+  }
+  return k;
+}
+
+// The per-phase cycle probe (chip_profile.py --probe k2): built only into
+// an instrumented copy of K2 (-DSLOT_PROBE); thread 0 of each block adds
+// the SM clock's cycles of each phase of slot_steps, and the steps run,
+// to slot_probe_cycles.
+#ifdef SLOT_PROBE
+constexpr int kProbePhases = 6;
+__device__ unsigned long long slot_probe_cycles[kProbePhases + 1];
+#define SLOT_PROBE_INIT                      \
+  long long pr_t = clock64();                \
+  long long pr_acc[kProbePhases + 1] = {};
+#define SLOT_PROBE_MARK(ph)                  \
+  if (threadIdx.x == 0) {                    \
+    const long long pr_now = clock64();      \
+    pr_acc[ph] += pr_now - pr_t;             \
+    pr_t = pr_now;                           \
+  }
+#define SLOT_PROBE_STEP ++pr_acc[kProbePhases];
+#define SLOT_PROBE_FLUSH                                            \
+  if (threadIdx.x == 0)                                             \
+    for (int ph = 0; ph <= kProbePhases; ++ph)                      \
+      atomicAdd(&slot_probe_cycles[ph],                             \
+                static_cast<unsigned long long>(pr_acc[ph]));
+#else
+#define SLOT_PROBE_INIT
+#define SLOT_PROBE_MARK(ph)
+#define SLOT_PROBE_STEP
+#define SLOT_PROBE_FLUSH
+#endif
+
 // Up to `steps` iterations of a RUNNING lane on its shared-memory state,
 // with the bounds du / dl (m,).  Starts with the round prefix from the
-// stored E (pallas_slot.py:614-617), so E may have changed since the last
-// step; leaves the shared state consistent (ends on a barrier).  A lane
-// that is not RUNNING returns at once; a lane that turns terminal stops,
-// which equals the TPU kernel's masked no-op steps.
+// stored E and used (pallas_slot.py:614-617), so E may have changed since
+// the last step; leaves the shared state consistent (ends on a barrier).
+// A lane that is not RUNNING returns at once; a lane that turns terminal
+// stops, which equals the TPU kernel's masked no-op steps.
 __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
                                            const float* du, const float* dl,
                                            int m, int n, int K, int n_true,
                                            int steps, const Tol& tol) {
   if (c.stt != kRunning) return;
   const int t = threadIdx.x;
+  const int q = t & (kSG - 1);
+  // items of a product: group t / 8 sums items 8 (t / 8) + p, p < 8, and
+  // thread t ends with item t.  u and the add's row run on vt = t ^ 64,
+  // the other half of the block from the ratio test and the Gram column
+  // beside them
+  const int vt = t ^ (kThreads / 2);
+  const int g8 = kSG * (t / kSG), v8 = kSG * (vt / kSG);
+  // products on pairs of groups: the pair t / 16 sums items r16 + p,
+  // p < 8; half h = (t / 8) mod 2 of it takes the inputs j = hq (mod 16),
+  // and lane q of half 0 owns item r16 + q
+  const int hq = t & (2 * kSG - 1), r16 = kSG * (t / (2 * kSG));
+  const bool h0 = hq < kSG;
+  constexpr int kPairItems = kThreads / 2;
   const int ldK = L.ldK, ldn = L.ldn;
   float* E = L.E;
   float* W = L.W;
@@ -235,94 +424,157 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
   float* g_k = L.g_k;
   float* e = L.e;
   float* a = L.a;
-  float* w = L.w;
   float* g_p = L.g_p;
   float* prow = L.prow;
   float* u = L.u;
   float* u_new = L.u_new;
   float* add_row = L.add_row;
-  float* red = L.red;
+  int* list = L.list;
   float pd = c.pd, plm = c.plm, plo = c.plo, pid = c.pid, pdd = c.pdd;
   float fv = c.fv, bf = c.bf, cy = c.cy, it = c.it;
   const float rp = c.rp, fb = c.fb;
   int stt = c.stt;
+  const int half = kWarps * kRedStride;
+  int rb = 0;                       // the scratch half of the next reduction
+  auto red = [&]() { rb ^= 1; return L.red + (rb ^ 1) * half; };
+  SLOT_PROBE_INIT
   __syncthreads();
 
-  // round-start prefix from the stored E: lam* = -E (dsl o used),
-  // a_p = E (W prow o used)
-  for (int k = t; k < K; k += kThreads) {
-    float s = 0.f;
-    for (int j = 0; j < n; ++j) s += W[k * ldn + j] * prow[j];
-    g_p[k] = s * used[k];
-  }
-  __syncthreads();
-  for (int i = t; i < K; i += kThreads) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int j = 0; j < K; ++j) {
-      s1 += E[i * ldK + j] * (dsl[j] * used[j]);
-      s2 += E[i * ldK + j] * g_p[j];
+  // round-start prefix from the stored E: the list; lam* = a_p = 0 off
+  // it; g_p = (W prow) o used; then lam* = -E (dsl o used), a_p = E g_p
+  // on the list
+  int k = slot_list(L, K);
+  for (int s = t; s < K; s += kThreads)
+    if (!(used[s] > 0.f)) {
+      lstar[s] = 0.f;
+      a_p[s] = 0.f;
     }
-    lstar[i] = -s1;
-    a_p[i] = s2;
+  for (int base = 0; base < K; base += kThreads) {
+    float acc[kSG] = {};
+    if (pd > 0.f && base + g8 < K) {
+      int off[kSG];
+#pragma unroll
+      for (int p = 0; p < kSG; ++p) off[p] = min(base + g8 + p, K - 1) * ldn;
+      slot_rows8(acc, W, off, n, q, kSG, [&](int j) { return prow[j]; });
+    }
+    const float sp = slot_tsum8(acc, q);
+    const int s = base + t;
+    if (s < K) g_p[s] = sp * used[s];
   }
   __syncthreads();
+  for (int base = 0; base < k; base += kPairItems) {
+    const int p0 = base + r16;
+    float s1[kSG] = {}, s2[kSG] = {};
+    if (p0 < k) {
+      int off[kSG];
+#pragma unroll
+      for (int p = 0; p < kSG; ++p) off[p] = list[min(p0 + p, k - 1)] * ldK;
+      for (int cc = hq; cc < k; cc += 2 * kSG) {
+        const int j = list[cc];
+        const float dj = dsl[j] * used[j], gj = g_p[j];
+#pragma unroll
+        for (int p = 0; p < kSG; ++p) {
+          const float eij = E[off[p] + j];
+          s1[p] += eij * dj;
+          s2[p] += eij * gj;
+        }
+      }
+    }
+    slot_pair8(s1);
+    slot_pair8(s2);
+    const float l1 = slot_tsum8(s1, q), l2 = slot_tsum8(s2, q);
+    if (h0 && p0 + q < k) {
+      const int i = list[p0 + q];
+      lstar[i] = -l1;
+      a_p[i] = l2;
+    }
+  }
+  __syncthreads();
+  int kU = k;                       // the update's list: used, + removed
+  SLOT_PROBE_MARK(0)
 
   for (int step = 0; step < steps; ++step) {
     const float sgn_p = 1.f - 2.f * plo;
 
     // blocking min-ratio search over the slots (pallas_slot.py:269-299)
-    // and the new primal u = -W'(lam* o used) (:302-303)
+    // and, on the other half, u = -W'(lam* o used) over the update's list
+    // (:302-303)
     float r1[1] = {0.f};
-    float mx = -INFINITY, rmin = INFINITY;
-    int rm = INT_MAX;
-    for (int k = t; k < K; k += kThreads) {
-      const float sdir = -a_p[k] * sgn_p;
-      const float dk = pd * sdir + (1.f - pd) * (lstar[k] - lam[k]);
-      const float signv = pd * sdir + (1.f - pd) * lstar[k];
-      delta[k] = dk;
+    float mx = -INFINITY;
+    float av[2] = {INFINITY, INFINITY};
+    int ai[2] = {INT_MAX, INT_MAX};
+    for (int s = t; s < K; s += kThreads) {
+      const float sdir = -a_p[s] * sgn_p;
+      const float dk = pd * sdir + (1.f - pd) * (lstar[s] - lam[s]);
+      const float signv = pd * sdir + (1.f - pd) * lstar[s];
+      delta[s] = dk;
       const float infeas =
-          slo[k] * (signv > tol.dtol ? 1.f : 0.f) +
-          (1.f - slo[k]) * (signv < -tol.dtol ? 1.f : 0.f);
-      const float elig = infeas * used[k] * (1.f - simm[k]);
-      float ratio = -lam[k] / dk;
+          slo[s] * (signv > tol.dtol ? 1.f : 0.f) +
+          (1.f - slo[s]) * (signv < -tol.dtol ? 1.f : 0.f);
+      const float elig = infeas * used[s] * (1.f - simm[s]);
+      float ratio = -lam[s] / dk;
       ratio = isfinite(ratio) ? fmaxf(ratio, 0.f) : 0.f;
       const float cand = elig > 0.f ? ratio : kBig;
-      if (better(cand, k, rmin, rm)) { rmin = cand; rm = k; }
+      if (better(cand, s, av[0], ai[0])) { av[0] = cand; ai[0] = s; }
     }
-    for (int j = t; j < n; j += kThreads) {
-      float s = 0.f;
-      for (int k = 0; k < K; ++k) s += W[k * ldn + j] * (lstar[k] * used[k]);
-      u_new[j] = -s;
-      r1[0] += s * s;
+    for (int base = 0; base < n; base += kThreads) {
+      const int j0 = base + v8;
+      float acc[kSG] = {};
+      if (j0 < n)
+        for (int cc = q; cc < kU; cc += kSG) {
+          const int s = list[cc];
+          const float v = lstar[s] * used[s];
+          const float* Ws = W + s * ldn + j0;    // columns past n dropped
+#pragma unroll
+          for (int p = 0; p < kSG; ++p) acc[p] += Ws[p] * v;
+        }
+      const float sj = slot_tsum8(acc, q);
+      const int j = base + vt;
+      if (j < n) {
+        u_new[j] = -sj;
+        r1[0] += sj * sj;
+      }
     }
-    block_reduce<1>(r1, mx, rmin, rm, red);
+    __syncthreads();
+    SLOT_PROBE_MARK(1)
+
+    // every warp counts this step's used slots (the last lists them);
+    // pricing on mu = M u (:304-337); one reduction for both searches
+    k = slot_list(L, K);
+    for (int base = 0; base < m; base += kThreads) {
+      float acc[kSG] = {};
+      if (base + g8 < m) {
+        int off[kSG];
+#pragma unroll
+        for (int p = 0; p < kSG; ++p) off[p] = min(base + g8 + p, m - 1) * ldn;
+        slot_rows8(acc, M, off, n, q, kSG, [&](int j) { return u_new[j]; });
+      }
+      const float mu = slot_tsum8(acc, q);
+      const int i = base + t;
+      if (i < m) {
+        const float bound = -tol.ptol * sc[i];
+        const float v_up = du[i] - mu;
+        const float v_lo = mu - dl[i];
+        const float pblock = pd * (static_cast<float>(i) == pid ? 1.f : 0.f);
+        const bool blocked = (au[i] + al[i]) > 0.f || im[i] > 0.f ||
+                             pblock > 0.f;
+        const bool up_ok = v_up < bound && !blocked;
+        const bool lo_ok = v_lo < bound && !blocked && !up_ok;
+        float cand = up_ok ? v_up : (lo_ok ? v_lo : kBig);
+        if (tol.bland)
+          cand = (up_ok || lo_ok) ? static_cast<float>(i) - kBig : kBig;
+        lo_okv[i] = lo_ok ? 1.f : 0.f;
+        if (better(cand, i, av[1], ai[1])) { av[1] = cand; ai[1] = i; }
+      }
+    }
+    slot_reduce<1, 2, false>(r1, mx, av, ai, red());
+    SLOT_PROBE_MARK(2)
     const float fv_new = r1[0];
+    const float rmin = av[0], vmin = av[1];
+    const int rm = ai[0], jr = ai[1];
     const float do_rm0 = rmin < kBig ? 1.f : 0.f;
     const float rm_id = sid[rm];
     const float rm_lo = slo[rm];
-
-    // pricing on mu = M u (:304-337)
-    float r2[1] = {0.f};
-    float vmin = INFINITY;
-    int jr = INT_MAX;
-    for (int i = t; i < m; i += kThreads) {
-      float mu = 0.f;
-      for (int j = 0; j < n; ++j) mu += M[i * ldn + j] * u_new[j];
-      const float bound = -tol.ptol * sc[i];
-      const float v_up = du[i] - mu;
-      const float v_lo = mu - dl[i];
-      const float pblock = pd * (static_cast<float>(i) == pid ? 1.f : 0.f);
-      const bool blocked = (au[i] + al[i]) > 0.f || im[i] > 0.f ||
-                           pblock > 0.f;
-      const bool up_ok = v_up < bound && !blocked;
-      const bool lo_ok = v_lo < bound && !blocked && !up_ok;
-      float cand = up_ok ? v_up : (lo_ok ? v_lo : kBig);
-      if (tol.bland)
-        cand = (up_ok || lo_ok) ? static_cast<float>(i) - kBig : kBig;
-      lo_okv[i] = lo_ok ? 1.f : 0.f;
-      if (better(cand, i, vmin, jr)) { vmin = cand; jr = i; }
-    }
-    block_reduce<1>(r2, mx, vmin, jr, red);
     const float found = vmin < 0.f ? 1.f : 0.f;
     const float j_lo = lo_okv[jr];
     const float d_j = j_lo * dl[jr] + (1.f - j_lo) * du[jr];
@@ -336,34 +588,45 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
     const float add_lam = retry * plm + padd0 * (1.f - 2.f * j_lo);
     const float add_id = retry * pid + padd0 * static_cast<float>(jr);
     const float add_d = retry * pdd + padd0 * d_j;
-    for (int j = t; j < n; j += kThreads)
-      add_row[j] = retry * prow[j] + padd0 * M[jr * ldn + j];
-    __syncthreads();
+    const float* mj = M + jr * ldn;
+    auto xadd = [&](int j) { return retry * prow[j] + padd0 * mj[j]; };
 
-    // Gram column of the add and the removed column of E (:381-400)
-    for (int k = t; k < K; k += kThreads) {
-      float s = 0.f;
-      for (int j = 0; j < n; ++j) s += W[k * ldn + j] * add_row[j];
-      const float keep0 = 1.f - (k == rm ? 1.f : 0.f) * do_rm0;
-      g_k[k] = s * used[k] * keep0;
-      e[k] = E[k * ldK + rm];
-    }
-    __syncthreads();
-
-    // Schur vector a_pre = E g_k, and the deletion pivot (:400-416)
+    // Gram column of the add over the list, g_k = (W add_row) o used o
+    // keep0, the removed column e = E[list, rm] (:381-400), e.g_k and
+    // the deletion pivot's max|e| (:400-416; e is zero off the list);
+    // beside them the add's row and its ||.||^2
     float r3[2] = {0.f, 0.f};
-    float emax = -INFINITY, dv = INFINITY;
-    int di = INT_MAX;
-    for (int i = t; i < K; i += kThreads) {
-      float s = 0.f;
-      for (int j = 0; j < K; ++j) s += E[i * ldK + j] * g_k[j];
-      a[i] = s;
-      r3[0] += e[i] * g_k[i];
-      emax = max_nan(emax, fabsf(e[i]));
+    float emax = -INFINITY;
+    for (int base = 0; base < k; base += kPairItems) {
+      const int p0 = base + r16;
+      float acc[kSG] = {};
+      if (p0 < k) {
+        int off[kSG];
+#pragma unroll
+        for (int p = 0; p < kSG; ++p) off[p] = list[min(p0 + p, k - 1)] * ldn;
+        slot_rows8(acc, W, off, n, hq, 2 * kSG, xadd);
+      }
+      slot_pair8(acc);
+      const float sg = slot_tsum8(acc, q);
+      if (h0 && p0 + q < k) {
+        const int s = list[p0 + q];
+        const float keep0 = 1.f - (s == rm ? 1.f : 0.f) * do_rm0;
+        const float gs = sg * used[s] * keep0;
+        const float es = E[s * ldK + rm];
+        g_k[s] = gs;
+        e[s] = es;
+        r3[0] += es * gs;
+        emax = max_nan(emax, fabsf(es));
+      }
     }
-    for (int j = t; j < n; j += kThreads) r3[1] += add_row[j] * add_row[j];
-    block_reduce<2>(r3, emax, dv, di, red);
-    const float err = e[rm];
+    for (int j = vt; j < n; j += kThreads) {
+      const float x = xadd(j);
+      add_row[j] = x;
+      r3[1] += x * x;
+    }
+    slot_reduce<2, 0, true>(r3, emax, av, ai, red());
+    SLOT_PROBE_MARK(3)
+    const float err = E[rm * ldK + rm];            // e[rm]
     const float dii = r3[1];
     const bool bad = do_rm0 > 0.f && err < tol.pivtol * emax;
     const float err_s = err != 0.f ? err : 1.f;
@@ -371,27 +634,6 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
     if (bad) stt = kRefactor;
     const float do_rm = bad ? 0.f : do_rm0;
     const float alpha = do_rm * (rmin < kBig ? rmin : 0.f);
-
-    // dual step and removal bookkeeping (:416-429); the Schur pivot,
-    // slot count and first free slot for the add (:474-487)
-    float r4[2] = {0.f, 0.f};
-    float fmx = -INFINITY, fv_free = INFINITY;
-    int free_k = INT_MAX;
-    for (int k = t; k < K; k += kThreads) {
-      const float keep = 1.f - (k == rm ? 1.f : 0.f) * do_rm;
-      const float ap = keep * (a[k] - do_rm * e[k] * ec);
-      a[k] = ap;
-      lam[k] = (lam[k] + alpha * delta[k] * used[k]) * keep;
-      used[k] *= keep;
-      dsl[k] *= keep;
-      slo[k] *= keep;
-      sid[k] = sid[k] * keep - (1.f - keep);
-      r4[0] += g_k[k] * ap;
-      r4[1] += used[k];
-      const float fc = static_cast<float>(k) + used[k] * kBig;
-      if (better(fc, k, fv_free, free_k)) { fv_free = fc; free_k = k; }
-    }
-    block_reduce<2>(r4, fmx, fv_free, free_k, red);
     plm = plm + alpha * sgn_p * pd;
 
     // exits (:431-454)
@@ -410,48 +652,67 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
     }
     const float padd = stt == kRunning ? padd0 : 0.f;
 
+    // the Schur vector a_pre = E g_k over the list, then a_post and its
+    // pivot g_k.a_post (:400-416, :474-481); the dual step, the removal
+    // (:416-429), lam <- lam* before a priced add and the lam* record
+    // (:456-462), and the first free slot for the add
+    float r4[1] = {0.f};
+    float fmx = -INFINITY;
+    float fv_free[2] = {INFINITY, INFINITY};
+    int free_i[2] = {INT_MAX, INT_MAX};
+    for (int base = 0; base < k; base += kPairItems) {
+      const int p0 = base + r16;
+      float acc[kSG] = {};
+      if (p0 < k) {
+        int off[kSG];
+#pragma unroll
+        for (int p = 0; p < kSG; ++p) off[p] = list[min(p0 + p, k - 1)] * ldK;
+        for (int cc = hq; cc < k; cc += 2 * kSG) {
+          const int j = list[cc];
+          const float gj = g_k[j];
+#pragma unroll
+          for (int p = 0; p < kSG; ++p) acc[p] += E[off[p] + j] * gj;
+        }
+      }
+      slot_pair8(acc);
+      const float sa = slot_tsum8(acc, q);
+      if (h0 && p0 + q < k) {
+        const int s = list[p0 + q];
+        const float keep = 1.f - (s == rm ? 1.f : 0.f) * do_rm;
+        const float ap = keep * (sa - do_rm * e[s] * ec);
+        a[s] = ap;
+        r4[0] += g_k[s] * ap;
+      }
+    }
+    for (int s = t; s < K; s += kThreads) {
+      const float keep = 1.f - (s == rm ? 1.f : 0.f) * do_rm;
+      lam[s] = (lam[s] + alpha * delta[s] * used[s]) * keep;
+      used[s] *= keep;
+      dsl[s] *= keep;
+      slo[s] *= keep;
+      sid[s] = sid[s] * keep - (1.f - keep);
+      if (padd > 0.f) lam[s] = lstar[s] * used[s];
+      ls[s] = lstar[s];
+      const float fc = static_cast<float>(s) + used[s] * kBig;
+      if (better(fc, s, fv_free[0], free_i[0])) {
+        fv_free[0] = fc;
+        free_i[0] = s;
+      }
+    }
+    slot_reduce<1, 1, false>(r4, fmx, fv_free, free_i, red());
+    SLOT_PROBE_MARK(4)
+    const int free_k = free_i[0];
+    const float kcnt = static_cast<float>(k) - do_rm;   // used after it
+
     // Schur complement and the relative singularity gate (:463-481)
     const float sval = dii - r4[0];
     const float gate = fmaxf(tol.singtol, 1e-4f * dii);
-    const bool sing = sval < gate || r4[1] >= static_cast<float>(n_true);
+    const bool sing = sval < gate || kcnt >= static_cast<float>(n_true);
     const float do_add = retry * (bad ? 0.f : 1.f) + padd;
     const float ok = sing ? 0.f : do_add;
     const float mk_pend = sing ? do_add : 0.f;
     const float c_del = -do_rm / err_s;
     const float c_add = ok / (sval != 0.f ? sval : 1.f);
-
-    // slot, m-space and pending bookkeeping (:456-462, :545-581)
-    for (int k = t; k < K; k += kThreads) {
-      const float ohf = k == free_k ? 1.f : 0.f;
-      ls[k] = lstar[k];
-      if (padd > 0.f) lam[k] = lstar[k] * used[k];
-      w[k] = a[k] * used[k] - ohf;
-      used[k] = fminf(used[k] + ok * ohf, 1.f);
-      sid[k] = sid[k] + ok * ohf * (add_id + 1.f);
-      slo[k] = slo[k] + ok * ohf * add_lo;
-      dsl[k] = dsl[k] + ok * ohf * add_d;
-      lam[k] = lam[k] + ok * ohf * add_lam;
-    }
-    for (int idx = t; idx < K * n; idx += kThreads) {
-      const int k = idx / n, j = idx % n;
-      const float keep = 1.f - (k == rm ? 1.f : 0.f) * do_rm;
-      const float ohf = k == free_k ? 1.f : 0.f;
-      W[k * ldn + j] = W[k * ldn + j] * keep + (ok * ohf) * add_row[j];
-    }
-    for (int i = t; i < m; i += kThreads) {
-      const float fi = static_cast<float>(i);
-      const float oh_rm = (fi == rm_id ? 1.f : 0.f) * do_rm;
-      float up = au[i] * (1.f - oh_rm * (1.f - rm_lo));
-      float lo = al[i] * (1.f - oh_rm * rm_lo);
-      const float add_oh = retry * (fi == pid ? 1.f : 0.f) +
-                           padd * (i == jr ? 1.f : 0.f);
-      au[i] = fminf(up + ok * add_oh * (1.f - add_lo), 1.f);
-      al[i] = fminf(lo + ok * add_oh * add_lo, 1.f);
-    }
-    for (int j = t; j < n; j += kThreads) {
-      if (price > 0.f) u[j] = u_new[j];
-      if (mk_pend > 0.f) prow[j] = add_row[j];
-    }
     pd = fminf((1.f - retry) * pd + mk_pend, 1.f);
     if (mk_pend > 0.f) {
       plm = add_lam;
@@ -459,38 +720,162 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
       pid = add_id;
       pdd = add_d;
     }
-    __syncthreads();
+    // the free slot joins the update's list unless it is the removed one
+    const bool rm_free = do_rm > 0.f && free_k == rm;
+    const int kN = k + (ok > 0.f && !rm_free ? 1 : 0);
+    // the last step of the round computes no next lam*: ls is the record
+    const bool last = stt != kRunning || step + 1 == steps;
+    const bool has_pn = !last && pd > 0.f;
+    // the update's list and the new table's values there, taken before
+    // the bookkeeping below writes the added slot: the free slot's are
+    // those of the add
+    auto slot_of = [&](int idx) { return idx < k ? list[idx] : free_k; };
+    auto added = [&](int s) { return ok > 0.f && s == free_k; };
 
-    // E <- (E + c_del e e') o keep keep' + c_add w w' (:590-596) and the
-    // pending Gram column on the new table (:587-588)
-    for (int idx = t; idx < K * K; idx += kThreads) {
-      const int i = idx / K, j = idx % K;
-      const float ki = 1.f - (i == rm ? 1.f : 0.f) * do_rm;
-      const float kj = 1.f - (j == rm ? 1.f : 0.f) * do_rm;
-      E[i * ldK + j] = (E[i * ldK + j] + c_del * e[i] * e[j]) * ki * kj +
-                       c_add * w[i] * w[j];
-    }
-    for (int k = t; k < K; k += kThreads) {
-      float s = 0.f;
-      for (int j = 0; j < n; ++j) s += W[k * ldn + j] * prow[j];
-      g_p[k] = s * used[k];
-    }
-    __syncthreads();
-
-    // next step's lam* = -E (dsl o used) and a_p = E g_p (:604-605)
-    for (int i = t; i < K; i += kThreads) {
-      float s1 = 0.f, s2 = 0.f;
-      for (int j = 0; j < K; ++j) {
-        s1 += E[i * ldK + j] * (dsl[j] * used[j]);
-        s2 += E[i * ldK + j] * g_p[j];
+    // a pending entry's Gram column g_p = (W prow) o used on the new
+    // table (:587-588), over the update's list, when one is pending: W's
+    // new rows are its rows but the removed one's (dropped: its new used
+    // is 0) and the added one's (the added row); the new prow is the
+    // added row if it was parked, else prow
+    if (has_pn) {
+      const bool from_add = mk_pend > 0.f;
+      for (int base = 0; base < kN; base += kThreads) {
+        const int p0 = base + g8;
+        float acc[kSG] = {};
+        if (p0 < kN) {
+          // W's rows, the added row read as W[add_off + j]
+          const int add_off = static_cast<int>(add_row - W);
+          int off[kSG];
+#pragma unroll
+          for (int p = 0; p < kSG; ++p) {
+            const int s = slot_of(min(p0 + p, kN - 1));
+            off[p] = added(s) || (do_rm > 0.f && s == rm) ? add_off
+                                                          : s * ldn;
+          }
+          slot_rows8(acc, W, off, n, q, kSG, [&](int j) {
+            return from_add ? add_row[j] : prow[j];
+          });
+        }
+        const float sg = slot_tsum8(acc, q);
+        const int idx = base + t;
+        if (idx < kN) {
+          const int s = slot_of(idx);
+          g_p[s] = sg * (added(s) ? 1.f : used[s]);
+        }
       }
-      lstar[i] = -s1;
-      a_p[i] = s2;
+    }
+
+    // the add's slot, m-space and pending bookkeeping (:456-462,
+    // :545-581); the W update: the removed row to 0, the added row into
+    // the free slot (W is zero there)
+    if (t == 0) {
+      if (kN > k) list[k] = free_k;
+      if (ok > 0.f) {
+        used[free_k] = fminf(used[free_k] + ok, 1.f);
+        sid[free_k] = sid[free_k] + ok * (add_id + 1.f);
+        slo[free_k] = slo[free_k] + ok * add_lo;
+        dsl[free_k] = dsl[free_k] + ok * add_d;
+        lam[free_k] = lam[free_k] + ok * add_lam;
+      }
+    }
+    for (int j = vt; j < n; j += kThreads) {
+      if (do_rm > 0.f) W[rm * ldn + j] = 0.f;
+      if (ok > 0.f) W[free_k * ldn + j] = add_row[j];
+      if (price > 0.f) u[j] = u_new[j];
+      if (mk_pend > 0.f) prow[j] = add_row[j];
+    }
+    for (int i = vt; i < m; i += kThreads) {
+      const float fi = static_cast<float>(i);
+      const float oh_rm = (fi == rm_id ? 1.f : 0.f) * do_rm;
+      float up = au[i] * (1.f - oh_rm * (1.f - rm_lo));
+      float lo = al[i] * (1.f - oh_rm * rm_lo);
+      // a retry keeps pid (add_id = pid), so pid is the retried row
+      const float add_oh = retry * (fi == pid ? 1.f : 0.f) +
+                           padd * (i == jr ? 1.f : 0.f);
+      au[i] = fminf(up + ok * add_oh * (1.f - add_lo), 1.f);
+      al[i] = fminf(lo + ok * add_oh * add_lo, 1.f);
+    }
+
+    // beside it, E <- (E + c_del e e') o keep keep' + c_add w w'
+    // (:590-596) on the update's list, 8 rows to a pair of groups and
+    // columns by lane, with w = a_post o used - e_free and e zero at the
+    // added slot; from the new values the next step's lam* = -E (dsl o
+    // used) and a_p = E g_p (:604-605)
+    auto e_of = [&](int i) { return added(i) && !rm_free ? 0.f : e[i]; };
+    auto w_of = [&](int i) {
+      return i == free_k ? -1.f : (used[i] > 0.f ? a[i] * used[i] : 0.f);
+    };
+    auto d_of = [&](int i) { return added(i) ? add_d : dsl[i] * used[i]; };
+    for (int base = 0; base < kN; base += kPairItems) {
+      const int p0 = base + r16;
+      float s1[kSG] = {};
+      if (p0 < kN) {
+        int off[kSG];
+        float ce[kSG], ca[kSG];
+        const int rm_off = rm * ldK;
+        const float k_rm = 1.f - do_rm;
+#pragma unroll
+        for (int p = 0; p < kSG; ++p) {
+          const int i = slot_of(min(p0 + p, kN - 1));
+          off[p] = i * ldK;
+          ce[p] = c_del * e_of(i);
+          ca[p] = c_add * w_of(i);
+        }
+        for (int cc = hq; cc < kN; cc += 2 * kSG) {
+          const int j = slot_of(cc);
+          const float kj = 1.f - (j == rm ? 1.f : 0.f) * do_rm;
+          const float ej = e_of(j), wj = w_of(j), dj = d_of(j);
+#pragma unroll
+          for (int p = 0; p < kSG; ++p) {
+            float* ep = E + off[p] + j;
+            const float ki = off[p] == rm_off ? k_rm : 1.f;
+            const float v = (*ep + ce[p] * ej) * ki * kj + ca[p] * wj;
+            if (p0 + p < kN) *ep = v;
+            s1[p] += v * dj;
+          }
+        }
+      }
+      if (!last) {
+        slot_pair8(s1);
+        const float l1 = slot_tsum8(s1, q);
+        if (h0 && p0 + q < kN) {
+          const int i = slot_of(p0 + q);
+          lstar[i] = -l1;
+          a_p[i] = 0.f;
+        }
+      }
     }
     __syncthreads();
+    // with an entry pending, a_p = E g_p (:605) from the new E
+    if (has_pn) {
+      for (int base = 0; base < kN; base += kPairItems) {
+        const int p0 = base + r16;
+        float s2[kSG] = {};
+        if (p0 < kN) {
+          int off[kSG];
+#pragma unroll
+          for (int p = 0; p < kSG; ++p)
+            off[p] = slot_of(min(p0 + p, kN - 1)) * ldK;
+          for (int cc = hq; cc < kN; cc += 2 * kSG) {
+            const int j = slot_of(cc);
+            const float gj = g_p[j];
+#pragma unroll
+            for (int p = 0; p < kSG; ++p) s2[p] += E[off[p] + j] * gj;
+          }
+        }
+        slot_pair8(s2);
+        const float l2 = slot_tsum8(s2, q);
+        if (h0 && p0 + q < kN) a_p[slot_of(p0 + q)] = l2;
+      }
+      __syncthreads();
+    }
+    SLOT_PROBE_MARK(5)
+    SLOT_PROBE_STEP
+    kU = kN;
     it += 1.f;
     if (stt != kRunning) break;
   }
+  SLOT_PROBE_FLUSH
   c.pd = pd;
   c.plm = plm;
   c.plo = plo;

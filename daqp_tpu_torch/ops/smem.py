@@ -22,9 +22,11 @@ DENSE_RED = 6           # dense_round.cu: kDenseRed
 
 
 def slot_floats(m: int, n: int, K: int) -> int:
-    """K2 and B3 (``slot_smem_floats``)."""
-    return (K * (K | 1) + K * (n | 1) + m * (n | 1) + 7 * m + 15 * K + 4 * n
-            + K_WARPS * RED_STRIDE)
+    """K2 and B3 (``slot_smem_floats``): E, W, M, 7 m-vectors, 15
+    K-vectors and the used-slot list, 4 n-vectors, two halves of
+    reduction scratch."""
+    return (K * (K | 1) + K * (n | 1) + m * (n | 1) + 7 * m + 16 * K + 4 * n
+            + 2 * K_WARPS * RED_STRIDE)
 
 
 def prox_floats(m: int, n: int, K: int) -> int:

@@ -93,13 +93,15 @@ def test_xla_formulations_match_jax(name, B, n, rtol):
 
 # Each kernel's shared memory per block (the allocators of csrc/) against
 # an H100's 232,448 bytes: K1 fits n = 240, not 241; K2 fits config 2
-# (n = 50, m = 100, K = 51), not BASELINE "medium" (n = 100, m = 500,
-# ~305 KB); B7 at n = 50 fits m = 209, not 210, and its SOFT_WEIGHTS
-# variant m = 205, not 206.
+# (n = 50, m = 100, K = 51) and at n = 50 up to m = 893, not 894, nor
+# BASELINE "medium" (n = 100, m = 500, ~306 KB); B7 at n = 50 fits
+# m = 209, not 210, and its SOFT_WEIGHTS variant m = 205, not 206.
 @pytest.mark.parametrize("kernel,floats,fits", [
     ("K1", smem.chol_floats(240), True),
     ("K1", smem.chol_floats(241), False),
     ("K2", smem.slot_floats(100, 50, 51), True),
+    ("K2", smem.slot_floats(893, 50, 51), True),
+    ("K2", smem.slot_floats(894, 50, 51), False),
     ("K2", smem.slot_floats(500, 100, 101), False),
     ("B7", smem.dense_floats(209, 50, False), True),
     ("B7", smem.dense_floats(210, 50, False), False),
@@ -111,8 +113,8 @@ def test_shared_memory_edges(kernel, floats, fits):
     else:
         with pytest.raises(ValueError, match=f"{4 * floats} bytes"):
             smem.check(kernel, {}, floats, limit=H100_SMEM)
-    if kernel == "K2" and not fits:
-        assert 4 * floats == 305364
+    if kernel == "K2" and not fits and floats > smem.slot_floats(894, 50, 51):
+        assert 4 * floats == 305864
 
 
 def test_dense_mirror_reads_kernel_constants():
@@ -137,6 +139,33 @@ def test_dense_mirror_reads_kernel_constants():
         assert eval(expr, {"kDenseWarps": smem.DENSE_WARPS,
                            "kDenseRed": smem.DENSE_RED},
                     dict(m=m, n=n, has_sw=sw)) == smem.dense_floats(m, n, sw)
+
+
+def test_slot_mirror_reads_kernel_constants():
+    # ops/smem.py's K2 constants are the ones slot_step.cuh compiles with
+    # (the block size, the reduction words per warp) and its slot_floats
+    # is the allocator's own formula (kernel source text, no nvcc)
+    src = (Path(pchol.__file__).parent / "csrc" / "slot_step.cuh").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kThreads") // 32 == smem.K_WARPS
+    assert re.search(r"constexpr int kWarps = kThreads / 32;", src)
+    assert const("kRedStride") == smem.RED_STRIDE
+    body = re.search(r"slot_smem_floats\(int m, int n, int K\) \{(.*?)\n\}",
+                     src, re.S).group(1)
+    decls = re.search(r"const int (.*?);", body).group(1).split(",")
+    expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1",
+                  re.search(r"return (.*?);", body, re.S).group(1))
+    for m, n, K in [(100, 50, 51), (50, 20, 21), (50, 10, 11), (893, 50, 51),
+                    (500, 100, 101), (14, 6, 8)]:
+        env = dict(m=m, n=n, K=K, kWarps=smem.K_WARPS,
+                   kRedStride=smem.RED_STRIDE)
+        for d in decls:
+            name, value = d.split("=")
+            env[name.strip()] = eval(value, {}, env)
+        assert eval(f"({expr})", {}, env) == smem.slot_floats(m, n, K)
 
 
 @pytest.mark.parametrize("wrapper,twin,count", [
