@@ -57,12 +57,16 @@ before and read just after:
 Phases ``k1``-``k10`` hold each kernel against its plain twin at the
 paths' shapes (``k2`` and ``k7`` also at the streams' 256-lane chunk
 and at the largest m whose block fits, ``k2`` also from slots scattered
-by a permutation, ``k8`` also at n = 10, 12, 20, ``k10`` at n = 100-500,
-beside K1); ``limits`` shows that a shape beyond a
-block's shared memory raises ValueError before launch.  Each phase
-prints one JSON line with its seconds; then come the kernel table,
-the card's name and power limit, and as the last line
-``{"ok": true, "device": ...}``.  Any failed check or error exits
+by a permutation, ``k8`` also at n = 10, 12, 20, 32, 64 and 100, so at
+every lane tile, ``k10`` at n = 100-500, beside K1); ``limits`` runs K1,
+B8 and B10 at their largest n (B10 at n = 1000) and shows that a shape
+beyond a block's shared memory raises ValueError before launch.
+``python3 chip_smoke.py --phases k8 k10`` runs the named phases alone (a
+measurement: no kernels line, no ``ok`` line); copied into an unpacked
+parent commit, it times the parent's kernels with these phases, in turns
+with this tree.  Each phase prints one JSON line with its seconds; then
+come the kernel table, the card's name and power limit, and as the last
+line ``{"ok": true, "device": ...}``.  Any failed check or error exits
 non-zero without that line; so does a machine without a CUDA device.
 """
 import importlib
@@ -93,6 +97,8 @@ STEPS = 192
 S3, T3, SEG3, SEED3, DRIFT3 = 512, 20, 10, 7, 0.02
 B4, RANK4, SEED4 = 256, 30, 11
 K1_RTOL = 1e-4        # max |dRinv| / max |Rinv|, kernel vs twin
+B8_LIMIT = 333        # the largest n whose one-lane B8 block fits an H100
+B10_LIMIT = 1581      # the largest n whose B10 block fits an H100
 # scripts/profile_stages.py's batches (the stages phase)
 B_STAGE, STAGE_BATCHES = 1024, 4
 K2_AGREE = 0.99       # lanes whose exit flag and working set agree
@@ -643,13 +649,16 @@ def phase_factor(name, kernel, twin, H, widths, dev):
     return ok and ok_w, kernel_fields(f)
 
 
-# B8 at the widths of configLP, 4b and AVI; B10 at the BASELINE "large"
-# widths, where its 9n floats of shared memory fit and K1's n (n|1) + n
-# do not past n = 240.  K1_RTOL holds at every width: kernel and twin add
-# the same f32 terms in the same order and part only where the kernel
-# fuses a multiply-add, and with cond(A A' + n I) <= ~5 the rounding
-# bound n eps is 3e-5 at n = 500 (measured on the H100: 2e-7).
-K8_WIDTHS = [(B, n) for n in (10, 12, 20)]
+# B8 at the widths of configLP, 4b and AVI (32 lanes a block), at n = 32
+# and 64 (16 and 4 lanes) and at n = 100 (B = 1024, 2 lanes), so that
+# with config 2's n = 50 (8 lanes) and limits' n = 333 (1 lane) every
+# tile the wrapper may pick runs; B10 at the BASELINE "large" widths,
+# where K1's n (n|1) + n floats do not fit past n = 240.  K1_RTOL holds at
+# every width: kernel and twin add the same f32 terms in the same order
+# and part only where the kernel fuses a multiply-add, and with
+# cond(A A' + n I) <= ~5 the rounding bound n eps is 3e-5 at n = 500
+# (measured on the H100: 2e-7).
+K8_WIDTHS = [(B, n) for n in (10, 12, 20, 32, 64)] + [(1024, 100)]
 K10_WIDTHS = [(1024, 100), (1024, 200), (256, 300), (256, 500)]
 
 
@@ -672,15 +681,24 @@ def limit_case(fn, counts):
 
 
 def phase_limits(st, dev):
-    """The part-0 shape check: K1 at n = 240 runs and agrees with its
-    twin; K1 at n = 241, K2 at n = 100, m = 500 (BASELINE "medium") and
-    at n = 50 one row past the largest m that fits (k2 case f runs that
-    m), B7 at n = 50, m = 210 and B7-sw at m = 206 raise ValueError
-    before any launch."""
+    """The shape checks: K1 at n = 240, B8 at its one-lane limit n = 333
+    and B10 at n = 1000 (twice BASELINE's largest n) run and agree with
+    their twins; K1 at n = 241, B8 at n = 334, B10 at n = 1582, K2 at
+    n = 100, m = 500 (BASELINE "medium") and at n = 50 one row past the
+    largest m that fits (k2 case f runs that m), B7 at n = 50, m = 210 and
+    B7-sw at m = 206 raise ValueError before any launch."""
     t0 = time.perf_counter()
     ok240, f240 = factor_case(chol.chol_rinv, chol.chol_rinv_plain,
                               spd_batch(256, 240, SEED, dev), reps=5,
                               twin_reps=1)
+    ok8, f8 = factor_case(chol.chol_rinv_lanes, chol.chol_rinv_lanes_plain,
+                          spd_batch(64, B8_LIMIT, SEED, dev), reps=3,
+                          twin_reps=1)
+    # B10's twin at pb = 32 is bit for bit its twin at 8 (the JAX order;
+    # tests/test_torch_chol_kernels.py), in a quarter of the steps
+    ok10, f10 = factor_case(
+        chol.chol_rinv_blk, lambda H: chol.chol_rinv_blk_plain(H, pb=32),
+        spd_batch(8, 1000, SEED, dev), reps=3, twin_reps=1)
 
     def lane(m, n):
         g = np.random.default_rng(SEED + m)
@@ -704,14 +722,20 @@ def phase_limits(st, dev):
     cases = {
         "k1_n241": (lambda: chol.chol_rinv(spd_batch(2, 241, SEED, dev)),
                     ("chol_rinv",)),
+        f"b8_n{B8_LIMIT + 1}": (lambda: chol.chol_rinv_lanes(
+            spd_batch(2, B8_LIMIT + 1, SEED, dev)), ("chol_lanes",)),
+        f"b10_n{B10_LIMIT + 1}": (lambda: chol.chol_rinv_blk(
+            spd_batch(2, B10_LIMIT + 1, SEED, dev)), ("chol_blk",)),
         "k2_n100_m500": (lambda: k2(500, 100), ("slot_round",)),
         f"k2_n50_m{m_k2}": (lambda: k2(m_k2, N), ("slot_round",)),
         "b7_n50_m210": (lambda: b7(210, False), ("dense_round",)),
         "b7sw_n50_m206": (lambda: b7(206, True), ("dense_round",))}
     res = {k: limit_case(fn, c) for k, (fn, c) in cases.items()}
-    emit("limits", t0, k1_n240=f240, smem_optin=smem.available(dev),
+    emit("limits", t0, k1_n240=f240, **{f"b8_n{B8_LIMIT}": f8,
+                                        "b10_n1000": f10},
+         smem_optin=smem.available(dev),
          **{k: v[1] for k, v in res.items()})
-    return ok240 and all(v[0] for v in res.values()), None
+    return ok240 and ok8 and ok10 and all(v[0] for v in res.values()), None
 
 
 FACTORS = (("chol_rinv", chol.chol_rinv), ("chol_lanes", chol.chol_rinv_lanes),
@@ -2290,6 +2314,11 @@ PHASES = ("k1", "k2", "slice", "k8", "k9", "k10", "stages", "limits", "k7",
 
 
 def main():
+    """Every phase; ``--phases p ...`` runs the env line and the named
+    phases alone (a measurement, not the smoke test: it prints no kernels
+    line and no ``ok`` line)."""
+    only = sys.argv[sys.argv.index("--phases") + 1:] \
+        if "--phases" in sys.argv else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2306,7 +2335,8 @@ def main():
     res = {}
 
     def run(name, fn, *a):
-        res[name] = fn(*a)
+        if only is None or name in only:
+            res[name] = fn(*a)
 
     run("k1", phase_k1, full[0])
     lanes = first_chunk(full, st)
@@ -2357,7 +2387,12 @@ def main():
     run("k6", phase_k6, args_lp, st_lp)
     run("lp", phase_lp, args_lp, d_lp, st_lp, card)
 
-    failed = [name for name in PHASES if not res[name][0]]
+    failed = [name for name in PHASES if name in res and not res[name][0]]
+    if only is not None:
+        print(card, flush=True)
+        if failed:
+            print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
+        return 1 if failed or set(only) - set(res) else 0
     paths = {p: res[p][1] for p in ("slice", "mpc", "prox", "soft", "sw",
                                     "hiqp", "avi")}
     paths.update(res["lp"][1])

@@ -36,11 +36,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # (H, Rinv, B, n, tiny, stream)
     "chol_rinv_f32": [_P, _P, _I, _I, _F, _P],
-    # (the (n, n, B) lanes-last buffer, in place, B, n, tiny, stream)
-    "chol_lanes_f32": [_P, _I, _I, _F, _P],
+    # (H, Rinv, B, n, matrices per block, tiny, stream)
+    "chol_lanes_f32": [_P, _P, _I, _I, _I, _F, _P],
     # (H, Rinv, B, n, matrices per block, tiny, stream)
     "chol_dense_f32": [_P, _P, _I, _I, _I, _F, _P],
-    # (H, X = L^{-1}, B, n, tiny, stream)
+    # (H, Rinv, B, n, tiny, stream)
     "chol_blk_f32": [_P, _P, _I, _I, _F, _P],
     # (host array of 53 device pointers, B, m, n, K, n_true, steps,
     #  dual_tol, primal_tol, pivot_tol, sing_tol, progress_tol, cycle_tol,

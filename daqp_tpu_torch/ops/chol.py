@@ -16,7 +16,8 @@ clamped to ``TINY``:
   ``chol_rinv_dense_plain``;
 * ``chol_rinv_blk`` (B10, ``csrc/chol_blk.cu``): ``:644
   batched_chol_rinv_blk`` (``_tile_chol_kernel_blk``, :319), panel-8;
-  twin ``chol_rinv_blk_plain``;
+  twin ``chol_rinv_blk_plain``, whose order no panel width changes (the
+  kernel's panels are 32 wide);
 * ``batched_rinv_regularized`` (:779) on K1;
 * in torch ops, as the JAX package leaves them to XLA:
   ``batched_chol_rinv`` (:843), ``batched_invsqrt`` (:84) and
@@ -36,7 +37,9 @@ import torch
 from . import _build, host_any, smem
 
 TINY = 1e-30
-PB = 8              # B10's panel width
+PB = 8              # the TPU kernels' panel width: B10's twin, the MXU form
+LANE_TILES = (32, 16, 8, 4, 2, 1)   # B8's lanes per block (chol_lanes.cu)
+LANES_BUDGET = 48 * 1024            # B8's preferred bytes of shared memory
 # kernel launches of chol_rinv (K1), chol_rinv_lanes (B8), chol_rinv_dense
 # (B9) and chol_rinv_blk (B10); the caller resets them
 launches = 0
@@ -131,19 +134,23 @@ def chol_rinv_dense_plain(H: torch.Tensor) -> torch.Tensor:
     return A.transpose(1, 2).contiguous()
 
 
-def chol_rinv_blk_plain(H: torch.Tensor) -> torch.Tensor:
-    """B10's twin, ``_tile_chol_kernel_blk``'s panel order with a ragged
-    last panel instead of identity padding.  Phase 1 per 8-column panel:
-    micro-steps (pivot, column, downdate of the panel's remaining
-    columns), then one rank-8 downdate of the trailing columns, t = 0..7
-    in turn.  Phase 2 per 8 rows: the off-block sums over the finished
-    rows k < i0 in ascending k, then the 8x8 diagonal solve row by row."""
+def chol_rinv_blk_plain(H: torch.Tensor, pb: int = PB) -> torch.Tensor:
+    """B10's twin, ``_tile_chol_kernel_blk``'s panel order (``pb`` = 8)
+    with a ragged last panel instead of identity padding.  Phase 1 per
+    ``pb``-column panel: micro-steps (pivot, column, downdate of the
+    panel's remaining columns), then one rank-``pb`` downdate of the
+    trailing columns, t ascending.  Phase 2 per ``pb`` rows: the
+    off-block sums over the finished rows k < i0 in ascending k, then the
+    diagonal solve row by row.  Every element takes its terms in the same
+    ascending order at any ``pb``, so the result does not depend on it
+    (``tests/test_torch_chol_kernels.py`` holds 16, 32 and 64 to 8 bit
+    for bit)."""
     B, n, _ = H.shape
     A = H.clone()
     tiny_t = torch.tensor(TINY, dtype=H.dtype, device=H.device)
     idx = torch.arange(n, device=H.device)
-    for j0 in range(0, n, PB):
-        j1 = min(j0 + PB, n)
+    for j0 in range(0, n, pb):
+        j1 = min(j0 + pb, n)
         for j in range(j0, j1):
             piv = torch.sqrt(torch.maximum(A[:, j, j], tiny_t))
             col = torch.where(idx > j, A[:, :, j] / piv[:, None], 0.0)
@@ -158,8 +165,8 @@ def chol_rinv_blk_plain(H: torch.Tensor) -> torch.Tensor:
             for t in range(j1 - j0):
                 blk = blk - pan[:, :, t, None] * pan[:, None, j1:, t]
             A[:, :, j1:] = blk
-    for i0 in range(0, n, PB):
-        i1 = min(i0 + PB, n)
+    for i0 in range(0, n, pb):
+        i1 = min(i0 + pb, n)
         P = A[:, i0:i1].clone()                         # L rows
         acc = torch.zeros_like(P)
         for k in range(i0):
@@ -210,22 +217,41 @@ def chol_rinv(H: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def lanes_tile(n: int, limit: int) -> int:
+    """B8's matrices (lanes) per block: the most of 32, 16, ..., 1 whose
+    packed triangles and row buffers fit in the 48 KB a block gets without
+    opting in, else the most that fit in ``limit`` bytes (1 if none does:
+    ``smem.check`` then raises).  The 48 KB budget is tuned at n = 50,
+    where 8 lanes (5 blocks per SM) beat 16 and 32; at n = 100 it takes 2
+    lanes, about 6% slower than 4 (PERF.md §6)."""
+    def fits(lb, cap):
+        return smem.F32 * smem.chol_lanes_floats(n, lb) <= cap
+    return next((lb for lb in LANE_TILES if fits(lb, min(LANES_BUDGET,
+                                                           limit))),
+                next((lb for lb in LANE_TILES if fits(lb, limit)), 1))
+
+
 def chol_rinv_lanes(H: torch.Tensor) -> torch.Tensor:
-    """B8 wrapper: the lanes-last kernel (one thread per matrix) on a
-    CUDA tensor, working in place on an (n, n, B) copy of H that comes
-    back transposed; the twin on a CPU tensor."""
+    """B8 wrapper: ``lanes_tile`` matrices per block, their packed
+    triangles in shared memory, on a CUDA tensor; H (B, n, n) read and
+    Rinv (B, n, n) written by the kernel itself.  The twin on a CPU
+    tensor."""
     global lanes_launches
     if H.device.type == "cpu":
         return chol_rinv_lanes_plain(H)
     _cuda_input("chol_rinv_lanes", H)
     B, n, _ = H.shape
+    lanes = lanes_tile(n, smem.available(H.device))
+    smem.check("chol_rinv_lanes (B8)", dict(n=n, lanes=lanes),
+               smem.chol_lanes_floats(n, lanes), H.device)
+    out = torch.empty_like(H)
     if B == 0:
-        return torch.empty_like(H)
-    work = H.permute(1, 2, 0).contiguous()
+        return out
     _build.check(_build.library().chol_lanes_f32(
-        work.data_ptr(), B, n, TINY, _stream(H)), "chol_lanes_f32")
+        H.data_ptr(), out.data_ptr(), B, n, lanes, TINY, _stream(H)),
+        "chol_lanes_f32")
     lanes_launches += 1
-    return work.permute(2, 1, 0).contiguous()        # Rinv[b] = X[b]'
+    return out
 
 
 def _dense_warps(n: int) -> int:
@@ -257,9 +283,11 @@ def chol_rinv_dense(H: torch.Tensor) -> torch.Tensor:
 
 
 def chol_rinv_blk(H: torch.Tensor) -> torch.Tensor:
-    """B10 wrapper: the panel-blocked kernel (the matrix in device
-    memory, one panel in shared memory) on a CUDA tensor; the twin on a
-    CPU tensor."""
+    """B10 wrapper: one block per matrix (64 threads up to n = 64, 128 up
+    to 256, then 256), panels of 32 columns (the twin's order at any
+    width), the matrix in device memory, on a CUDA tensor; the kernel
+    writes Rinv in place of its working matrix.  The twin on a CPU
+    tensor."""
     global blk_launches
     if H.device.type == "cpu":
         return chol_rinv_blk_plain(H)
@@ -267,13 +295,14 @@ def chol_rinv_blk(H: torch.Tensor) -> torch.Tensor:
     B, n, _ = H.shape
     smem.check("chol_rinv_blk (B10)", dict(n=n), smem.chol_blk_floats(n),
                H.device)
-    X = torch.empty_like(H)
+    out = torch.empty_like(H)
     if B == 0:
-        return X
+        return out
     _build.check(_build.library().chol_blk_f32(
-        H.data_ptr(), X.data_ptr(), B, n, TINY, _stream(H)), "chol_blk_f32")
+        H.data_ptr(), out.data_ptr(), B, n, TINY, _stream(H)),
+        "chol_blk_f32")
     blk_launches += 1
-    return X.transpose(1, 2).contiguous()
+    return out
 
 
 def pivot_ok(Rinv: torch.Tensor, sqrt_zt: torch.Tensor) -> torch.Tensor:

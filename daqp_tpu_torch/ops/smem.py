@@ -4,8 +4,9 @@ launch.
 The formulas mirror the kernels' allocators in ``csrc/``:
 ``slot_smem_floats`` (``slot_step.cuh``; K2 and B3 as they are, B4-B6 plus
 their own arrays), ``dense_smem_floats`` (``dense_round.cu``, B7),
-K1's ``n (n|1) + n`` (``chol_rinv.cu``), which B9 holds per warp, and
-B10's panel of 9n floats (``chol_blk.cu``).  B8 keeps no shared memory.
+K1's ``n (n|1) + n`` (``chol_rinv.cu``), which B9 holds per warp, B8's
+packed triangles of a lane tile (``chol_lanes.cu Lanes::floats``) and
+B10's panel or phase-2 stages (``chol_blk.cu Blk::floats``).
 A lane that needs more than the card lets one block opt in to raises
 ``ValueError`` before anything is enqueued.
 """
@@ -19,6 +20,11 @@ RED_STRIDE = 6          # slot_step.cuh: kRedStride
 DENSE_THREADS = 128     # dense_round.cu: kDenseThreads
 DENSE_WARPS = DENSE_THREADS // 32
 DENSE_RED = 6           # dense_round.cu: kDenseRed
+BLK_NB = 32             # chol_blk.cu: kNB, the panel width
+BLK_N64 = 64            # chol_blk.cu: kN64, 64 threads a block up to this n
+BLK_N128 = 256          # chol_blk.cu: kN128, 128 up to this n, then 256
+BLK_KT = 16             # chol_blk.cu: kKT, the phase-2 k-tile depth
+BLK_XLD = BLK_KT + 4    # chol_blk.cu: kXLd
 
 
 def slot_floats(m: int, n: int, K: int) -> int:
@@ -58,9 +64,28 @@ def chol_floats(n: int) -> int:
     return n * (n | 1) + n
 
 
+def chol_lanes_floats(n: int, lanes: int) -> int:
+    """B8 (``Lanes::floats``): per lane n (n + 1) / 2 packed elements and
+    two n-vectors, one pad word per 32 floats."""
+    e = n * (n + 1) // 2 + 2 * n
+    return e * lanes + (e - 1) // (32 // lanes)
+
+
+def blk_threads(n: int) -> int:
+    """B10's threads per block at n (``chol_blk.cu launch_threads``)."""
+    return 64 if n <= BLK_N64 else 128 if n <= BLK_N128 else 256
+
+
 def chol_blk_floats(n: int) -> int:
-    """B10: the n x 8 panel at row stride 9."""
-    return 9 * n
+    """B10 (``Blk::floats``): phase 1 the n-row panel, nb = BLK_NB pivots
+    and the diagonal block's L, rows of nb + 4; phase 2 the diagonal
+    block, nb inverse pivots and, for n > nb, two stages of an X k-tile (a
+    row per thread, BLK_XLD wide) and an L k-tile (BLK_KT rows of nb + 4)."""
+    nb = BLK_NB
+    ldp = nb + 4
+    stage = blk_threads(n) * BLK_XLD + BLK_KT * ldp
+    return max(n * ldp + nb + nb * ldp,
+               nb * ldp + nb + (2 * stage if n > nb else 0))
 
 
 def available(dev) -> int:

@@ -75,6 +75,19 @@ def test_blk_twin_at_n100(dtype, rtol):
     assert np.abs(R - ref).max() <= rtol * np.abs(ref).max()
 
 
+# B10's premise: every element takes its terms in the same ascending
+# order at any panel width, so the twin at pb = 16, 32, 64 (the kernel's
+# 32 and 64 among them) is bit for bit the twin at pb = 8, the JAX
+# kernel's order; n = 20 and 50 end on ragged panels at every width.
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [20, 50, 100])
+def test_blk_twin_order_does_not_depend_on_panel_width(n, dtype):
+    H = torch.as_tensor(_spd_batch(3, n, seed=n + 1).astype(dtype))
+    R8 = pchol.chol_rinv_blk_plain(H)
+    for pb in (16, 32, 64):
+        assert torch.equal(pchol.chol_rinv_blk_plain(H, pb=pb), R8), pb
+
+
 # The XLA formulations in f64 (conftest enables x64): the same products
 # and steps on both sides, so rounding-level agreement; Newton-Schulz's
 # 14 coupled products amplify it a little.
@@ -96,7 +109,19 @@ def test_xla_formulations_match_jax(name, B, n, rtol):
 # (n = 50, m = 100, K = 51) and at n = 50 up to m = 893, not 894, nor
 # BASELINE "medium" (n = 100, m = 500, ~306 KB); B7 at n = 50 fits
 # m = 209, not 210, and its SOFT_WEIGHTS variant m = 205, not 206.
+# B8 fits n = 333 at one lane, not 334, at 8 lanes (the wrapper's tile
+# at n = 50) n = 116, not 117, and at 32 lanes n = 56, not 57; B10 n =
+# 1581 (n = 1000 is twice BASELINE's largest), not 1582.
 @pytest.mark.parametrize("kernel,floats,fits", [
+    ("B8", smem.chol_lanes_floats(333, 1), True),
+    ("B8", smem.chol_lanes_floats(334, 1), False),
+    ("B8", smem.chol_lanes_floats(116, 8), True),
+    ("B8", smem.chol_lanes_floats(117, 8), False),
+    ("B8", smem.chol_lanes_floats(56, 32), True),
+    ("B8", smem.chol_lanes_floats(57, 32), False),
+    ("B10", smem.chol_blk_floats(1000), True),
+    ("B10", smem.chol_blk_floats(1581), True),
+    ("B10", smem.chol_blk_floats(1582), False),
     ("K1", smem.chol_floats(240), True),
     ("K1", smem.chol_floats(241), False),
     ("K2", smem.slot_floats(100, 50, 51), True),
@@ -166,6 +191,90 @@ def test_slot_mirror_reads_kernel_constants():
             name, value = d.split("=")
             env[name.strip()] = eval(value, {}, env)
         assert eval(f"({expr})", {}, env) == smem.slot_floats(m, n, K)
+
+
+def _consts(src):
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+def test_lanes_mirror_reads_kernel_constants():
+    # smem.chol_lanes_floats is chol_lanes.cu's Lanes<LB>::floats, with
+    # the pad shift kLogG = log2(32 / LB) of every tile the wrapper may
+    # pick (kernel source text, no nvcc)
+    src = (Path(pchol.__file__).parent / "csrc" / "chol_lanes.cu").read_text()
+    logg = re.search(r"kLogG = (.*?);", src, re.S).group(1)
+    tiles = [int(v) for v in re.findall(r"case (\d+): return launch", src)]
+    assert tuple(tiles) == pchol.LANE_TILES
+    body = re.search(r"static size_t floats\(int n\) \{(.*?)\}", src,
+                     re.S).group(1)
+    e_expr = re.search(r"const size_t e = (.*?);", body, re.S).group(1)
+    ret = re.search(r"return (.*?);", body, re.S).group(1)
+
+    def py(expr):
+        expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1", expr)
+        return expr.replace("/", "//")
+
+    for lb in tiles:
+        g = eval(re.sub(r"LB == (\d+) \? (\d+) :", r"\2 if LB == \1 else",
+                        re.sub(r"\s+", " ", logg)), {}, {"LB": lb})
+        assert 2 ** g == 32 // lb
+        for n in (1, 10, 12, 20, 50, 56, 100, 240, 333):
+            e = eval(py(e_expr), {}, {"n": n})
+            assert eval(py(ret), {}, {"e": e, "LB": lb, "kLogG": g}) == \
+                smem.chol_lanes_floats(n, lb)
+
+
+def test_blk_mirror_reads_kernel_constants():
+    # smem.chol_blk_floats is chol_blk.cu's Blk<NT>::floats: the panel
+    # width, the block size, the phase-2 k-tile and its row stride, the
+    # panel row stride and the stage
+    src = (Path(pchol.__file__).parent / "csrc" / "chol_blk.cu").read_text()
+    c = _consts(src)
+    assert c["kNB"] == smem.BLK_NB
+    assert (c["kN64"], c["kN128"]) == (smem.BLK_N64, smem.BLK_N128)
+    assert re.search(r"n <= kN64 \? launch<64>\(.*?\)\s*: n <= kN128 \? "
+                     r"launch<128>\(.*?\)\s*: launch<256>", src, re.S)
+    assert [smem.blk_threads(n) for n in (1, 64, 65, 256, 257)] == \
+        [64, 64, 128, 128, 256]
+    assert c["kKT"] == smem.BLK_KT
+    assert re.search(r"constexpr int kXLd = kKT \+ (\d+);", src).group(1) \
+        == str(smem.BLK_XLD - smem.BLK_KT)
+    ldp = re.search(r"kLdp = kNB \+ (\d+);", src).group(1)
+    stage = re.search(r"kStage = (.*?);", src).group(1).replace("NT",
+                                                                "kThreads")
+    body = re.search(r"static size_t floats\(int n\) \{(.*?)\n  \}", src,
+                     re.S).group(1)
+    env_expr = {k: re.sub(r"static_cast<size_t>\((\w+)\)", r"\1", v)
+                for k, v in re.findall(r"const size_t (p\d) = (.*?);", body,
+                                       re.S)}
+    for n in (1, 13, 32, 33, 50, 64, 65, 100, 256, 257, 300, 500, 1000,
+              1581):
+        env = dict(kNB=c["kNB"], kThreads=smem.blk_threads(n), kKT=c["kKT"],
+                   kXLd=smem.BLK_XLD, kLdp=c["kNB"] + int(ldp), n=n)
+        env["kStage"] = eval(stage, {}, env)
+        p = {k: eval(re.sub(r"\((\w+ > \w+) \? (.*?) : 0\)",
+                            r"((\2) if \1 else 0)", v), {}, env)
+             for k, v in env_expr.items()}
+        assert max(p.values()) == smem.chol_blk_floats(n)
+
+
+@pytest.mark.parametrize("n", [1, 10, 12, 20, 28, 29, 50, 51, 100, 106, 107,
+                               151, 152, 234, 240, 333, 334])
+def test_lanes_tile_is_the_largest_that_fits(n):
+    # the wrapper's lanes per block: the first of 32, 16, ..., 1 whose
+    # block fits in 48 KB, so twice as many would not (at 32, none more is
+    # built); past one lane in 48 KB (n > 151), the most that fit the card
+    lb = pchol.lanes_tile(n, H100_SMEM)
+    assert lb in pchol.LANE_TILES
+    need = 4 * smem.chol_lanes_floats(n, lb)
+    cap = pchol.LANES_BUDGET if 4 * smem.chol_lanes_floats(n, 1) <= \
+        pchol.LANES_BUDGET else H100_SMEM
+    assert (need <= cap) == (n <= 333)
+    if need <= cap and lb < 32:
+        assert 4 * smem.chol_lanes_floats(n, 2 * lb) > cap
+    assert [pchol.lanes_tile(k, H100_SMEM) for k in (10, 20, 50, 100, 240)] \
+        == [32, 32, 8, 2, 1]
 
 
 @pytest.mark.parametrize("wrapper,twin,count", [
