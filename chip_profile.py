@@ -29,6 +29,21 @@ e (the first 256-lane chunk of the sorted config-2 stream) and prints the
 SM cycles per step of each phase of the slot step (``slot_step.cuh``,
 ``SLOT_PROBE_MARK``), the prefix's cycles per lane, and the probe's cost:
 the instrumented round's time beside the normal kernel's.
+
+    python3 chip_profile.py --probe k5
+    python3 chip_profile.py --probe k6
+
+build an instrumented copy of B5 (``avi_segment.cu``) or B6
+(``lp_segment.cu``) alone under ``build/probe_k5`` / ``build/probe_k6``
+(``-DSLOT_PROBE``: the step's marks and the segment's, ``segment.cuh``)
+and print, for each launch probed, the SM cycles per pass of the
+segment's prologue (v and the bounds), inner solve (split into the slot
+step's phases per step) and epilogue (the outer half), the loads and
+stores of a block that ran a pass, a stopped block's whole time, and the
+instrumented launch's time beside the normal kernel's.  ``k5`` probes
+``chip_smoke.py``'s cold k5 segment (configAVI, B = 256) and the last B5
+launch of one configAVI solve (its tail: the lanes still running after
+the others finished); ``k6`` probes k6's cold configLP segment.
 """
 import ctypes
 import json
@@ -44,15 +59,17 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 import daqp_tpu_torch as dt
-from daqp_tpu_torch import ops
+from daqp_tpu_torch import batch as pbatch, ops
 from daqp_tpu_torch.ops import _build, slot
 
 OUT = Path(__file__).resolve().parent / "chiprun_out"
-PROBE_DIR = Path(__file__).resolve().parent / "build" / "probe_k2"
+BUILD = Path(__file__).resolve().parent / "build"
 # the phases of slot_steps between SLOT_PROBE_MARKs, in order
 PROBE_PHASES = ("prefix", "ratio_test_and_u", "pricing_and_reduce",
                 "gram_column_and_reduce", "schur_vector_removal_and_reduce",
                 "pending_column_bookkeeping_and_e_update")
+# the segment kernels' phases (segment.cuh SEG_PROBE_MARK), in order
+SEG_PHASES = ("load", "prologue", "solve", "epilogue", "store", "stopped")
 
 
 def device_us(evt):
@@ -90,20 +107,19 @@ def profiled(cell, fn, card):
         "card": card}), flush=True)
 
 
-def probe_library():
-    """K2 built from a copy of ``csrc/`` with the cycle probe compiled in,
-    bound by ctypes."""
-    src = PROBE_DIR / "csrc"
+def probe_library(case, source, entry):
+    """The kernel of ``source`` built alone from a copy of ``csrc/`` with
+    the cycle probe compiled in, under ``build/probe_<case>``, bound by
+    ctypes."""
+    src = BUILD / f"probe_{case}" / "csrc"
     shutil.copytree(_build._CSRC, src, dirs_exist_ok=True)
-    so = PROBE_DIR / "libslot_probe.so"
+    so = src.parent / f"lib{case}_probe.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DSLOT_PROBE",
-                    "-shared", "-o", str(so), str(src / "slot_round.cu")],
+                    "-shared", "-o", str(so), str(src / source)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
-    lib.slot_round_f32.argtypes = _build._SIGNATURES["slot_round_f32"]
-    lib.slot_probe_read.argtypes = [ctypes.c_void_p]
-    for fn in (lib.slot_round_f32, lib.slot_probe_read, lib.slot_probe_reset):
-        fn.restype = ctypes.c_int
+    getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
+    getattr(lib, entry).restype = ctypes.c_int
     return lib
 
 
@@ -132,7 +148,10 @@ def probe_k2(dev, card):
             for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
     lanes = cs.first_chunk(full, st)
     s0 = cs.slot_state([a[lanes] for a in full], st)
-    lib = probe_library()
+    lib = probe_library("k2", "slot_round.cu", "slot_round_f32")
+    for fn in (lib.slot_probe_read, lib.slot_probe_reset):
+        fn.restype = ctypes.c_int
+    lib.slot_probe_read.argtypes = [ctypes.c_void_p]
     probe_round(lib, s0, st, cs.N, cs.STEPS)            # warm-up
     torch.cuda.synchronize()
     _build.check(lib.slot_probe_reset(), "slot_probe_reset")
@@ -157,14 +176,109 @@ def probe_k2(dev, card):
         "card": card}), flush=True)
 
 
+def probe_segment(case, source, entry, launch, name, B, card):
+    """One instrumented launch of a segment kernel: ``launch`` is the
+    wrapper's call, run once on the normal library and on the probe's
+    (swapped in as the wrapper's library); prints the cycles per pass of
+    each segment phase, of each step phase per step, and the times."""
+    lib = probe_library(case, source, entry)
+    for fn in (lib.seg_probe_read, lib.seg_probe_reset):
+        fn.restype = ctypes.c_int
+    lib.seg_probe_read.argtypes = [ctypes.c_void_p]
+    normal = _build.library()
+
+    def probed():
+        _build._lib = lib
+        try:
+            return launch()
+        finally:
+            _build._lib = normal
+
+    probed()                                            # warm-up
+    torch.cuda.synchronize()
+    _build.check(lib.seg_probe_reset(), "seg_probe_reset")
+    probed()
+    torch.cuda.synchronize()
+    nstep = len(PROBE_PHASES) + 1
+    words = (ctypes.c_ulonglong * (nstep + len(SEG_PHASES) + 2))()
+    _build.check(lib.seg_probe_read(ctypes.addressof(words)),
+                 "seg_probe_read")
+    step, seg = list(words[:nstep]), list(words[nstep:])
+    passes, ran = seg[-2], seg[-1]
+    steps = step[-1]
+    per_pass = {ph: seg[i] / max(passes, 1)
+                for i, ph in enumerate(SEG_PHASES) if 1 <= i <= 3}
+    pass_total = sum(per_pass.values())
+    per_step = {ph: step[i] / max(steps, 1)
+                for i, ph in enumerate(PROBE_PHASES) if i > 0}
+    print(json.dumps({
+        "probe": case, "case": name, "B": B, "blocks_ran": ran,
+        "passes": passes, "steps": steps,
+        "steps_per_pass": steps / max(passes, 1),
+        "cycles_per_pass": per_pass, "cycles_per_pass_total": pass_total,
+        "share_of_pass": {ph: v / max(pass_total, 1)
+                          for ph, v in per_pass.items()},
+        "step_prefix_cycles_per_pass": step[0] / max(passes, 1),
+        "step_cycles_per_step": per_step,
+        "step_cycles_per_step_total": sum(per_step.values()),
+        "load_cycles_per_block_ran": seg[0] / max(ran, 1),
+        "store_cycles_per_block_ran": seg[4] / max(ran, 1),
+        "cycles_per_stopped_block": seg[5] / max(B - ran, 1),
+        "ms_probe": cs.cuda_ms(probed, 5),
+        "ms_kernel": cs.cuda_ms(launch, 5),
+        "card": card}), flush=True)
+
+
+def probe_k5(dev, card):
+    """B5 at k5's cold segment and at the last launch of one configAVI
+    solve."""
+    st = dt.as_settings({"iter_limit": 1000}, torch.float32)
+    gen = cs.load("daqp_test_gen", "tests/gen.py")
+    d = cs.config_avi(gen)
+    args = [torch.as_tensor(d[k], device=dev)
+            for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
+    a = pbatch.avi_init(*args, st)
+    ops_ = pbatch.avi_segment_operands(a)
+    cases = (("cold", a.s, pbatch.avi_carries(a)),
+             ("tail", *cs.main_path_segments(args, st)[-1]))
+    for name, s, carry in cases:
+        probe_segment("k5", "avi_segment.cu", "avi_segment_f32",
+                      lambda: slot.run_avi_segment(
+                          s, *carry, *ops_, st, cs.N_AVI, P=pbatch.PSEG,
+                          steps=pbatch.AVI_STEPS),
+                      f"{name} (live lanes {int((carry[6] > 0).sum())})",
+                      cs.B_AVI, card)
+
+
+def probe_k6(dev, card):
+    """B6 at k6's cold configLP segment."""
+    st = dt.as_settings({"iter_limit": 3000}, torch.float32)
+    gen = cs.load("daqp_test_gen", "tests/gen.py")
+    d = cs.config_lp(gen)
+    args = [torch.as_tensor(d[k], device=dev)
+            for k in ('f', 'A', 'bupper', 'blower', 'sense')]
+    p = pbatch.lp_init(*args, st)
+    carry = pbatch.lp_carries(p)
+    s = p.s0._replace(status=torch.full_like(p.s0.status, dt.EXIT_OPTIMAL))
+    data = (p.f, p.bu_s, p.bl_s, p.bu_r, p.bl_r)
+    probe_segment("k6", "lp_segment.cu", "lp_segment_f32",
+                  lambda: slot.run_lp_segment(
+                      s, *carry, *data, st, cs.N_LP, p.eta, P=pbatch.LP_PSEG,
+                      steps=pbatch.LP_SEG_STEPS),
+                  "cold", cs.B_LP, card)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     card = cs.card_line()
-    if sys.argv[1:] == ["--probe", "k2"]:
-        probe_k2(dev, card)
+    probes = {"k2": probe_k2, "k5": probe_k5, "k6": probe_k6}
+    if sys.argv[1:2] == ["--probe"] and sys.argv[2:] \
+            and set(sys.argv[2:]) <= set(probes):
+        for case in sys.argv[2:]:
+            probes[case](dev, card)
         print(card, flush=True)
         return 0
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)

@@ -165,6 +165,8 @@ AVI_OPT = 0.9 if JAX_AVI_OPT_RATE >= 0.9 else JAX_AVI_OPT_RATE - 0.03
 # (y and the DR step, four chained n x n products) by / (1 + ||x||_inf)
 BOUNDS_TOL = 1e-5
 OUTER_TOL = 1e-4
+SEG_REPS = 20         # timed launches of B5 and B6 (k5, k6): a 0.5-1.3 ms
+                      # launch timed 5 times spread by 5-10% in one call
 # configLP (bench_extra.py:253-262) and bench_lp's accuracy gate (:279):
 # flag 1, relative objective gap and feasibility violation below 1e-4
 B_LP, N_LP, M_LP, SEED_LP = 256, 10, 50, 17
@@ -1750,6 +1752,22 @@ def avi_segment_passes(s, carry, ops_, st, n):
     return (s, *c, failed.to(carry[3].dtype), kkt.to(carry[3].dtype)), st_
 
 
+def avi_bound(s, carry, ops_, out, steps, passes, n):
+    """The bound of one B5 launch from (s, carry) to ``out``: every lane's
+    state and carries read once and its outputs written once, and a live
+    lane's (lane_run > 0) constants and operands read once too (a stopped
+    lane needs none of them), or its ``steps`` slot steps and ``passes``
+    lane-passes (six n x n products, M v and the step's prefix each) at
+    the f32 peak."""
+    m, K = s.M.shape[1], s.E.shape[1]
+    live = (carry[6] > 0).float().mean().item()
+    return bound(state_bytes(s, slot.STATE) + nbytes(*carry)
+                 + state_bytes(out[0], slot.STATE) + nbytes(*out[1:])
+                 + live * (state_bytes(s, slot.SEG_CONST) + nbytes(*ops_)),
+                 steps * step_flops(m, n, K)
+                 + passes * (12 * n * n + 2 * m * n + prefix_flops(n, K)))
+
+
 def phase_k5(args, st):
     """B5 against its twin, pass by pass and lane by lane.
 
@@ -1774,7 +1792,11 @@ def phase_k5(args, st):
     to the f64 twin are printed, not gated.  Over eight passes a working
     set decided at a row whose margin is below the accumulated E drift
     (PERF.md, section 6) sends kernel and twin to different vertices, so
-    no per-lane x tolerance holds there; (a) holds every pass of it."""
+    no per-lane x tolerance holds there; (a) holds every pass of it.
+
+    (t) The main path's last B5 launch, its tail (the lanes still running
+    after the others finished; (a) holds it pass by pass), is timed beside
+    the cold segment, with its live lanes and its bound."""
     t0 = time.perf_counter()
     a = pbatch.avi_init(*args, st)
     ops_ = pbatch.avi_segment_operands(a)
@@ -1803,6 +1825,7 @@ def phase_k5(args, st):
         whole = slot.run_avi_segment(s_in, *c_in, *ops_, st, n,
                                      P=pbatch.PSEG, steps=pbatch.AVI_STEPS)
         chain, c = avi_segment_passes(s_in, c_in, ops_, st, n)
+        last = (s_in, c_in, whole, c["lane_passes"])
         if chain is not None:
             chain_equal = chain_equal and all(
                 torch.equal(x, y) for x, y in zip(chain[1:], whole[1:])) \
@@ -1819,6 +1842,20 @@ def phase_k5(args, st):
     passes_ok = chain_equal and tot["inner_equal"] \
         and tot["bounds_rel"] <= BOUNDS_TOL and tot["outer_flags_ok"] \
         and tot["outer_dx_rel"] <= OUTER_TOL
+
+    # (t) the main path's last launch, its tail: the lanes still running
+    # after the others finished
+    s_t, c_t, o_t, passes_t = last
+
+    def tail():
+        return slot.run_avi_segment(s_t, *c_t, *ops_, st, n, P=pbatch.PSEG,
+                                    steps=pbatch.AVI_STEPS)
+
+    tail_ms = cuda_ms(tail, SEG_REPS)
+    tail_live = int((c_t[6] > 0).sum())
+    tail_steps = o_t[9] - c_t[8]
+    tail_bnd = avi_bound(s_t, c_t, ops_, o_t, tail_steps.sum().item(),
+                         passes_t, n)
 
     # (b) one pass from the cold state against the twin and its f64 run
     k1 = slot.run_avi_segment(a.s, *carry, *ops_, st, n, P=1,
@@ -1852,15 +1889,11 @@ def phase_k5(args, st):
         return [float(np.quantile(v, q)) for q in (0.5, 0.9, 0.99, 1.0)] \
             if v.size else []
 
-    ms = cuda_ms(kernel, 5)
+    ms = cuda_ms(kernel, SEG_REPS)
     plain_ms = cuda_ms(plain, 1)
     K = n + 1
     steps_done = ko[9].sum().item()
-    bnd = bound(state_bytes(a.s, slot.SEG_CONST + slot.STATE)
-                + nbytes(*carry, *ops_) + state_bytes(ko[0], slot.STATE)
-                + nbytes(*ko[1:]),
-                steps_done * step_flops(M_AVI, n, K)
-                + passes * (12 * n * n + 2 * M_AVI * n + prefix_flops(n, K)))
+    bnd = avi_bound(a.s, carry, ops_, ko, steps_done, passes, n)
     err1 = (k1[1] - p1[1]).abs().amax(1)[avi_flags_agree(k1, p1)]
     emit("k5", t0, B=B_AVI, P=pbatch.PSEG, n=n, m=M_AVI, K=K,
          steps=pbatch.AVI_STEPS, main_path_passes=tot,
@@ -1881,11 +1914,19 @@ def phase_k5(args, st):
          segment_twin_vs_f64_quantiles=quant(ex_p),
          segment_lanes_beyond_twice_twin_drift=k3_rule_out,
          steps_done=steps_done, lane_passes=passes, ms=ms,
-         plain_ms=plain_ms, **bnd)
+         plain_ms=plain_ms, **bnd,
+         max_lane_steps=ko[9].max().item(),
+         tail=dict(live_lanes=tail_live, lane_passes=passes_t,
+                   steps=tail_steps.sum().item(),
+                   max_lane_steps=tail_steps.max().item(), ms=tail_ms,
+                   **tail_bnd))
     ok = passes_ok and one_ok and rate >= agree_gate
     return ok, dict(max_abs_err=gmax(err1.cpu().numpy()), ms=ms,
                     plain_ms=plain_ms, library_ms=None,
-                    bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
+                    bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                    tail_live_lanes=tail_live, tail_ms=tail_ms,
+                    tail_bound_ms=tail_bnd["bound_ms"],
+                    tail_bound_by=tail_bnd["bound_by"])
 
 
 def phase_avi(args, d_avi, st, card):
@@ -2195,7 +2236,7 @@ def phase_k6(args, st):
         return [float(np.quantile(v, q)) for q in (0.5, 0.9, 0.99, 1.0)] \
             if v.size else []
 
-    ms = cuda_ms(kernel, 5)
+    ms = cuda_ms(kernel, SEG_REPS)
     plain_ms = cuda_ms(plain, 1)
     K = n + 1
     steps_done = ko[7].sum().item()
@@ -2223,8 +2264,8 @@ def phase_k6(args, st):
              *torch.unique(ko[6], return_counts=True))},
          segment_kernel_vs_f64_quantiles=quant(ex_k[all3]),
          segment_twin_vs_f64_quantiles=quant(ex_p[all3]),
-         steps_done=steps_done, lane_passes=lane_passes, ms=ms,
-         plain_ms=plain_ms, **bnd)
+         steps_done=steps_done, max_lane_steps=ko[7].max().item(),
+         lane_passes=lane_passes, ms=ms, plain_ms=plain_ms, **bnd)
     ok = passes_ok and rate >= agree_gate
     return ok, dict(max_abs_err=gmax(err.cpu().numpy()), ms=ms,
                     plain_ms=plain_ms, library_ms=None,

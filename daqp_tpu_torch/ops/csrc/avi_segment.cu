@@ -25,14 +25,22 @@
 //
 // What bounds it on an H100: latency, as for K2 and B4; a pass adds six
 // n x n matrix-vector products and M v (12 n^2 + 2 m n flops) to a warm
-// solve of a few slot steps.
+// solve of a few slot steps.  The per-pass probe (segment.cuh,
+// chip_profile.py --probe k5) puts the step at 92-95% of a pass at
+// configAVI (the AVI cell's tail lane runs ~10 steps a pass).
 //
-// Design: one thread block per lane, the K2 layout (slot_carve) followed
-// by the lane's five n x n matrices (odd row stride) and the pass
-// vectors, so a pass reads nothing from device memory: ~20 KB at n = 20,
-// m = 50 (configAVI), ~99 KB at n = 50, m = 100 (dynamic shared memory
-// above 48 KB); the five matrices bound the width, 5 n^2 floats.
-#include "slot_step.cuh"
+// Design: one thread block of 128 per lane, the K2 layout (slot_carve)
+// followed by the lane's five n x n matrices (odd row stride) and the
+// pass vectors, so a pass reads nothing from device memory: ~20 KB at
+// n = 20, m = 50 (configAVI), ~99 KB at n = 50, m = 100 (dynamic shared
+// memory above 48 KB); the five matrices bound the width, 5 n^2 floats.
+// The pass's own work is one thread per product item, summed in the
+// order j = 0, 1, ..., with 11 barriers a pass outside the step: products
+// on groups of 8, 4, 2 lanes, shared sweeps with 6 barriers, cp.async
+// loads and copying a stopped lane global to global were measured no
+// faster at configAVI (PERF.md, section 6), and another sum order moves
+// lanes decided at the f32 noise floor.
+#include "segment.cuh"
 
 namespace {
 
@@ -81,6 +89,7 @@ __global__ void __launch_bounds__(kThreads)
 avi_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
                    int nP, Tol tol) {
   extern __shared__ float sm[];
+  SEG_PROBE_INIT
   const int t = threadIdx.x;
   const size_t b = blockIdx.x;
   auto in = [&](int i) { return static_cast<const float*>(P.p[i]); };
@@ -151,6 +160,7 @@ avi_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
   bool failed = false, kkt = false;
   int p = 0;                     // passes run
   __syncthreads();
+  SEG_PROBE_MARK(0)
 
   for (; p < nP && lr > 0.f && !failed && !kkt; ++p) {
     // v = Rinv'(G1 x + f) and the pass's bounds d = b_s + M v
@@ -170,7 +180,9 @@ avi_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
     __syncthreads();
     slot_refresh_dsl(L, m, K);
     ctl_reset(c);
+    SEG_PROBE_MARK(1)
     slot_solve_retry(L, c, m, n, K, n_true, steps, tol);
+    SEG_PROBE_MARK(2)
     failed = c.stt == kRunning || c.stt == kCycle || c.stt == kRefactor;
     const bool run2 = !failed;
     const bool inner_ok = c.stt > 0 && run2;
@@ -221,6 +233,8 @@ avi_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
     }
     tt += c.it;
     __syncthreads();
+    SEG_PROBE_MARK(3)
+    SEG_PROBE_PASS
   }
 
   copy_rows_out(out(E_) + b * K * K, L.E, L.ldK, K, K);
@@ -271,6 +285,8 @@ avi_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
         failed ? 1.f : 0.f;
     static_cast<float*>(const_cast<void*>(P.p[KKT_]))[b] = kkt ? 1.f : 0.f;
   }
+  SEG_PROBE_MARK(4)
+  SEG_PROBE_FLUSH
 }
 
 }  // namespace

@@ -31,10 +31,19 @@
 // state sits in shared memory (~6.5 KB at n = 10, m = 50), so a pass reads
 // nothing from device memory.
 //
-// Design: one thread block per LP, the K2 layout (slot_carve) followed by
-// the pass vectors; du / dl of the layout hold the pass's bounds.  After the
-// solve, the step's scratch (g_k, a, w, lo_okv) serves the gradient step.
-#include "slot_step.cuh"
+// The per-pass probe (segment.cuh, chip_profile.py --probe k6) puts the
+// step at ~95% of a pass at configLP.
+//
+// Design: one thread block of 128 per LP, the K2 layout (slot_carve)
+// followed by the pass vectors; du / dl of the layout hold the pass's
+// bounds.  After the solve, the step's scratch (g_k, a, w, lo_okv) serves
+// the gradient step.  The pass's own work is one thread per product item,
+// summed in the order j = 0, 1, ..., with 5 barriers a pass outside the
+// step, 13 when it adds a row: products on groups of 8, 4, 2 lanes, ballots
+// for the free slot, fewer barriers and copying a stopped lane global to
+// global were measured no faster at configLP, and another sum order moved
+// its slowest lane from 186 to 232 steps (PERF.md, section 6).
+#include "segment.cuh"
 
 namespace {
 
@@ -73,6 +82,7 @@ __global__ void __launch_bounds__(kThreads)
 lp_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps, int nP,
                   Tol tol, float eta) {
   extern __shared__ float sm[];
+  SEG_PROBE_INIT
   const int t = threadIdx.x;
   const size_t b = blockIdx.x;
   auto in = [&](int i) { return static_cast<const float*>(P.p[i]); };
@@ -132,6 +142,7 @@ lp_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps, int nP,
   bool failed = false;
   int p = 0;
   __syncthreads();
+  SEG_PROBE_MARK(0)
 
   for (; p < nP && lr > 0.f && !failed; ++p) {
     // v = f eps - x, rounded after the product and after the difference
@@ -150,7 +161,9 @@ lp_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps, int nP,
     __syncthreads();
     slot_refresh_dsl(L, m, K);
     ctl_reset(c);
+    SEG_PROBE_MARK(1)
     slot_solve_retry(L, c, m, n, K, n_true, steps, tol);
+    SEG_PROBE_MARK(2)
     failed = c.stt == kRunning || c.stt == kCycle || c.stt == kRefactor;
     const bool run2 = !failed;
     const bool inner_ok = c.stt > 0 && run2;
@@ -276,6 +289,8 @@ lp_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps, int nP,
     tt += c.it;
     ps += 1.f;
     __syncthreads();
+    SEG_PROBE_MARK(3)
+    SEG_PROBE_PASS
   }
 
   copy_rows_out(out(E_) + b * K * K, L.E, ldK, K, K);
@@ -324,6 +339,8 @@ lp_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps, int nP,
     static_cast<float*>(const_cast<void*>(P.p[FAIL_]))[b] =
         failed ? 1.f : 0.f;
   }
+  SEG_PROBE_MARK(4)
+  SEG_PROBE_FLUSH
 }
 
 }  // namespace

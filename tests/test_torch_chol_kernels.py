@@ -111,8 +111,18 @@ def test_xla_formulations_match_jax(name, B, n, rtol):
 # m = 209, not 210, and its SOFT_WEIGHTS variant m = 205, not 206.
 # B8 fits n = 333 at one lane, not 334, at 8 lanes (the wrapper's tile
 # at n = 50) n = 116, not 117, and at 32 lanes n = 56, not 57; B10 n =
-# 1581 (n = 1000 is twice BASELINE's largest), not 1582.
+# 1581 (n = 1000 is twice BASELINE's largest), not 1582.  B5 (K = n + 1)
+# at n = 50 fits m = 645, not 646, and at m = 100 n = 81, not 82; B6 at
+# n = 50 fits m = 832, not 833, and at m = 100 n = 139, not 140.
 @pytest.mark.parametrize("kernel,floats,fits", [
+    ("B5", smem.avi_floats(645, 50, 51), True),
+    ("B5", smem.avi_floats(646, 50, 51), False),
+    ("B5", smem.avi_floats(100, 81, 82), True),
+    ("B5", smem.avi_floats(100, 82, 83), False),
+    ("B6", smem.lp_floats(832, 50, 51), True),
+    ("B6", smem.lp_floats(833, 50, 51), False),
+    ("B6", smem.lp_floats(100, 139, 140), True),
+    ("B6", smem.lp_floats(100, 140, 141), False),
     ("B8", smem.chol_lanes_floats(333, 1), True),
     ("B8", smem.chol_lanes_floats(334, 1), False),
     ("B8", smem.chol_lanes_floats(116, 8), True),
@@ -191,6 +201,24 @@ def test_slot_mirror_reads_kernel_constants():
             name, value = d.split("=")
             env[name.strip()] = eval(value, {}, env)
         assert eval(f"({expr})", {}, env) == smem.slot_floats(m, n, K)
+
+
+@pytest.mark.parametrize("kernel,source,fn,mirror", [
+    ("B5", "avi_segment.cu", "avi_smem_floats", smem.avi_floats),
+    ("B6", "lp_segment.cu", "lp_smem_floats", smem.lp_floats)])
+def test_segment_mirrors_read_kernel_constants(kernel, source, fn, mirror):
+    # ops/smem.py's avi_floats / lp_floats are the segment kernels' own
+    # allocators: the K2 layout (slot_floats, held against slot_step.cuh
+    # above) plus the kernel's arrays (kernel source text, no nvcc), at
+    # configAVI, configLP and config 2
+    src = (Path(pchol.__file__).parent / "csrc" / source).read_text()
+    body = re.search(rf"size_t {fn}\(int m, int n, int K\) \{{(.*?)\n\}}",
+                     src, re.S).group(1)
+    expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1",
+                  re.search(r"return (.*?);", body, re.S).group(1))
+    for m, n, K in [(50, 20, 21), (50, 10, 11), (100, 50, 51)]:
+        env = dict(m=m, n=n, K=K, slot_smem_floats=smem.slot_floats)
+        assert eval(f"({expr})", {}, env) == mirror(m, n, K)
 
 
 def _consts(src):
