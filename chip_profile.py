@@ -30,23 +30,39 @@ SM cycles per step of each phase of the slot step (``slot_step.cuh``,
 ``SLOT_PROBE_MARK``), the prefix's cycles per lane, and the probe's cost:
 the instrumented round's time beside the normal kernel's.
 
-    python3 chip_profile.py --probe k5
-    python3 chip_profile.py --probe k6
+    python3 chip_profile.py --probe k3 k4
+    python3 chip_profile.py --probe k5 k6
 
-build an instrumented copy of B5 (``avi_segment.cu``) or B6
-(``lp_segment.cu``) alone under ``build/probe_k5`` / ``build/probe_k6``
-(``-DSLOT_PROBE``: the step's marks and the segment's, ``segment.cuh``)
-and print, for each launch probed, the SM cycles per pass of the
+build an instrumented copy of B3 (``mpc_segment.cu``), B4
+(``prox_segment.cu``), B5 (``avi_segment.cu``) or B6 (``lp_segment.cu``)
+alone under ``build/probe_k3`` ... ``build/probe_k6`` (``-DSLOT_PROBE``:
+the step's marks and the segment's, ``segment.cuh``) and print, for each
+launch probed, the SM cycles per pass (B3: per horizon step) of the
 segment's prologue (v and the bounds), inner solve (split into the slot
 step's phases per step) and epilogue (the outer half), the loads and
-stores of a block that ran a pass, a stopped block's whole time, and the
-instrumented launch's time beside the normal kernel's.  ``k5`` probes
-``chip_smoke.py``'s cold k5 segment (configAVI, B = 256) and the last B5
-launch of one configAVI solve (its tail: the lanes still running after
-the others finished); ``k6`` probes k6's cold configLP segment.
+stores of a block that ran a pass, a stopped block's whole time, the
+slot steps per pass, the in-kernel cold retries, the slowest block
+against the mean (its lane, cycles, steps and retries), the blocks'
+spread on the global timer, the registers and spills ptxas gave the
+probed and the normal kernel, the normal kernel's resident blocks per
+SM (the occupancy calculator; B3 and B4) and waves, and the
+instrumented launch's time beside the normal kernel's.  ``k3`` probes
+``chip_smoke.py``'s k3 segment (config 3's one B3 launch, warm segment
+1); ``k4`` the cold config-4 segment of k4 and the last B4 launch of one
+config-4 solve; ``k5`` the cold k5 segment (configAVI, B = 256) and the
+last B5 launch of one configAVI solve (its tail: the lanes still running
+after the others finished); ``k6`` k6's cold configLP segment.  Each
+probe also prints the SASS size of every kernel of the normal library
+(``cuobjdump -sass``: instructions and a hash of their text).
+
+    python3 chip_profile.py --sass
+
+prints only that SASS line.
 """
 import ctypes
+import hashlib
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -70,6 +86,13 @@ PROBE_PHASES = ("prefix", "ratio_test_and_u", "pricing_and_reduce",
                 "pending_column_bookkeeping_and_e_update")
 # the segment kernels' phases (segment.cuh SEG_PROBE_MARK), in order
 SEG_PHASES = ("load", "prologue", "solve", "epilogue", "store", "stopped")
+PROBE_BLOCKS = 1024     # slot_step.cuh kProbeBlocks
+BLOCK_WORDS = 5         # segment.cuh kBlockWords: cycles, steps, SM, start,
+                        # end (global timer, ns)
+# the kernels of the library, by the name of their __global__ function
+KERNELS = ("chol_rinv", "chol_lanes", "chol_dense", "chol_blk",
+           "slot_round", "mpc_segment", "prox_segment", "avi_segment",
+           "lp_segment", "dense_round")
 
 
 def device_us(evt):
@@ -107,20 +130,87 @@ def profiled(cell, fn, card):
         "card": card}), flush=True)
 
 
-def probe_library(case, source, entry):
+def ptxas(log, kernel):
+    """Registers and spill bytes that ptxas's -v output ``log`` gives the
+    __global__ function named ``<kernel>_kernel``."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None or f"{kernel}_kernel" not in cur:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out["registers"] = int(m.group(1))
+    return out
+
+
+def sass_sizes(so):
+    """Per kernel of the shared library ``so`` (``cuobjdump -sass``): its
+    SASS instructions and a hash of their text (addresses and encodings
+    left out), so that two builds compare."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            cur = next((k for k in KERNELS if f"{k}_kernel" in m.group(1)),
+                       m.group(1))
+            # a template's instantiations: name, name#2, ...
+            base, i = cur, 1
+            while cur in funcs:
+                i += 1
+                cur = f"{base}#{i}"
+            funcs[cur] = []
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", ln)
+        if m and cur is not None:
+            funcs[cur].append(m.group(1))
+    return {k: dict(instructions=len(v), sha=hashlib.sha256(
+        "\n".join(v).encode()).hexdigest()[:16]) for k, v in funcs.items()}
+
+
+def print_sass(card):
+    lib = _build.library()
+    print(json.dumps({"sass": sass_sizes(lib._name), "card": card}),
+          flush=True)
+
+
+def probe_library(case, source, entry, occupancy=False):
     """The kernel of ``source`` built alone from a copy of ``csrc/`` with
     the cycle probe compiled in, under ``build/probe_<case>``, bound by
-    ctypes."""
+    ctypes; also returns ptxas's -v output and, with ``occupancy``, a
+    second library built in parallel from the same source without the
+    probe's marks (``-DSEG_OCCUPANCY``), whose ``<kernel>_occupancy``
+    entry reads the normal kernel's resident blocks per SM (else None)."""
     src = BUILD / f"probe_{case}" / "csrc"
     shutil.copytree(_build._CSRC, src, dirs_exist_ok=True)
-    so = src.parent / f"lib{case}_probe.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DSLOT_PROBE",
-                    "-shared", "-o", str(so), str(src / source)],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
+    builds = {"SLOT_PROBE": src.parent / f"lib{case}_probe.so"}
+    if occupancy:
+        builds["SEG_OCCUPANCY"] = src.parent / f"lib{case}_occupancy.so"
+    procs = {d: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS,
+                                  f"-D{d}", "-shared", "-o", str(so),
+                                  str(src / source)],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for d, so in builds.items()}
+    logs = {d: proc.communicate()[0] for d, proc in procs.items()}
+    if any(proc.returncode for proc in procs.values()):
+        raise RuntimeError("nvcc failed:\n" + "".join(logs.values())[-4000:])
+    lib = ctypes.CDLL(str(builds["SLOT_PROBE"]))
     getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
     getattr(lib, entry).restype = ctypes.c_int
-    return lib
+    occ = ctypes.CDLL(str(builds["SEG_OCCUPANCY"])) if occupancy else None
+    return lib, logs["SLOT_PROBE"], occ
 
 
 def probe_round(lib, s, st, n_true, steps):
@@ -148,7 +238,7 @@ def probe_k2(dev, card):
             for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
     lanes = cs.first_chunk(full, st)
     s0 = cs.slot_state([a[lanes] for a in full], st)
-    lib = probe_library("k2", "slot_round.cu", "slot_round_f32")
+    lib, _, _ = probe_library("k2", "slot_round.cu", "slot_round_f32")
     for fn in (lib.slot_probe_read, lib.slot_probe_reset):
         fn.restype = ctypes.c_int
     lib.slot_probe_read.argtypes = [ctypes.c_void_p]
@@ -176,12 +266,60 @@ def probe_k2(dev, card):
         "card": card}), flush=True)
 
 
-def probe_segment(case, source, entry, launch, name, B, card):
+def occupancy(lib, kernel, shape):
+    """Resident blocks per SM of ``kernel`` (B3 or B4) at ``shape`` (m, n,
+    K), by the occupancy calculator, from ``probe_library``'s occupancy
+    library ``lib``."""
+    fn = getattr(lib, f"{kernel}_occupancy")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    _build.check(fn(*shape, ctypes.addressof(blocks)), f"{kernel}_occupancy")
+    return blocks.value
+
+
+def block_fields(blocks, retries, B):
+    """The slowest block against the mean, the retries and the blocks'
+    spread over SMs and the global timer, from the probe's per-block
+    words (the first min(B, PROBE_BLOCKS) blocks)."""
+    nb = min(B, PROBE_BLOCKS)
+    w = np.asarray(blocks[:nb * BLOCK_WORDS], dtype=np.float64).reshape(
+        nb, BLOCK_WORDS)
+    r = np.asarray(retries[:nb], dtype=np.int64)
+    cyc, steps, sm = w[:, 0], w[:, 1], w[:, 2].astype(np.int64)
+    start, end = w[:, 3], w[:, 4]
+    slow = int(np.argmax(cyc))
+    order = np.argsort(-cyc)[:5]
+    per_sm = np.bincount(sm)
+    return dict(
+        block_cycles_mean=float(cyc.mean()),
+        block_cycles_median=float(np.median(cyc)),
+        slowest=dict(lane=slow, cycles=float(cyc[slow]),
+                     over_mean=float(cyc[slow] / cyc.mean()),
+                     steps=float(steps[slow]), retries=int(r[slow]),
+                     sm=int(sm[slow])),
+        slowest5=[dict(lane=int(i), cycles=float(cyc[i]),
+                       steps=float(steps[i]), retries=int(r[i]))
+                  for i in order],
+        steps_per_block_mean=float(steps.mean()),
+        steps_per_block_max=float(steps.max()),
+        retries=int(r.sum()), lanes_with_retries=np.nonzero(r)[0].tolist(),
+        sms_used=int((per_sm > 0).sum()),
+        blocks_per_sm_max=int(per_sm.max()),
+        start_spread_us=float(start.max() - start.min()) / 1e3,
+        launch_span_us=float(end.max() - start.min()) / 1e3,
+        slowest_block_us=float(end[slow] - start[slow]) / 1e3)
+
+
+def probe_segment(case, source, entry, launch, name, B, card,
+                  kernel=None, shape=None):
     """One instrumented launch of a segment kernel: ``launch`` is the
     wrapper's call, run once on the normal library and on the probe's
     (swapped in as the wrapper's library); prints the cycles per pass of
-    each segment phase, of each step phase per step, and the times."""
-    lib = probe_library(case, source, entry)
+    each segment phase, of each step phase per step, the blocks'
+    spread, ptxas's registers and, for B3 / B4 (``kernel`` at ``shape``
+    (m, n, K)), resident blocks per SM, and the times."""
+    lib, log, occ = probe_library(case, source, entry, kernel is not None)
     for fn in (lib.seg_probe_read, lib.seg_probe_reset):
         fn.restype = ctypes.c_int
     lib.seg_probe_read.argtypes = [ctypes.c_void_p]
@@ -200,10 +338,23 @@ def probe_segment(case, source, entry, launch, name, B, card):
     probed()
     torch.cuda.synchronize()
     nstep = len(PROBE_PHASES) + 1
-    words = (ctypes.c_ulonglong * (nstep + len(SEG_PHASES) + 2))()
+    nseg = len(SEG_PHASES) + 2
+    words = (ctypes.c_ulonglong * (nstep + nseg
+                                   + PROBE_BLOCKS * (BLOCK_WORDS + 1)))()
     _build.check(lib.seg_probe_read(ctypes.addressof(words)),
                  "seg_probe_read")
-    step, seg = list(words[:nstep]), list(words[nstep:])
+    step, seg = list(words[:nstep]), list(words[nstep:nstep + nseg])
+    blocks = words[nstep + nseg:nstep + nseg + PROBE_BLOCKS * BLOCK_WORDS]
+    retries = words[nstep + nseg + PROBE_BLOCKS * BLOCK_WORDS:]
+    kern = source[:-3]
+    nlog = _build.BUILD_DIR / "nvcc.log"
+    normal_log = nlog.read_text() if nlog.exists() else ""
+    resident = {}
+    if kernel is not None:
+        per_sm = occupancy(occ, kernel, shape)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        resident = dict(resident_blocks_per_sm=per_sm, sms=sms,
+                        waves=-(-B // (per_sm * sms)) if per_sm else None)
     passes, ran = seg[-2], seg[-1]
     steps = step[-1]
     per_pass = {ph: seg[i] / max(passes, 1)
@@ -223,10 +374,49 @@ def probe_segment(case, source, entry, launch, name, B, card):
         "step_cycles_per_step_total": sum(per_step.values()),
         "load_cycles_per_block_ran": seg[0] / max(ran, 1),
         "store_cycles_per_block_ran": seg[4] / max(ran, 1),
+        "cycles_stopped_total": seg[5],
         "cycles_per_stopped_block": seg[5] / max(B - ran, 1),
+        **block_fields(blocks, retries, B), **resident,
+        "ptxas": ptxas(normal_log, kern),
+        "ptxas_probe": ptxas(log, kern),
         "ms_probe": cs.cuda_ms(probed, 5),
-        "ms_kernel": cs.cuda_ms(launch, 5),
+        "ms_kernel": cs.cuda_ms(launch, cs.SEG_REPS),
         "card": card}), flush=True)
+
+
+def probe_k3(dev, card):
+    """B3 at k3's warm segment 1 of config 3, its one launch per call."""
+    st = dt.as_settings({"iter_limit": 1000}, torch.float32)
+    gen = cs.load("daqp_test_gen", "tests/gen.py")
+    d3 = cs.config3(gen)
+    args = [torch.as_tensor(d3[k], device=dev)
+            for k in ('H', 'A', 'f_seq', 'bu_seq', 'bl_seq')]
+    s1, duq, dlq = cs.mpc_warm_segment(args, st)
+    probe_segment("k3", "mpc_segment.cu", "mpc_segment_f32",
+                  lambda: slot.run_mpc_segment(s1, duq, dlq, st, cs.N,
+                                               steps=cs.STEPS),
+                  "warm segment 1", cs.S3, card, "mpc_segment",
+                  (cs.M_ROWS, cs.N, cs.N + 1))
+
+
+def probe_k4(dev, card):
+    """B4 at k4's cold config-4 segment and at the last B4 launch of one
+    config-4 solve."""
+    st = dt.as_settings({"iter_limit": 1000}, torch.float32)
+    d4 = cs.config4()
+    args = [torch.as_tensor(d4[k], device=dev)
+            for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
+    segs = cs.prox_main_path_segments(args, st)
+    cases = (("cold", *cs.prox_cold_segment(args, st)),
+             (f"last of {len(segs)}", *segs[-1]))
+    for name, s, carry, ops_ in cases:
+        probe_segment("k4", "prox_segment.cu", "prox_segment_f32",
+                      lambda: slot.run_prox_segment(
+                          s, *carry, *ops_, st, cs.N, P=pbatch.PSEG,
+                          steps=pbatch.PROX_STEPS),
+                      f"{name} (live lanes {int((carry[1] > 0).sum())})",
+                      cs.B4, card, "prox_segment",
+                      (cs.M_ROWS, cs.N, cs.N + 1))
 
 
 def probe_k5(dev, card):
@@ -274,11 +464,17 @@ def main():
         return 2
     dev = torch.device("cuda")
     card = cs.card_line()
-    probes = {"k2": probe_k2, "k5": probe_k5, "k6": probe_k6}
+    probes = {"k2": probe_k2, "k3": probe_k3, "k4": probe_k4,
+              "k5": probe_k5, "k6": probe_k6}
     if sys.argv[1:2] == ["--probe"] and sys.argv[2:] \
             and set(sys.argv[2:]) <= set(probes):
         for case in sys.argv[2:]:
             probes[case](dev, card)
+        print_sass(card)
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--sass"]:
+        print_sass(card)
         print(card, flush=True)
         return 0
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)

@@ -69,6 +69,7 @@ come the kernel table, the card's name and power limit, and as the last
 line ``{"ok": true, "device": ...}``.  Any failed check or error exits
 non-zero without that line; so does a machine without a CUDA device.
 """
+import hashlib
 import importlib
 import importlib.util
 import json
@@ -165,8 +166,10 @@ AVI_OPT = 0.9 if JAX_AVI_OPT_RATE >= 0.9 else JAX_AVI_OPT_RATE - 0.03
 # (y and the DR step, four chained n x n products) by / (1 + ||x||_inf)
 BOUNDS_TOL = 1e-5
 OUTER_TOL = 1e-4
-SEG_REPS = 20         # timed launches of B5 and B6 (k5, k6): a 0.5-1.3 ms
+SEG_REPS = 20         # timed launches of B3-B6 (k3-k6): a 0.5-1.3 ms
                       # launch timed 5 times spread by 5-10% in one call
+QUEUE_CYCLES = 100_000_000   # ~50 ms of spin at 1.98 GHz before every
+                             # timing: 20 B3 / B4 calls enqueue in < 10 ms
 # configLP (bench_extra.py:253-262) and bench_lp's accuracy gate (:279):
 # flag 1, relative objective gap and feasibility violation below 1e-4
 B_LP, N_LP, M_LP, SEED_LP = 256, 10, 50, 17
@@ -228,9 +231,13 @@ def emit(phase, t0, **fields):
 
 def cuda_ms(fn, reps):
     """Mean device time of ``fn`` in ms over ``reps`` calls, after one
-    warm-up call, bracketed by CUDA events."""
+    warm-up call, bracketed by CUDA events behind a spin kernel of
+    QUEUE_CYCLES, so that the host has enqueued the calls before the
+    first one starts: a launch whose host side takes nearly as long as
+    the kernel (B3, B4) is timed without the host's gaps."""
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -239,6 +246,15 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def digest(*xs):
+    """A hash of the tensors' bytes: two builds that give the same
+    outputs bit for bit give the same digest."""
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def best_window(fn, calls=3, windows=3):
@@ -641,12 +657,28 @@ def width_cases(kernel, twin, widths, seed, dev):
     return ok, out
 
 
-def phase_factor(name, kernel, twin, H, widths, dev):
+def in_turns(first, second, reps, rounds=2):
+    """Mean ms of ``reps`` calls of each function, timed in turns
+    (first, second, second, first) ``rounds`` times: {"first": [...],
+    "second": [...]}."""
+    out = {"first": [], "second": []}
+    for _ in range(rounds):
+        for key in ("first", "second", "second", "first"):
+            fn = first if key == "first" else second
+            out[key].append(cuda_ms(fn, reps))
+    return out
+
+
+def phase_factor(name, kernel, twin, H, widths, dev, turns=False):
     """B8, B9 or B10 against its twin on the config-2 Hessians (the
-    numbers of the kernels line), then at ``widths`` beside K1."""
+    numbers of the kernels line), then at ``widths`` beside K1; with
+    ``turns``, the kernel and the library timed in turns."""
     t0 = time.perf_counter()
     ok, f = factor_case(kernel, twin, H)
     ok_w, by_n = width_cases(kernel, twin, widths, SEED, dev)
+    if turns:
+        t = in_turns(lambda: library_rinv(H), lambda: kernel(H), 20)
+        f["turns_ms"] = dict(library=t["first"], kernel=t["second"])
     emit(name, t0, **f, widths=by_n)
     return ok and ok_w, kernel_fields(f)
 
@@ -847,6 +879,17 @@ def config3(gen):
                 bl_seq=bl - np.cumsum(np.abs(drift_b), axis=1))
 
 
+def mpc_warm_segment(args, st):
+    """The inputs of config 3's one B3 launch, its warm segment 1: the
+    state after segment 0 on the per-step path and a Newton refresh, and
+    the segment's bounds (duq, dlq)."""
+    _, _, du, dl, s0 = pmpc._horizon(*args, st, 0, None)
+    s1 = pmpc._steps_slot_solve(s0, du[:, :SEG3], dl[:, :SEG3], st, N,
+                                STEPS)[0]
+    return (slot.newton_refresh(s1), du[:, SEG3:2 * SEG3].contiguous(),
+            dl[:, SEG3:2 * SEG3].contiguous())
+
+
 def phase_k3(args, st):
     """B3 against its twin over the second 10-step segment of all S3
     lanes, from the warm state after segment 0 of the config-3 run.
@@ -860,12 +903,7 @@ def phase_k3(args, st):
     gate; the kernel-twin gap and the working-set agreement are printed
     beside it."""
     t0 = time.perf_counter()
-    _, _, du, dl, s0 = pmpc._horizon(*args, st, 0, None)
-    s1 = pmpc._steps_slot_solve(s0, du[:, :SEG3], dl[:, :SEG3], st, N,
-                                STEPS)[0]
-    s1 = slot.newton_refresh(s1)
-    duq = du[:, SEG3:2 * SEG3].contiguous()
-    dlq = dl[:, SEG3:2 * SEG3].contiguous()
+    s1, duq, dlq = mpc_warm_segment(args, st)
 
     def kernel():
         return slot.run_mpc_segment(s1, duq, dlq, st, N, steps=STEPS)
@@ -886,7 +924,7 @@ def phase_k3(args, st):
     rate = flags_agree.float().mean().item()
     ex_k, ex_p = exact_gap(s1.M, sk, sp, opt)
     u_ok = bool((ex_k <= 2.0 * ex_p + K2_DU * uscale.cpu().numpy()).all())
-    ms = cuda_ms(kernel, 5)
+    ms = cuda_ms(kernel, SEG_REPS)
     plain_ms = cuda_ms(plain, 1)
     # steps a lane ran: every horizon step up to and including the one it
     # froze in (a frozen lane repeats its last record)
@@ -906,6 +944,7 @@ def phase_k3(args, st):
          optimal_agreeing=int(opt.sum()), failed_kernel=int((fk > 0).sum()),
          du_inf=du_max, du_rel=du_rel, kernel_vs_exact=gmax(ex_k),
          twin_vs_exact=gmax(ex_p), kernel_within_twin_drift=u_ok,
+         out_digest=digest(*sk, uk, fvk, itk, stk, fk),
          steps_done=steps_done, ms=ms, plain_ms=plain_ms, **bnd)
     ok = rate >= K2_AGREE and u_ok
     return ok, dict(max_abs_err=du_max, ms=ms, plain_ms=plain_ms,
@@ -976,14 +1015,11 @@ def config4():
                 sense=np.zeros((B4, M_ROWS), np.int32))
 
 
-def phase_k4(args, st):
-    """B4 against its twin over one PSEG-pass segment from the cold
-    config-4 state: lflag, lane_run and failed agree on K2_AGREE of the
-    lanes, ||dx||_inf <= 1e-3 (1 + ||x||_inf) on those.  x = Rinv (u - v)
-    carries u's f32 drift times ||Rinv||_inf, printed beside it."""
-    t0 = time.perf_counter()
-    Rinv, okl, ldpd, eps, tst, s0, bu_s, bl_s = pbatch.prox_init(
-        *args[:6], st)
+def prox_cold_segment(args, st):
+    """The inputs (state, carries, operands) of a B4 segment from the
+    cold config-4 state, as ``solve_batch_prox_kernel`` starts it."""
+    Rinv, okl, _, eps, tst, s0, bu_s, bl_s = pbatch.prox_init(*args[:6],
+                                                              st)
     Bk, n = args[1].shape
     dev = Rinv.device
     carry = (torch.zeros((Bk, n), device=dev), okl.float(),
@@ -991,7 +1027,58 @@ def phase_k4(args, st):
              torch.full((Bk,), float("inf"), device=dev),
              torch.where(okl, dt.EXIT_RUNNING, -5).to(torch.int32),
              torch.zeros(Bk, device=dev))
-    ops_ = (Rinv, args[1], bu_s, bl_s, eps, tst)
+    return s0, carry, (Rinv, args[1], bu_s, bl_s, eps, tst)
+
+
+def prox_main_path_segments(args, st):
+    """The inputs (state, carries, operands) of every B4 launch of one
+    ``solve_batch_prox_kernel`` call on ``args``."""
+    seen = []
+    launch = slot.run_prox_segment
+    nl = len(slot.PROX_LANE)
+
+    def spy(s, *a, **k):
+        seen.append((s, tuple(a[:nl]), tuple(a[nl:nl + 6])))
+        return launch(s, *a, **k)
+
+    slot.run_prox_segment = spy
+    try:
+        dt.solve_batch_prox_kernel(*args, st)
+    finally:
+        slot.run_prox_segment = launch
+    return seen
+
+
+def prox_bound(s, carry, ops_, out, n):
+    """The bound of one B4 launch from (s, carry) to ``out``: every lane's
+    state and carries read once and its outputs written once, and a live
+    lane's (lane_run > 0) constants and operands read once too (a stopped
+    lane only copies its state and carries), or the slot steps the lanes
+    ran (tot's increase) and, per live lane, one prefix, the three
+    products and M v at the f32 peak."""
+    K = n + 1
+    steps = (out[6] - carry[5]).sum().item()
+    live = carry[1] > 0
+    return bound(state_bytes(s, slot.STATE) + nbytes(*carry)
+                 + state_bytes(out[0], slot.STATE) + nbytes(*out[1:])
+                 + live.float().mean().item()
+                 * (state_bytes(s, slot.SEG_CONST) + nbytes(*ops_)),
+                 steps * step_flops(M_ROWS, n, K)
+                 + live.sum().item() * (4 * n * n + 2 * M_ROWS * n
+                                        + prefix_flops(n, K)))
+
+
+def phase_k4(args, st):
+    """B4 against its twin over one PSEG-pass segment from the cold
+    config-4 state: lflag, lane_run and failed agree on K2_AGREE of the
+    lanes, ||dx||_inf <= 1e-3 (1 + ||x||_inf) on those.  x = Rinv (u - v)
+    carries u's f32 drift times ||Rinv||_inf, printed beside it.  The
+    main path's last B4 launch (its tail: the lanes still running after
+    the others finished) is timed beside it, with its bound."""
+    t0 = time.perf_counter()
+    s0, carry, ops_ = prox_cold_segment(args, st)
+    Rinv = ops_[0]
+    Bk, n = args[1].shape
 
     def kernel():
         return slot.run_prox_segment(s0, *carry, *ops_, st, n,
@@ -1016,27 +1103,40 @@ def phase_k4(args, st):
     opt = agree & (ko[0].status == dt.EXIT_OPTIMAL) \
         & (po[0].status == dt.EXIT_OPTIMAL)
     ex_k, ex_p = map(gmax, exact_gap(s0.M, ko[0], po[0], opt))
-    ms = cuda_ms(kernel, 5)
+    ms = cuda_ms(kernel, SEG_REPS)
     plain_ms = cuda_ms(plain, 1)
     K = n + 1
     steps_done = ko[6].sum().item()
-    bnd = bound(state_bytes(s0, slot.SEG_CONST + slot.STATE)
-                + nbytes(*carry, *ops_) + state_bytes(ko[0], slot.STATE)
-                + nbytes(*ko[1:]),
-                steps_done * step_flops(M_ROWS, n, K)
-                + okl.sum().item() * (4 * n * n + 2 * M_ROWS * n
-                                      + prefix_flops(n, K)))
+    bnd = prox_bound(s0, carry, ops_, ko, n)
+    s_t, c_t, o_t = prox_main_path_segments(args, st)[-1]
+
+    def tail():
+        return slot.run_prox_segment(s_t, *c_t, *o_t, st, n, P=pbatch.PSEG,
+                                     steps=pbatch.PROX_STEPS)
+
+    out_t = tail()
+    tail_steps = out_t[6] - c_t[5]
+    tail_bnd = prox_bound(s_t, c_t, o_t, out_t, n)
+    tail_ms = cuda_ms(tail, SEG_REPS)
     emit("k4", t0, B=Bk, P=pbatch.PSEG, n=n, m=M_ROWS, K=K,
          steps=pbatch.PROX_STEPS,
          agree_rate=rate, lanes_done_kernel=int((ko[2] == 0).sum()),
          failed_kernel=int((ko[7] > 0).sum()), dx_inf=dx.max().item(),
          dx_rel_x=dx_rel_x, dx_rel_x_tol=K2_DU, dx_rel_rinv=dx_rel,
          du_rel=du_rel, kernel_vs_exact_u=ex_k, twin_vs_exact_u=ex_p,
-         steps_done=steps_done, ms=ms, plain_ms=plain_ms, **bnd)
+         out_digest=digest(*ko[0], *ko[1:]),
+         steps_done=steps_done, max_lane_steps=ko[6].max().item(), ms=ms,
+         plain_ms=plain_ms, **bnd,
+         tail=dict(live_lanes=int((c_t[1] > 0).sum()),
+                   steps=tail_steps.sum().item(),
+                   max_lane_steps=tail_steps.max().item(), ms=tail_ms,
+                   out_digest=digest(*out_t[0], *out_t[1:]), **tail_bnd))
     ok = rate >= K2_AGREE and dx_rel_x <= K2_DU
     return ok, dict(max_abs_err=dx.max().item(), ms=ms, plain_ms=plain_ms,
                     library_ms=None, bound_ms=bnd["bound_ms"],
-                    bound_by=bnd["bound_by"])
+                    bound_by=bnd["bound_by"], tail_ms=tail_ms,
+                    tail_bound_ms=tail_bnd["bound_ms"],
+                    tail_bound_by=tail_bnd["bound_by"])
 
 
 def phase_prox(args, st, card):
@@ -2387,7 +2487,7 @@ def main():
     run("k8", phase_factor, "k8", chol.chol_rinv_lanes,
         chol.chol_rinv_lanes_plain, full[0], K8_WIDTHS, dev)
     run("k9", phase_factor, "k9", chol.chol_rinv_dense,
-        chol.chol_rinv_dense_plain, full[0], [], dev)
+        chol.chol_rinv_dense_plain, full[0], [], dev, True)
     run("k10", phase_factor, "k10", chol.chol_rinv_blk,
         chol.chol_rinv_blk_plain, full[0], K10_WIDTHS, dev)
     run("stages", phase_stages, full, d, st, gen, card)

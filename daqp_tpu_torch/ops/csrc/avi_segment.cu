@@ -232,6 +232,7 @@ avi_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
       lr = 0.f;
     }
     tt += c.it;
+    SEG_PROBE_STEPS(c.it)
     __syncthreads();
     SEG_PROBE_MARK(3)
     SEG_PROBE_PASS

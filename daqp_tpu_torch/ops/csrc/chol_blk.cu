@@ -57,6 +57,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kNB = 32;            // panel width
@@ -79,22 +81,6 @@ struct Blk {
     return p1 > p2 ? p1 : p2;
   }
 };
-
-__device__ __forceinline__ void cp_async16(float* s, const float* g) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-      static_cast<unsigned>(__cvta_generic_to_shared(s))), "l"(g));
-}
-__device__ __forceinline__ void cp_async4(float* s, const float* g) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-      static_cast<unsigned>(__cvta_generic_to_shared(s))), "l"(g));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 template <int NT>
 __global__ void __launch_bounds__(NT)

@@ -47,18 +47,12 @@
 //   and sqrt are IEEE.
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ void cp_async4(float* s, const float* g) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-      static_cast<unsigned>(__cvta_generic_to_shared(s))), "l"(g));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
 
 // the packed row r of the upper triangle starts at off(r)
 __device__ __forceinline__ int off(int r, int n) {

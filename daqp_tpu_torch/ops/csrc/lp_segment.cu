@@ -287,6 +287,7 @@ lp_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps, int nP,
       for (int j = t; j < n; j += kThreads) x[j] = xn[j];
     if (done) lr = 0.f;
     tt += c.it;
+    SEG_PROBE_STEPS(c.it)
     ps += 1.f;
     __syncthreads();
     SEG_PROBE_MARK(3)

@@ -17,12 +17,19 @@
 // iterations of ~60 kFLOP each, in a chain of dependent block-wide phases;
 // the state (E, W, M: 41 KB at n = 50, m = 100, K = 51) is staged into
 // shared memory once per segment instead of once per horizon step, and
-// only the step's bounds (2 m floats) stream in per step.
+// only the step's bounds (2 m floats) stream in per step.  The probe
+// (segment.cuh, chip_profile.py --probe k3) puts the slot step at 96% of
+// a horizon step at config 3, and the launch at its slowest lane: one
+// lane of 512 runs 314 steps with two cold retries, 5.4x the mean block,
+// so the segment's own work is ~2.5% of the launch.
 //
 // Design: one thread block per scenario lane, the K2 layout
 // (slot_carve) in dynamic shared memory; du / dl of the layout hold the
-// current step's bounds.
-#include "slot_step.cuh"
+// current step's bounds.  Loading the state by cp.async (segment.cuh, as
+// B4 does), prefetching the next step's bounds and 3 blocks an SM
+// instead of 4 were each measured against this body and did not win
+// clearly enough to land (PERF.md, section 6).
+#include "segment.cuh"
 
 namespace {
 
@@ -47,6 +54,7 @@ __global__ void __launch_bounds__(kThreads)
 mpc_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
                    int nP, Tol tol) {
   extern __shared__ float sm[];
+  SEG_PROBE_INIT
   const int t = threadIdx.x;
   const size_t b = blockIdx.x;
   auto in = [&](int i) { return static_cast<const float*>(P.p[i]); };
@@ -89,6 +97,7 @@ mpc_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
   c.fb = in(FB_)[b];
   bool failed = false;
   __syncthreads();
+  SEG_PROBE_MARK(0)
 
   for (int p = 0; p < nP; ++p) {
     if (!failed) {
@@ -97,7 +106,11 @@ mpc_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
       __syncthreads();
       slot_refresh_dsl(L, m, K);
       ctl_reset(c);
+      SEG_PROBE_MARK(1)
       slot_solve_retry(L, c, m, n, K, n_true, steps, tol);
+      SEG_PROBE_MARK(2)
+      SEG_PROBE_STEPS(c.it)
+      SEG_PROBE_PASS
       failed = c.stt == kRunning || c.stt == kCycle || c.stt == kRefactor;
     }
     copy_vec(seq(USEQ_) + (b * nP + p) * n, L.u, n);
@@ -106,6 +119,7 @@ mpc_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
       seq(ITSEQ_)[b * nP + p] = c.it;
       reinterpret_cast<int*>(seq(STSEQ_))[b * nP + p] = c.stt;
     }
+    SEG_PROBE_MARK_LIVE(3)
   }
   __syncthreads();
 
@@ -141,6 +155,8 @@ mpc_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
     reinterpret_cast<int*>(out(STT_))[b] = c.stt;
     seq(FAIL_)[b] = failed ? 1.f : 0.f;
   }
+  SEG_PROBE_MARK(4)
+  SEG_PROBE_FLUSH
 }
 
 }  // namespace
@@ -170,3 +186,20 @@ extern "C" int mpc_segment_f32(const void* const* ptrs, int S, int m, int n,
       P, m, n, K, n_true, steps, nP, tol);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef SEG_OCCUPANCY
+// Resident blocks of B3 per SM at (m, n, K), by the occupancy calculator:
+// chip_profile.py --probe k3 builds it beside the probe, from this source
+// without the probe's marks (-DSEG_OCCUPANCY); the normal library has no
+// such entry.
+extern "C" int mpc_segment_occupancy(int m, int n, int K, int* blocks) {
+  const size_t smem = slot_smem_floats(m, n, K) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      mpc_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, mpc_segment_kernel, kThreads, smem);
+  return static_cast<int>(e);
+}
+#endif

@@ -21,11 +21,23 @@
 // What bounds it on an H100: latency, as for K2; each pass adds three
 // n x n / m x n matrix-vector products to a warm solve of a few steps.
 // The lane's Rinv (n x n) sits in shared memory beside E, W and M
-// (+10.2 KB at n = 50), so a pass reads nothing from device memory.
+// (+10.2 KB at n = 50), so a pass reads nothing from device memory.  The
+// per-pass probe (segment.cuh, chip_profile.py --probe k4) puts the slot
+// step at 93% of a pass at config 4; 256 blocks at 3 an SM run in one
+// wave, so the launch lasts as long as its slowest lane (75 steps in 8
+// passes of the cold segment).
 //
 // Design: one thread block per QP, the K2 layout (slot_carve) followed by
 // Rinv and the pass vectors; du / dl of the layout hold the pass's bounds.
-#include "slot_step.cuh"
+// The state comes in as cp.async copies all in flight at once, through
+// one copy body that is not inlined, and goes out through registers
+// (segment.cuh): a load-then-store loop waited out one load a float, 39k
+// of a block's ~1M cycles.  The pass keeps one thread a product row,
+// summed in the order j = 0, 1, ..., behind seven barriers: forming
+// f - eps x and u - v inside the sums and a one-barrier reduction (four
+// barriers) ran more instructions a pass and measured no faster (PERF.md,
+// section 6).
+#include "segment.cuh"
 
 namespace {
 
@@ -60,6 +72,7 @@ __global__ void __launch_bounds__(kThreads)
 prox_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
                     int nP, Tol tol) {
   extern __shared__ float sm[];
+  SEG_PROBE_INIT
   const int t = threadIdx.x;
   const size_t b = blockIdx.x;
   auto in = [&](int i) { return static_cast<const float*>(P.p[i]); };
@@ -77,27 +90,27 @@ prox_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
   float* bus = xn + n;
   float* bls = bus + m;
 
-  copy_rows_in(L.E, L.ldK, in(E_) + b * K * K, K, K);
-  copy_rows_in(L.W, ldn, in(W_) + b * K * n, K, n);
-  copy_rows_in(L.M, ldn, in(M_) + b * m * n, m, n);
-  copy_rows_in(R, ldn, in(R_) + b * n * n, n, n);
-  copy_vec(L.sc, in(SC_) + b * m, m);
-  copy_vec(L.im, in(IM_) + b * m, m);
-  copy_vec(bus, in(BUS_) + b * m, m);
-  copy_vec(bls, in(BLS_) + b * m, m);
-  copy_vec(L.au, in(AU_) + b * m, m);
-  copy_vec(L.al, in(AL_) + b * m, m);
-  copy_vec(L.dsl, in(DSL_) + b * K, K);
-  copy_vec(L.used, in(USED_) + b * K, K);
-  copy_vec(L.sid, in(SID_) + b * K, K);
-  copy_vec(L.slo, in(SLO_) + b * K, K);
-  copy_vec(L.simm, in(SIMM_) + b * K, K);
-  copy_vec(L.lam, in(LAM_) + b * K, K);
-  copy_vec(L.ls, in(LS_) + b * K, K);
-  copy_vec(L.prow, in(PROW_) + b * n, n);
-  copy_vec(L.u, in(U_) + b * n, n);
-  copy_vec(x, in(X_) + b * n, n);
-  copy_vec(fz, in(FZ_) + b * n, n);
+  seg_rows_async(L.E, L.ldK, in(E_) + b * K * K, K, K);
+  seg_rows_async(L.W, ldn, in(W_) + b * K * n, K, n);
+  seg_rows_async(L.M, ldn, in(M_) + b * m * n, m, n);
+  seg_rows_async(R, ldn, in(R_) + b * n * n, n, n);
+  seg_vec_async(L.sc, in(SC_) + b * m, m);
+  seg_vec_async(L.im, in(IM_) + b * m, m);
+  seg_vec_async(bus, in(BUS_) + b * m, m);
+  seg_vec_async(bls, in(BLS_) + b * m, m);
+  seg_vec_async(L.au, in(AU_) + b * m, m);
+  seg_vec_async(L.al, in(AL_) + b * m, m);
+  seg_vec_async(L.dsl, in(DSL_) + b * K, K);
+  seg_vec_async(L.used, in(USED_) + b * K, K);
+  seg_vec_async(L.sid, in(SID_) + b * K, K);
+  seg_vec_async(L.slo, in(SLO_) + b * K, K);
+  seg_vec_async(L.simm, in(SIMM_) + b * K, K);
+  seg_vec_async(L.lam, in(LAM_) + b * K, K);
+  seg_vec_async(L.ls, in(LS_) + b * K, K);
+  seg_vec_async(L.prow, in(PROW_) + b * n, n);
+  seg_vec_async(L.u, in(U_) + b * n, n);
+  seg_vec_async(x, in(X_) + b * n, n);
+  seg_vec_async(fz, in(FZ_) + b * n, n);
   Ctl c;
   c.pd = in(PD_)[b];
   c.plm = in(PLM_)[b];
@@ -115,7 +128,9 @@ prox_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
   float lr = in(LR_)[b], stl = in(STL_)[b], bd = in(BD_)[b], tt = in(TT_)[b];
   int lf = static_cast<const int*>(P.p[LF_])[b];
   bool failed = false;
+  cp_async_wait_all();
   __syncthreads();
+  SEG_PROBE_MARK(0)
 
   for (int p = 0; p < nP && lr > 0.f && !failed; ++p) {
     // v = Rinv'(f - eps x) and the pass's bounds d = b_s + M v
@@ -136,7 +151,9 @@ prox_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
     __syncthreads();
     slot_refresh_dsl(L, m, K);
     ctl_reset(c);
+    SEG_PROBE_MARK(1)
     slot_solve_retry(L, c, m, n, K, n_true, steps, tol);
+    SEG_PROBE_MARK(2)
     failed = c.stt == kRunning || c.stt == kCycle || c.stt == kRefactor;
     const bool run2 = !failed;
 
@@ -167,11 +184,14 @@ prox_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
       lr = 0.f;
     }
     tt += c.it;
+    SEG_PROBE_STEPS(c.it)
     __syncthreads();
+    SEG_PROBE_MARK(3)
+    SEG_PROBE_PASS
   }
 
-  copy_rows_out(out(E_) + b * K * K, L.E, L.ldK, K, K);
-  copy_rows_out(out(W_) + b * K * n, L.W, ldn, K, n);
+  seg_rows_out(out(E_) + b * K * K, L.E, L.ldK, K, K);
+  seg_rows_out(out(W_) + b * K * n, L.W, ldn, K, n);
   for (int i = t; i < m; i += kThreads) {
     out(AU_)[b * m + i] = L.au[i];
     out(AL_)[b * m + i] = L.al[i];
@@ -209,6 +229,8 @@ prox_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
     static_cast<float*>(const_cast<void*>(P.p[FAIL_]))[b] =
         failed ? 1.f : 0.f;
   }
+  SEG_PROBE_MARK(4)
+  SEG_PROBE_FLUSH
 }
 
 }  // namespace
@@ -238,3 +260,20 @@ extern "C" int prox_segment_f32(const void* const* ptrs, int B, int m, int n,
       P, m, n, K, n_true, steps, nP, tol);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef SEG_OCCUPANCY
+// Resident blocks of B4 per SM at (m, n, K), by the occupancy calculator:
+// chip_profile.py --probe k4 builds it beside the probe, from this source
+// without the probe's marks (-DSEG_OCCUPANCY); the normal library has no
+// such entry.
+extern "C" int prox_segment_occupancy(int m, int n, int K, int* blocks) {
+  const size_t smem = prox_smem_floats(m, n, K) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      prox_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, prox_segment_kernel, kThreads, smem);
+  return static_cast<int>(e);
+}
+#endif

@@ -370,11 +370,19 @@ __device__ unsigned long long slot_probe_cycles[kProbePhases + 1];
     for (int ph = 0; ph <= kProbePhases; ++ph)                      \
       atomicAdd(&slot_probe_cycles[ph],                             \
                 static_cast<unsigned long long>(pr_acc[ph]));
+// the segment kernels' probe (segment.cuh) also counts each block's
+// in-kernel cold retries, for its first kProbeBlocks blocks
+constexpr int kProbeBlocks = 1024;
+__device__ unsigned long long slot_probe_retries[kProbeBlocks];
+#define SLOT_PROBE_RETRY                                            \
+  if (threadIdx.x == 0 && blockIdx.x < kProbeBlocks)                \
+    atomicAdd(&slot_probe_retries[blockIdx.x], 1ull);
 #else
 #define SLOT_PROBE_INIT
 #define SLOT_PROBE_MARK(ph)
 #define SLOT_PROBE_STEP
 #define SLOT_PROBE_FLUSH
+#define SLOT_PROBE_RETRY
 #endif
 
 // Up to `steps` iterations of a RUNNING lane on its shared-memory state,
@@ -899,6 +907,7 @@ __device__ __forceinline__ void slot_solve_retry(const Lane& L, Ctl& c,
   for (int attempt = 0; attempt < 2; ++attempt) {
     slot_steps(L, c, L.du, L.dl, m, n, K, n_true, steps, tol);
     if (attempt == 1 || (c.stt != kCycle && c.stt != kRefactor)) break;
+    SLOT_PROBE_RETRY
     __syncthreads();
     for (int i = threadIdx.x; i < K * L.ldK; i += blockDim.x) L.E[i] = 0.f;
     for (int i = threadIdx.x; i < K * L.ldn; i += blockDim.x) L.W[i] = 0.f;

@@ -113,8 +113,13 @@ def test_xla_formulations_match_jax(name, B, n, rtol):
 # at n = 50) n = 116, not 117, and at 32 lanes n = 56, not 57; B10 n =
 # 1581 (n = 1000 is twice BASELINE's largest), not 1582.  B5 (K = n + 1)
 # at n = 50 fits m = 645, not 646, and at m = 100 n = 81, not 82; B6 at
-# n = 50 fits m = 832, not 833, and at m = 100 n = 139, not 140.
+# n = 50 fits m = 832, not 833, and at m = 100 n = 139, not 140; B4 at
+# n = 50 fits m = 817, not 818, and at m = 100 n = 117, not 118.
 @pytest.mark.parametrize("kernel,floats,fits", [
+    ("B4", smem.prox_floats(817, 50, 51), True),
+    ("B4", smem.prox_floats(818, 50, 51), False),
+    ("B4", smem.prox_floats(100, 117, 118), True),
+    ("B4", smem.prox_floats(100, 118, 119), False),
     ("B5", smem.avi_floats(645, 50, 51), True),
     ("B5", smem.avi_floats(646, 50, 51), False),
     ("B5", smem.avi_floats(100, 81, 82), True),
@@ -204,13 +209,14 @@ def test_slot_mirror_reads_kernel_constants():
 
 
 @pytest.mark.parametrize("kernel,source,fn,mirror", [
+    ("B4", "prox_segment.cu", "prox_smem_floats", smem.prox_floats),
     ("B5", "avi_segment.cu", "avi_smem_floats", smem.avi_floats),
     ("B6", "lp_segment.cu", "lp_smem_floats", smem.lp_floats)])
 def test_segment_mirrors_read_kernel_constants(kernel, source, fn, mirror):
-    # ops/smem.py's avi_floats / lp_floats are the segment kernels' own
-    # allocators: the K2 layout (slot_floats, held against slot_step.cuh
-    # above) plus the kernel's arrays (kernel source text, no nvcc), at
-    # configAVI, configLP and config 2
+    # ops/smem.py's prox_floats, avi_floats and lp_floats are the segment
+    # kernels' own allocators: the K2 layout (slot_floats,
+    # held against slot_step.cuh above) plus the kernel's arrays (kernel
+    # source text, no nvcc), at configAVI, configLP and config 2
     src = (Path(pchol.__file__).parent / "csrc" / source).read_text()
     body = re.search(rf"size_t {fn}\(int m, int n, int K\) \{{(.*?)\n\}}",
                      src, re.S).group(1)
