@@ -55,6 +55,19 @@ after the others finished); ``k6`` k6's cold configLP segment.  Each
 probe also prints the SASS size of every kernel of the normal library
 (``cuobjdump -sass``: instructions and a hash of their text).
 
+    python3 chip_profile.py --probe k1 k9
+
+builds K1 (``chol_rinv.cu``) or B9 (``chol_dense.cu``) alone under
+``build/probe_k1`` / ``build/probe_k9`` with ``-DCHOL_PROBE`` (the marks
+of ``chol_probe.cuh``), runs it through its wrapper on config 2's
+Hessians (K1 also on the first 256, config 4's retry shape) and prints
+the SM cycles per unit (the matrix's lead thread: a block or warp) of the
+load, phase 1, phase 2 and the store, the slowest unit against the mean,
+the units' spread over SMs and time, resident blocks per SM (a copy built
+with ``-DCHOL_OCCUPANCY``) and waves, registers and spills, and both
+times; ``k9`` also times the normal B9 in turns with one built at ptxas's
+default register usage level (the normal build sets level 0).
+
     python3 chip_profile.py --sass
 
 prints only that SASS line.
@@ -76,7 +89,7 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 import daqp_tpu_torch as dt
 from daqp_tpu_torch import batch as pbatch, ops
-from daqp_tpu_torch.ops import _build, slot
+from daqp_tpu_torch.ops import _build, chol, slot, smem
 
 OUT = Path(__file__).resolve().parent / "chiprun_out"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -89,6 +102,10 @@ SEG_PHASES = ("load", "prologue", "solve", "epilogue", "store", "stopped")
 PROBE_BLOCKS = 1024     # slot_step.cuh kProbeBlocks
 BLOCK_WORDS = 5         # segment.cuh kBlockWords: cycles, steps, SM, start,
                         # end (global timer, ns)
+# the factorization kernels' phases (chol_probe.cuh CHOL_PROBE_MARK)
+CHOL_PHASES = ("load", "phase1", "phase2", "store")
+CHOL_UNITS = 16384      # chol_probe.cuh kProbeUnits
+UNIT_WORDS = 4          # chol_probe.cuh kUnitWords: cycles, SM, start, end
 # the kernels of the library, by the name of their __global__ function
 KERNELS = ("chol_rinv", "chol_lanes", "chol_dense", "chol_blk",
            "slot_round", "mpc_segment", "prox_segment", "avi_segment",
@@ -185,32 +202,56 @@ def print_sass(card):
           flush=True)
 
 
-def probe_library(case, source, entry, occupancy=False):
-    """The kernel of ``source`` built alone from a copy of ``csrc/`` with
-    the cycle probe compiled in, under ``build/probe_<case>``, bound by
-    ctypes; also returns ptxas's -v output and, with ``occupancy``, a
-    second library built in parallel from the same source without the
-    probe's marks (``-DSEG_OCCUPANCY``), whose ``<kernel>_occupancy``
-    entry reads the normal kernel's resident blocks per SM (else None)."""
+def build_alone(case, source, variants):
+    """``source`` built alone from a copy of ``csrc/`` under
+    ``build/probe_<case>``, once per variant ({name: nvcc flags}), in
+    parallel: {name: (the library, ptxas's -v output)}."""
     src = BUILD / f"probe_{case}" / "csrc"
     shutil.copytree(_build._CSRC, src, dirs_exist_ok=True)
-    builds = {"SLOT_PROBE": src.parent / f"lib{case}_probe.so"}
-    if occupancy:
-        builds["SEG_OCCUPANCY"] = src.parent / f"lib{case}_occupancy.so"
-    procs = {d: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS,
-                                  f"-D{d}", "-shared", "-o", str(so),
-                                  str(src / source)],
+    sos = {v: src.parent / f"lib{case}_{v}.so" for v in variants}
+    procs = {v: subprocess.Popen([_build._nvcc(), *flags, "-shared", "-o",
+                                  str(sos[v]), str(src / source)],
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
-             for d, so in builds.items()}
-    logs = {d: proc.communicate()[0] for d, proc in procs.items()}
+             for v, flags in variants.items()}
+    logs = {v: proc.communicate()[0] for v, proc in procs.items()}
     if any(proc.returncode for proc in procs.values()):
         raise RuntimeError("nvcc failed:\n" + "".join(logs.values())[-4000:])
-    lib = ctypes.CDLL(str(builds["SLOT_PROBE"]))
+    return {v: (ctypes.CDLL(str(so)), logs[v]) for v, so in sos.items()}
+
+
+def bind(lib, entry):
     getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
     getattr(lib, entry).restype = ctypes.c_int
-    occ = ctypes.CDLL(str(builds["SEG_OCCUPANCY"])) if occupancy else None
-    return lib, logs["SLOT_PROBE"], occ
+
+
+def probe_library(case, source, entry, occupancy=False):
+    """The kernel of ``source`` built alone with the cycle probe compiled
+    in (``-DSLOT_PROBE``), bound by ctypes; also returns ptxas's -v output
+    and, with ``occupancy``, a second library built in parallel from the
+    same source without the probe's marks (``-DSEG_OCCUPANCY``), whose
+    ``<kernel>_occupancy`` entry reads the normal kernel's resident blocks
+    per SM (else None)."""
+    variants = {"probe": [*_build.NVCC_FLAGS, "-DSLOT_PROBE"]}
+    if occupancy:
+        variants["occupancy"] = [*_build.NVCC_FLAGS, "-DSEG_OCCUPANCY"]
+    libs = build_alone(case, source, variants)
+    lib, log = libs["probe"]
+    bind(lib, entry)
+    return lib, log, libs["occupancy"][0] if occupancy else None
+
+
+def swapped(lib, fn):
+    """``fn`` run with ``lib`` as the kernels' library: the wrappers call
+    ``_build.library()``."""
+    def call():
+        normal = _build.library()
+        _build._lib = lib
+        try:
+            return fn()
+        finally:
+            _build._lib = normal
+    return call
 
 
 def probe_round(lib, s, st, n_true, steps):
@@ -323,15 +364,7 @@ def probe_segment(case, source, entry, launch, name, B, card,
     for fn in (lib.seg_probe_read, lib.seg_probe_reset):
         fn.restype = ctypes.c_int
     lib.seg_probe_read.argtypes = [ctypes.c_void_p]
-    normal = _build.library()
-
-    def probed():
-        _build._lib = lib
-        try:
-            return launch()
-        finally:
-            _build._lib = normal
-
+    probed = swapped(lib, launch)
     probed()                                            # warm-up
     torch.cuda.synchronize()
     _build.check(lib.seg_probe_reset(), "seg_probe_reset")
@@ -458,6 +491,146 @@ def probe_k6(dev, card):
                   "cold", cs.B_LP, card)
 
 
+def ptxas_entries(log, kernel):
+    """Registers and spill bytes of every __global__ function of ptxas's
+    -v output ``log`` whose name holds ``<kernel>_kernel`` (a template's
+    instantiations one by one): [{entry, registers, spill_stores,
+    spill_loads}]."""
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            out.append(dict(entry=m.group(1)))
+            continue
+        if not out or f"{kernel}_kernel" not in out[-1]["entry"]:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[-1].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+    return [e for e in out if f"{kernel}_kernel" in e["entry"]]
+
+
+def unit_fields(words, units):
+    """The slowest unit (K1 block, B9 warp) against the mean and the
+    units' spread over SMs and the global timer, from the probe's per-unit
+    words (the first min(units, CHOL_UNITS))."""
+    nu = min(units, CHOL_UNITS)
+    w = np.asarray(words[:nu * UNIT_WORDS], dtype=np.float64).reshape(
+        nu, UNIT_WORDS)
+    cyc, sm, start, end = w.T
+    slow = int(np.argmax(cyc))
+    per_sm = np.bincount(sm.astype(np.int64))
+    return dict(
+        unit_cycles_mean=float(cyc.mean()),
+        unit_cycles_median=float(np.median(cyc)),
+        slowest=dict(unit=slow, cycles=float(cyc[slow]),
+                     over_mean=float(cyc[slow] / cyc.mean()),
+                     sm=int(sm[slow])),
+        sms_used=int((per_sm > 0).sum()), units_per_sm_max=int(per_sm.max()),
+        start_spread_us=float(start.max() - start.min()) / 1e3,
+        launch_span_us=float(end.max() - start.min()) / 1e3,
+        slowest_unit_us=float(end[slow] - start[slow]) / 1e3)
+
+
+def chol_shape(B, n, dev):
+    """(matrices a block, warps a matrix) that the wrappers of K1 and B9
+    pick."""
+    return chol.warp_shape(B, n, smem.available(dev), smem.sms(dev))
+
+
+def probe_chol(case, dev, card):
+    """K1 (``k1``: at B = 10240 and at config 4's retry shape B = 256) or
+    B9 (``k9``: at B = 10240) on config 2's Hessians, n = 50: SM cycles
+    per unit (K1 block, B9 warp) of the load, phase 1, phase 2 and the
+    store, the slowest unit, resident blocks per SM and waves, registers,
+    spills and both times; for B9 also the normal kernel against one built
+    at ptxas's default register usage level, timed in turns."""
+    kernel = "chol_rinv" if case == "k1" else "chol_dense"
+    wrapper = chol.chol_rinv if case == "k1" else chol.chol_rinv_dense
+    entry = f"{kernel}_f32"
+    variants = {"probe": [*_build.NVCC_FLAGS, "-DCHOL_PROBE"],
+                "occupancy": [*_build.NVCC_FLAGS, "-DCHOL_OCCUPANCY"]}
+    if case == "k9":
+        # the normal flags less ptxas's register usage level (its default)
+        i = _build.NVCC_FLAGS.index("--register-usage-level=0")
+        default = _build.NVCC_FLAGS[:i - 1] + _build.NVCC_FLAGS[i + 1:]
+        variants["level_default"] = default
+    libs = build_alone(case, f"{kernel}.cu", variants)
+    for lib, _ in libs.values():
+        if hasattr(lib, entry):
+            bind(lib, entry)
+    lib, log = libs["probe"]
+    for fn in (lib.chol_probe_read, lib.chol_probe_reset):
+        fn.restype = ctypes.c_int
+    lib.chol_probe_read.argtypes = [ctypes.c_void_p]
+    occ = getattr(libs["occupancy"][0], f"{kernel}_occupancy")
+    occ.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    nlog = _build.BUILD_DIR / "nvcc.log"
+    gen = cs.load("daqp_test_gen", "tests/gen.py")
+    d = gen.generate_test_qp_batch(cs.B, cs.N, cs.M_ROWS, 0, cs.N_ACT,
+                                   cs.KAPPA, rng=cs.SEED, dtype=np.float32)
+    H = torch.as_tensor(d['H'], device=dev)
+    cases = [H] + ([H[:cs.B4].contiguous()] if case == "k1" else [])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for Hc in cases:
+        B, n = Hc.shape[0], Hc.shape[1]
+        probed = swapped(lib, lambda: wrapper(Hc))
+        probed()                                        # warm-up
+        torch.cuda.synchronize()
+        _build.check(lib.chol_probe_reset(), "chol_probe_reset")
+        probed()
+        torch.cuda.synchronize()
+        words = (ctypes.c_ulonglong * (len(CHOL_PHASES) + 1
+                                       + CHOL_UNITS * UNIT_WORDS))()
+        _build.check(lib.chol_probe_read(ctypes.addressof(words)),
+                     "chol_probe_read")
+        units = words[len(CHOL_PHASES)]
+        per_unit = {ph: words[i] / max(units, 1)
+                    for i, ph in enumerate(CHOL_PHASES)}
+        total = sum(per_unit.values())
+        per_block, P = chol_shape(B, n, dev)
+        resident = ctypes.c_int(0)
+        _build.check(occ(n, per_block, P, ctypes.addressof(resident)),
+                     f"{kernel}_occupancy")
+        blocks = -(-B // per_block)
+        print(json.dumps({
+            "probe": case, "B": B, "n": n, "units": units,
+            "matrices_per_block": per_block, "warps_per_matrix": P,
+            "blocks": blocks,
+            "cycles_per_unit": per_unit, "cycles_per_unit_total": total,
+            "share": {ph: v / max(total, 1) for ph, v in per_unit.items()},
+            **unit_fields(words[len(CHOL_PHASES) + 1:], units),
+            "resident_blocks_per_sm": resident.value, "sms": sms,
+            "waves": blocks / (resident.value * sms) if resident.value
+            else None,
+            "ptxas": ptxas_entries(nlog.read_text() if nlog.exists() else "",
+                                   kernel),
+            "ptxas_probe": ptxas_entries(log, kernel),
+            "ms_probe": cs.cuda_ms(probed, 5),
+            "ms_kernel": cs.cuda_ms(lambda: wrapper(Hc), 20),
+            "card": card}), flush=True)
+    if case == "k9":
+        dlib, dlog = libs["level_default"]
+        t = cs.in_turns(lambda: wrapper(H), swapped(dlib, lambda: wrapper(H)),
+                        20)
+        so = BUILD / f"probe_{case}" / f"lib{case}_level_default.so"
+        print(json.dumps({
+            "probe": case, "register_usage_level": {
+                "level0_ms": t["first"], "default_ms": t["second"],
+                "level0_ptxas": ptxas_entries(
+                    nlog.read_text() if nlog.exists() else "", kernel),
+                "default_ptxas": ptxas_entries(dlog, kernel),
+                "default_sass": {k: v for k, v in sass_sizes(so).items()
+                                 if k.startswith(kernel)},
+                "default_flags": default}, "card": card}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -465,7 +638,9 @@ def main():
     dev = torch.device("cuda")
     card = cs.card_line()
     probes = {"k2": probe_k2, "k3": probe_k3, "k4": probe_k4,
-              "k5": probe_k5, "k6": probe_k6}
+              "k5": probe_k5, "k6": probe_k6,
+              "k1": lambda dev, card: probe_chol("k1", dev, card),
+              "k9": lambda dev, card: probe_chol("k9", dev, card)}
     if sys.argv[1:2] == ["--probe"] and sys.argv[2:] \
             and set(sys.argv[2:]) <= set(probes):
         for case in sys.argv[2:]:

@@ -58,9 +58,16 @@ Phases ``k1``-``k10`` hold each kernel against its plain twin at the
 paths' shapes (``k2`` and ``k7`` also at the streams' 256-lane chunk
 and at the largest m whose block fits, ``k2`` also from slots scattered
 by a permutation, ``k8`` also at n = 10, 12, 20, 32, 64 and 100, so at
-every lane tile, ``k10`` at n = 100-500, beside K1); ``limits`` runs K1,
-B8 and B10 at their largest n (B10 at n = 1000) and shows that a shape
-beyond a block's shared memory raises ValueError before launch.
+every lane tile, ``k10`` at n = 100-500, beside K1; ``k1`` at the same
+widths and at n = 20, 80 and 240, where the other instances of its body
+run, also at config 4's retry batch of 256, and both of its launch
+shapes timed in turns at n = 50 (B = 264-2640), 100 and 200; ``k1`` and
+``k9`` each with the library
+timed in turns; ``k9`` at ``k1``'s widths against its twin and bit for
+bit K1's output); ``limits`` runs
+K1, B8, B9 and B10 at their largest n (B10 at n = 1000) and shows that
+a shape beyond a block's shared memory or K1's and B9's columns raises
+ValueError before launch.
 ``python3 chip_smoke.py --phases k8 k10`` runs the named phases alone (a
 measurement: no kernels line, no ``ok`` line); copied into an unpacked
 parent commit, it times the parent's kernels with these phases, in turns
@@ -99,6 +106,7 @@ S3, T3, SEG3, SEED3, DRIFT3 = 512, 20, 10, 7, 0.02
 B4, RANK4, SEED4 = 256, 30, 11
 K1_RTOL = 1e-4        # max |dRinv| / max |Rinv|, kernel vs twin
 B8_LIMIT = 333        # the largest n whose one-lane B8 block fits an H100
+WARP_LIMIT = 256      # K1's and B9's column limit (chol.WARP_MAX_N)
 B10_LIMIT = 1581      # the largest n whose B10 block fits an H100
 # scripts/profile_stages.py's batches (the stages phase)
 B_STAGE, STAGE_BATCHES = 1024, 4
@@ -459,8 +467,9 @@ def factor_case(kernel, twin, H, rtol=K1_RTOL, reps=20, twin_reps=3):
     """One factorization kernel against its twin on ``H``: (passes,
     fields): max |dRinv|, relative to max |Rinv_twin| against ``rtol``;
     the residual max ||Rinv' H Rinv - I||_inf of both; the distance to
-    the library; kernel, twin and library ms; the bound (each matrix
-    read and written once, or B 2n^3/3 operations)."""
+    the library; kernel, twin and library ms; the bound (each matrix's
+    lower triangle read once, the function depends on nothing else, and
+    Rinv written once, or B 2n^3/3 operations)."""
     Rk = kernel(H)
     Rp = twin(H)
     Bk, n = H.shape[0], H.shape[1]
@@ -473,12 +482,15 @@ def factor_case(kernel, twin, H, rtol=K1_RTOL, reps=20, twin_reps=3):
     err = (Rk - Rp).abs().max().item()
     rel = err / Rp.abs().max().item()
     fields = dict(B=Bk, n=n, max_abs_err=err, rel_err=rel, rel_tol=rtol,
+                  digest=digest(Rk),
                   resid_kernel=resid(Rk), resid_twin=resid(Rp),
                   kernel_vs_library=(library_rinv(H) - Rk).abs().max().item(),
                   ms=cuda_ms(lambda: kernel(H), reps),
                   plain_ms=cuda_ms(lambda: twin(H), twin_reps),
                   library_ms=cuda_ms(lambda: library_rinv(H), reps),
-                  **bound(2 * nbytes(H), Bk * 2 * n ** 3 / 3))
+                  **bound(H.element_size() * Bk * (n * (n + 1) // 2
+                                                   + n * n),
+                          Bk * 2 * n ** 3 / 3))
     return rel <= rtol, fields
 
 
@@ -486,14 +498,6 @@ def kernel_fields(f):
     """A factorization case's numbers for the kernels line."""
     return {k: f[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
                               "bound_ms", "bound_by")}
-
-
-def phase_k1(H):
-    """K1 against its twin on the config-2 Hessians."""
-    t0 = time.perf_counter()
-    ok, f = factor_case(chol.chol_rinv, chol.chol_rinv_plain, H)
-    emit("k1", t0, **f)
-    return ok, kernel_fields(f)
 
 
 def slot_state(args, st):
@@ -636,24 +640,45 @@ def phase_slice(full, d, st, card):
     return ok, launches
 
 
-def width_cases(kernel, twin, widths, seed, dev):
-    """``kernel`` beside K1 at each (B, n) of ``widths`` on A A' + n I:
-    both against their twins at K1_RTOL, their ms and the library's.
-    K1 raises ValueError where its block exceeds shared memory; that is
-    recorded, not a failure.  (passes, {n: fields})."""
+def width_cases(kernel, twin, widths, seed, dev, beside=True):
+    """``kernel`` at each (B, n) of ``widths`` on A A' + n I against its
+    twin at K1_RTOL, its ms and the library's; with ``beside``, K1 beside
+    it the same way (K1 raises ValueError where its block exceeds shared
+    memory; that is recorded, not a failure).  (passes, {"BxN": fields})."""
     ok, out = True, {}
     for Bn, n in widths:
         H = spd_batch(Bn, n, seed + n, dev)
         good, f = factor_case(kernel, twin, H, reps=5, twin_reps=1)
-        try:
-            good_k1, f1 = factor_case(chol.chol_rinv, chol.chol_rinv_plain,
-                                      H, reps=5, twin_reps=1)
-            k1 = dict(ms=f1["ms"], rel_err=f1["rel_err"])
-        except ValueError as e:
-            good_k1, k1 = True, dict(raised=str(e))
-        ok = ok and good and good_k1
-        out[n] = dict(f, k1=k1)
+        ok = ok and good
+        out[f"{Bn}x{n}"] = f
+        if beside:
+            try:
+                good_k1, f1 = factor_case(chol.chol_rinv,
+                                          chol.chol_rinv_plain, H, reps=5,
+                                          twin_reps=1)
+                f["k1"] = dict(ms=f1["ms"], rel_err=f1["rel_err"])
+            except ValueError as e:
+                good_k1, f["k1"] = True, dict(raised=str(e))
+            ok = ok and good_k1
         del H
+    return ok, out
+
+
+def same_as_k1(widths, seed, dev):
+    """B9 at each (B, n) of ``widths`` (k1's sweep, on the same data):
+    within K1_RTOL of its own twin and bit for bit K1's output, since the
+    two run one body under two names (k1 times each width and the
+    library).  (passes, {"BxN": fields})."""
+    ok, out = True, {}
+    for Bn, n in widths:
+        H = spd_batch(Bn, n, seed + n, dev)
+        R9, Rp = chol.chol_rinv_dense(H), chol.chol_rinv_dense_plain(H)
+        rel = (R9 - Rp).abs().max().item() / Rp.abs().max().item()
+        same = torch.equal(R9, chol.chol_rinv(H))
+        ok = ok and same and rel <= K1_RTOL
+        out[f"{Bn}x{n}"] = dict(rel_err=rel, rel_tol=K1_RTOL,
+                                equals_k1=same, digest=digest(R9))
+        del H, R9, Rp
     return ok, out
 
 
@@ -669,30 +694,101 @@ def in_turns(first, second, reps, rounds=2):
     return out
 
 
-def phase_factor(name, kernel, twin, H, widths, dev, turns=False):
-    """B8, B9 or B10 against its twin on the config-2 Hessians (the
-    numbers of the kernels line), then at ``widths`` beside K1; with
-    ``turns``, the kernel and the library timed in turns."""
+def warp_shapes(H, cases, seed, reps=20):
+    """K1 at each (B, n) of ``cases`` in both launch shapes that
+    chol.warp_shape chooses between: one warp a matrix (chol.warp_tile
+    matrices a block) and chol.WARP_SMALL_P warps a matrix, a block each,
+    timed in turns through the C entry (these launches count nothing), on
+    the first B of the config-2 Hessians ``H`` at their n, else on A A' +
+    n I.  Both must give the same output bit for bit.  (passes,
+    {"BxN": fields})."""
+    lib = _build.library()
+    limit, n_sm = smem.available(H.device), smem.sms(H.device)
+    ok, out = True, {}
+    for Bn, n in cases:
+        Hb = H[:Bn].contiguous() if n == H.shape[1] \
+            else spd_batch(Bn, n, seed + n, H.device)
+        w = chol.warp_tile(Bn, n, limit, n_sm)
+
+        def launch(per_block, P, R):
+            _build.check(lib.chol_rinv_f32(
+                Hb.data_ptr(), R.data_ptr(), Bn, n, per_block, P, chol.TINY,
+                torch.cuda.current_stream().cuda_stream), "chol_rinv_f32")
+
+        R1, R4 = torch.empty_like(Hb), torch.empty_like(Hb)
+        t = in_turns(lambda: launch(w, 1, R1),
+                     lambda: launch(1, chol.WARP_SMALL_P, R4), reps)
+        same = torch.equal(R1, R4)
+        ok = ok and same
+        out[f"{Bn}x{n}"] = dict(per_block=w, warp_ms=t["first"],
+                                block_ms=t["second"], equal=same,
+                                picks=chol.warp_shape(Bn, n, limit, n_sm))
+        del Hb, R1, R4
+    return ok, out
+
+
+def phase_factor(name, kernel, twin, H, sweep, turns=False, small=None):
+    """K1, B8, B9 or B10 against its twin on the config-2 Hessians (the
+    numbers of the kernels line), then ``sweep()``, (passes, fields) for
+    the phase's line; with ``turns``, the kernel and the library timed in
+    turns; with ``small``, the same on the first ``small`` Hessians."""
     t0 = time.perf_counter()
-    ok, f = factor_case(kernel, twin, H)
-    ok_w, by_n = width_cases(kernel, twin, widths, SEED, dev)
-    if turns:
-        t = in_turns(lambda: library_rinv(H), lambda: kernel(H), 20)
-        f["turns_ms"] = dict(library=t["first"], kernel=t["second"])
-    emit(name, t0, **f, widths=by_n)
-    return ok and ok_w, kernel_fields(f)
+    cases = {"": H}
+    if small is not None:
+        cases[f"b{small}"] = H[:small].contiguous()
+    ok, out = True, {}
+    for key, Hc in cases.items():
+        good, f = factor_case(kernel, twin, Hc)
+        if turns:
+            t = in_turns(lambda: library_rinv(Hc), lambda: kernel(Hc), 20)
+            f["turns_ms"] = dict(library=t["first"], kernel=t["second"])
+        ok = ok and good
+        out[key] = f
+    ok_s, swept = sweep()
+    f = out.pop("")
+    emit(name, t0, **f, **out, **swept)
+    return ok and ok_s, kernel_fields(f)
+
+
+def sweep(cases, *args):
+    """A phase's sweep: ``cases(*args)``'s (passes, fields by width) as
+    (passes, {"widths": ...})."""
+    def run():
+        ok, by_n = cases(*args)
+        return ok, dict(widths=by_n)
+    return run
+
+
+def k1_sweep(H, dev):
+    """k1's sweep: FACTOR_WIDTHS against the twin, then both launch
+    shapes at SHAPE_CASES."""
+    ok_w, by_n = width_cases(chol.chol_rinv, chol.chol_rinv_plain,
+                             FACTOR_WIDTHS, SEED, dev, False)
+    ok_s, shapes = warp_shapes(H, SHAPE_CASES, SEED)
+    return ok_w and ok_s, dict(widths=by_n, shapes=shapes)
 
 
 # B8 at the widths of configLP, 4b and AVI (32 lanes a block), at n = 32
 # and 64 (16 and 4 lanes) and at n = 100 (B = 1024, 2 lanes), so that
 # with config 2's n = 50 (8 lanes) and limits' n = 333 (1 lane) every
 # tile the wrapper may pick runs; B10 at the BASELINE "large" widths,
-# where K1's n (n|1) + n floats do not fit past n = 240.  K1_RTOL holds at
-# every width: kernel and twin add the same f32 terms in the same order
-# and part only where the kernel fuses a multiply-add, and with
+# where K1 stops at n = 256 (the columns a warp's lanes hold).  K1_RTOL
+# holds at every width: kernel and twin add the same f32 terms in the
+# same order and part only where the kernel fuses a multiply-add, and with
 # cond(A A' + n I) <= ~5 the rounding bound n eps is 3e-5 at n = 500
 # (measured on the H100: 2e-7).
 K8_WIDTHS = [(B, n) for n in (10, 12, 20, 32, 64)] + [(1024, 100)]
+# K1 (and B9, bit for bit K1) at the same widths (n = 100: 4 column
+# groups, 4 warps a matrix), at n = 240 (B = 256: 8 groups, 4 warps) and
+# where the other instances of their body that warp_shape picks run: n =
+# 80 at B = 2048 (4 groups, a warp a matrix), n = 20 at B = 128 (1
+# group, 4 warps); k1's SHAPE_CASES run the one it never picks (8
+# groups, a warp a matrix) at n = 200, bit for bit the 4-warp shape
+FACTOR_WIDTHS = K8_WIDTHS + [(B4, 240), (2048, 80), (128, 20)]
+# k1's (B, n) for both launch shapes: n = 50 around warp_shape's switch,
+# and n = 100 and 200, where warp_tile puts one matrix in a block
+SHAPE_CASES = [(b, 50) for b in (264, 528, 1024, 1320, 1584, 2112, 2640)] \
+    + [(1024, 100), (2048, 100), (1024, 200), (2048, 200)]
 K10_WIDTHS = [(1024, 100), (1024, 200), (256, 300), (256, 500)]
 
 
@@ -715,16 +811,20 @@ def limit_case(fn, counts):
 
 
 def phase_limits(st, dev):
-    """The shape checks: K1 at n = 240, B8 at its one-lane limit n = 333
-    and B10 at n = 1000 (twice BASELINE's largest n) run and agree with
-    their twins; K1 at n = 241, B8 at n = 334, B10 at n = 1582, K2 at
-    n = 100, m = 500 (BASELINE "medium") and at n = 50 one row past the
-    largest m that fits (k2 case f runs that m), B7 at n = 50, m = 210 and
-    B7-sw at m = 206 raise ValueError before any launch."""
+    """The shape checks: K1 and B9 at their column limit n = 256, B8 at
+    its one-lane limit n = 333 and B10 at n = 1000 (twice BASELINE's
+    largest n) run and agree with their twins; K1 and B9 at n = 257, B8 at
+    n = 334, B10 at n = 1582, K2 at n = 100, m = 500 (BASELINE "medium")
+    and at n = 50 one row past the largest m that fits (k2 case f runs
+    that m), B7 at n = 50, m = 210 and B7-sw at m = 206 raise ValueError
+    before any launch."""
     t0 = time.perf_counter()
-    ok240, f240 = factor_case(chol.chol_rinv, chol.chol_rinv_plain,
-                              spd_batch(256, 240, SEED, dev), reps=5,
-                              twin_reps=1)
+    H256 = spd_batch(64, WARP_LIMIT, SEED, dev)
+    ok1, f1 = factor_case(chol.chol_rinv, chol.chol_rinv_plain, H256,
+                          reps=3, twin_reps=1)
+    ok9, f9 = factor_case(chol.chol_rinv_dense, chol.chol_rinv_dense_plain,
+                          H256, reps=3, twin_reps=1)
+    del H256
     ok8, f8 = factor_case(chol.chol_rinv_lanes, chol.chol_rinv_lanes_plain,
                           spd_batch(64, B8_LIMIT, SEED, dev), reps=3,
                           twin_reps=1)
@@ -754,8 +854,10 @@ def phase_limits(st, dev):
                                                 soft=du, sw=w), st, N, STEPS)
 
     cases = {
-        "k1_n241": (lambda: chol.chol_rinv(spd_batch(2, 241, SEED, dev)),
-                    ("chol_rinv",)),
+        f"k1_n{WARP_LIMIT + 1}": (lambda: chol.chol_rinv(
+            spd_batch(2, WARP_LIMIT + 1, SEED, dev)), ("chol_rinv",)),
+        f"b9_n{WARP_LIMIT + 1}": (lambda: chol.chol_rinv_dense(
+            spd_batch(2, WARP_LIMIT + 1, SEED, dev)), ("chol_dense",)),
         f"b8_n{B8_LIMIT + 1}": (lambda: chol.chol_rinv_lanes(
             spd_batch(2, B8_LIMIT + 1, SEED, dev)), ("chol_lanes",)),
         f"b10_n{B10_LIMIT + 1}": (lambda: chol.chol_rinv_blk(
@@ -765,11 +867,12 @@ def phase_limits(st, dev):
         "b7_n50_m210": (lambda: b7(210, False), ("dense_round",)),
         "b7sw_n50_m206": (lambda: b7(206, True), ("dense_round",))}
     res = {k: limit_case(fn, c) for k, (fn, c) in cases.items()}
-    emit("limits", t0, k1_n240=f240, **{f"b8_n{B8_LIMIT}": f8,
-                                        "b10_n1000": f10},
+    emit("limits", t0, **{f"k1_n{WARP_LIMIT}": f1, f"b8_n{B8_LIMIT}": f8,
+                          f"b9_n{WARP_LIMIT}": f9, "b10_n1000": f10},
          smem_optin=smem.available(dev),
          **{k: v[1] for k, v in res.items()})
-    return ok240 and ok8 and ok10 and all(v[0] for v in res.values()), None
+    return ok1 and ok8 and ok9 and ok10 and all(v[0] for v in res.values()), \
+        None
 
 
 FACTORS = (("chol_rinv", chol.chol_rinv), ("chol_lanes", chol.chol_rinv_lanes),
@@ -2479,17 +2582,23 @@ def main():
         if only is None or name in only:
             res[name] = fn(*a)
 
-    run("k1", phase_k1, full[0])
+    run("k1", phase_factor, "k1", chol.chol_rinv, chol.chol_rinv_plain,
+        full[0], lambda: k1_sweep(full[0], dev), True, B4)
     lanes = first_chunk(full, st)
     run("k2", phase_k2, [a[:B_K2] for a in full], [a[lanes] for a in full],
         st)
     run("slice", phase_slice, full, d, st, card)
     run("k8", phase_factor, "k8", chol.chol_rinv_lanes,
-        chol.chol_rinv_lanes_plain, full[0], K8_WIDTHS, dev)
+        chol.chol_rinv_lanes_plain, full[0],
+        sweep(width_cases, chol.chol_rinv_lanes, chol.chol_rinv_lanes_plain,
+              K8_WIDTHS, SEED, dev))
     run("k9", phase_factor, "k9", chol.chol_rinv_dense,
-        chol.chol_rinv_dense_plain, full[0], [], dev, True)
+        chol.chol_rinv_dense_plain, full[0],
+        sweep(same_as_k1, FACTOR_WIDTHS, SEED, dev), True)
     run("k10", phase_factor, "k10", chol.chol_rinv_blk,
-        chol.chol_rinv_blk_plain, full[0], K10_WIDTHS, dev)
+        chol.chol_rinv_blk_plain, full[0],
+        sweep(width_cases, chol.chol_rinv_blk, chol.chol_rinv_blk_plain,
+              K10_WIDTHS, SEED, dev))
     run("stages", phase_stages, full, d, st, gen, card)
     run("limits", phase_limits, st, dev)
     d4b = config4b()

@@ -34,12 +34,12 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes; every entry returns
 # cudaGetLastError(), or the error of cudaFuncSetAttribute
 _SIGNATURES = {
-    # (H, Rinv, B, n, tiny, stream)
-    "chol_rinv_f32": [_P, _P, _I, _I, _F, _P],
+    # (H, Rinv, B, n, matrices per block, warps per matrix, tiny, stream)
+    "chol_rinv_f32": [_P, _P, _I, _I, _I, _I, _F, _P],
     # (H, Rinv, B, n, matrices per block, tiny, stream)
     "chol_lanes_f32": [_P, _P, _I, _I, _I, _F, _P],
-    # (H, Rinv, B, n, matrices per block, tiny, stream)
-    "chol_dense_f32": [_P, _P, _I, _I, _I, _F, _P],
+    # (H, Rinv, B, n, matrices per block, warps per matrix, tiny, stream)
+    "chol_dense_f32": [_P, _P, _I, _I, _I, _I, _F, _P],
     # (H, Rinv, B, n, tiny, stream)
     "chol_blk_f32": [_P, _P, _I, _I, _F, _P],
     # (host array of 53 device pointers, B, m, n, K, n_true, steps,

@@ -23,10 +23,13 @@ clamped to ``TINY``:
   ``batched_chol_rinv`` (:843), ``batched_invsqrt`` (:84) and
   ``batched_chol_rinv_mxu`` (:722, with ``_chol_small_inv``, :692).
 
-Each kernel wrapper launches its CUDA kernel on a CUDA tensor (f32,
-contiguous (B, n, n)) and runs its twin on a CPU tensor; a shape whose
-block needs more shared memory than the card allows raises ValueError
-before launch (``smem``).  The twins follow their TPU kernel's
+K1 and B9 compute the same function in the same expression order and
+run one warp-per-matrix body (``csrc/chol_warp.cuh``), each under its own
+kernel name and launch count.  Each kernel wrapper launches its CUDA
+kernel on a CUDA tensor (f32, contiguous (B, n, n)) and runs its twin on
+a CPU tensor; a shape whose block needs more shared memory than the card
+allows, or past K1's and B9's 256 columns, raises ValueError before
+launch (``smem``).  The twins follow their TPU kernel's
 expression order; the padding, one-hot masks and lane tiles of the TPU
 layouts are left behind.
 """
@@ -40,6 +43,11 @@ TINY = 1e-30
 PB = 8              # the TPU kernels' panel width: B10's twin, the MXU form
 LANE_TILES = (32, 16, 8, 4, 2, 1)   # B8's lanes per block (chol_lanes.cu)
 LANES_BUDGET = 48 * 1024            # B8's preferred bytes of shared memory
+WARP_TILES = (8, 4, 2, 1)           # K1's and B9's matrices (warps) a block
+WARP_BUDGET = 48 * 1024             # their preferred bytes of shared memory
+WARP_MAX_N = 256                    # chol_warp.cuh: 32 kMaxGroups columns
+WARP_SMALL_P = 4                    # chol_warp.cuh kSmallP
+WARP_SMALL_PER_SM = 10              # warp_shape's switch (matrices an SM)
 # kernel launches of chol_rinv (K1), chol_rinv_lanes (B8), chol_rinv_dense
 # (B9) and chol_rinv_blk (B10); the caller resets them
 launches = 0
@@ -198,22 +206,65 @@ def _stream(H: torch.Tensor):
     return torch.cuda.current_stream(H.device).cuda_stream
 
 
+def warp_tile(B: int, n: int, limit: int, sms: int) -> int:
+    """K1's and B9's matrices (warps) per block: the most of 8, 4, 2, 1
+    whose block fits in the 48 KB a block gets without opting in while
+    ceil(B / warps) blocks still give each of the ``sms`` SMs one; else 1
+    (whose block may opt in to ``limit``: ``smem.check`` raises past it).
+    At n = 50: 8 warps (43.4 KB) from B = 8 * 132 on."""
+    cap = min(WARP_BUDGET, limit)
+    return next((w for w in WARP_TILES
+                 if smem.F32 * smem.chol_warp_floats(n, w) <= cap
+                 and -(-B // w) >= sms), 1)
+
+
+def warp_shape(B: int, n: int, limit: int, sms: int) -> tuple[int, int]:
+    """K1's and B9's (matrices a block, warps a matrix).  A batch of at
+    most ``WARP_SMALL_PER_SM`` matrices an SM (config 4's retry batch of
+    256, the stages batches of 1024), or a width at which ``warp_tile``
+    puts one matrix in a block (n >= 99): one matrix a block, of
+    ``WARP_SMALL_P`` warps, which share each step.  A larger batch at a
+    smaller width: one warp a matrix, ``warp_tile`` matrices a block.
+    Both shapes give the same bits.  On an H100 (PERF.md §6) the
+    two cross between 10 and 12 matrices an SM at n = 50, and at one
+    matrix a block 4 warps are 1.4× (n = 100) to 2.1× (n = 200) faster."""
+    w = warp_tile(B, n, limit, sms)
+    if B <= WARP_SMALL_PER_SM * sms or w == 1:
+        return 1, WARP_SMALL_P
+    return w, 1
+
+
+def _warp_launch(fn: str, entry: str, H: torch.Tensor) -> torch.Tensor:
+    """K1's or B9's launch on a CUDA tensor, shaped by ``warp_shape``; n
+    past ``WARP_MAX_N`` or a block past the card's shared memory raises
+    ValueError before launch."""
+    _cuda_input(fn, H)
+    B, n, _ = H.shape
+    if n > WARP_MAX_N:
+        raise ValueError(f"{fn}: n={n} is past the {WARP_MAX_N} columns "
+                         f"a warp's lanes hold")
+    per_block, P = warp_shape(B, n, smem.available(H.device),
+                              smem.sms(H.device))
+    smem.check(fn, dict(n=n, per_block=per_block),
+               smem.chol_warp_floats(n, per_block), H.device)
+    out = torch.empty_like(H)
+    if B > 0:
+        _build.check(getattr(_build.library(), entry)(
+            H.data_ptr(), out.data_ptr(), B, n, per_block, P, TINY,
+            _stream(H)), entry)
+    return out
+
+
 def chol_rinv(H: torch.Tensor) -> torch.Tensor:
-    """K1 wrapper: the CUDA kernel for a CUDA tensor, the plain twin for
-    a CPU tensor."""
+    """K1 wrapper: one warp per matrix (the body K1 shares with B9,
+    ``csrc/chol_warp.cuh``) on a CUDA tensor; the plain twin for a CPU
+    tensor."""
     global launches
     if H.device.type == "cpu":
         return chol_rinv_plain(H)
-    _cuda_input("chol_rinv", H)
-    B, n, _ = H.shape
-    smem.check("chol_rinv (K1)", dict(n=n), smem.chol_floats(n), H.device)
-    out = torch.empty_like(H)
-    if B == 0:
-        return out
-    _build.check(_build.library().chol_rinv_f32(
-        H.data_ptr(), out.data_ptr(), B, n, TINY, _stream(H)),
-        "chol_rinv_f32")
-    launches += 1
+    out = _warp_launch("chol_rinv (K1)", "chol_rinv_f32", H)
+    if H.shape[0]:
+        launches += 1
     return out
 
 
@@ -254,31 +305,15 @@ def chol_rinv_lanes(H: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _dense_warps(n: int) -> int:
-    """B9's matrices (warps) per block: 4 while they fit in the 48 KB a
-    block gets without opting in, else 2, else 1."""
-    per = smem.F32 * smem.chol_floats(n)
-    return next((w for w in (4, 2) if w * per <= 48 * 1024), 1)
-
-
 def chol_rinv_dense(H: torch.Tensor) -> torch.Tensor:
-    """B9 wrapper: one warp per matrix, ``_dense_warps(n)`` matrices per
-    block, on a CUDA tensor; the twin on a CPU tensor."""
+    """B9 wrapper: one warp per matrix (the body B9 shares with K1) on a
+    CUDA tensor; the twin on a CPU tensor."""
     global dense_launches
     if H.device.type == "cpu":
         return chol_rinv_dense_plain(H)
-    _cuda_input("chol_rinv_dense", H)
-    B, n, _ = H.shape
-    warps = _dense_warps(n)
-    smem.check("chol_rinv_dense (B9)", dict(n=n, warps=warps),
-               warps * smem.chol_floats(n), H.device)
-    out = torch.empty_like(H)
-    if B == 0:
-        return out
-    _build.check(_build.library().chol_dense_f32(
-        H.data_ptr(), out.data_ptr(), B, n, warps, TINY, _stream(H)),
-        "chol_dense_f32")
-    dense_launches += 1
+    out = _warp_launch("chol_rinv_dense (B9)", "chol_dense_f32", H)
+    if H.shape[0]:
+        dense_launches += 1
     return out
 
 

@@ -3,10 +3,11 @@ launch.
 
 The formulas mirror the kernels' allocators in ``csrc/``:
 ``slot_smem_floats`` (``slot_step.cuh``; K2 and B3 as they are, B4-B6 plus
-their own arrays), ``dense_smem_floats`` (``dense_round.cu``, B7),
-K1's ``n (n|1) + n`` (``chol_rinv.cu``), which B9 holds per warp, B8's
-packed triangles of a lane tile (``chol_lanes.cu Lanes::floats``) and
-B10's panel or phase-2 stages (``chol_blk.cu Blk::floats``).
+their own arrays), ``dense_smem_floats`` (``dense_round.cu``, B7), the
+packed triangles, a warp each, and the table of the block that K1 and B9
+share (``chol_warp.cuh warp_floats``), B8's packed triangles of a lane
+tile (``chol_lanes.cu Lanes::floats``) and B10's panel or phase-2 stages
+(``chol_blk.cu Blk::floats``).
 A lane that needs more than the card lets one block opt in to raises
 ``ValueError`` before anything is enqueued.
 """
@@ -59,16 +60,19 @@ def dense_floats(m: int, n: int, has_sw: bool) -> int:
             + 2 * DENSE_WARPS * DENSE_RED + 4 + (7 * m + 2 if has_sw else 0))
 
 
-def chol_floats(n: int) -> int:
-    """K1's block, and one B9 matrix (one warp)."""
-    return n * (n | 1) + n
-
-
 def chol_lanes_floats(n: int, lanes: int) -> int:
     """B8 (``Lanes::floats``): per lane n (n + 1) / 2 packed elements and
     two n-vectors, one pad word per 32 floats."""
     e = n * (n + 1) // 2 + 2 * n
     return e * lanes + (e - 1) // (32 // lanes)
+
+
+def chol_warp_floats(n: int, per_block: int) -> int:
+    """K1 and B9 (``warp_floats``): per matrix n (n + 1) / 2 packed
+    elements, and the block's (row, column) table of as many 16-bit
+    words."""
+    t = n * (n + 1) // 2
+    return per_block * t + (t + 1) // 2
 
 
 def blk_threads(n: int) -> int:
@@ -92,6 +96,11 @@ def available(dev) -> int:
     """Bytes of shared memory one block may opt in to on ``dev``."""
     return torch.cuda.get_device_properties(
         dev).shared_memory_per_block_optin
+
+
+def sms(dev) -> int:
+    """Streaming multiprocessors of ``dev``."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def check(kernel: str, shape: dict, floats: int, dev=None,

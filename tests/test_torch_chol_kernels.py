@@ -1,4 +1,4 @@
-"""B8, B9 and B10 (daqp_tpu_torch.ops.chol): each plain twin against the
+"""K1, B8, B9 and B10 (daqp_tpu_torch.ops.chol): each plain twin against the
 JAX kernel it replaces (Pallas interpret mode) and the f64 inverse; the
 XLA-only formulations against their JAX functions; the shared-memory
 formulas at the edges of an H100 block; the CPU route of each wrapper;
@@ -105,7 +105,10 @@ def test_xla_formulations_match_jax(name, B, n, rtol):
 
 
 # Each kernel's shared memory per block (the allocators of csrc/) against
-# an H100's 232,448 bytes: K1 fits n = 240, not 241; K2 fits config 2
+# an H100's 232,448 bytes: K1 and B9 (one body) fit every block their
+# wrappers pick: one matrix at n = 256 (their column limit; n = 257
+# raises before any block is sized), 8 warps up to n = 53, 4 up to 73 and
+# 2 up to 98 (their 48 KB tiles, test_warp_tile_fits_...); K2 fits config 2
 # (n = 50, m = 100, K = 51) and at n = 50 up to m = 893, not 894, nor
 # BASELINE "medium" (n = 100, m = 500, ~306 KB); B7 at n = 50 fits
 # m = 209, not 210, and its SOFT_WEIGHTS variant m = 205, not 206.
@@ -137,8 +140,10 @@ def test_xla_formulations_match_jax(name, B, n, rtol):
     ("B10", smem.chol_blk_floats(1000), True),
     ("B10", smem.chol_blk_floats(1581), True),
     ("B10", smem.chol_blk_floats(1582), False),
-    ("K1", smem.chol_floats(240), True),
-    ("K1", smem.chol_floats(241), False),
+    ("K1", smem.chol_warp_floats(256, 1), True),
+    ("K1", smem.chol_warp_floats(53, 8), True),
+    ("B9", smem.chol_warp_floats(73, 4), True),
+    ("B9", smem.chol_warp_floats(98, 2), True),
     ("K2", smem.slot_floats(100, 50, 51), True),
     ("K2", smem.slot_floats(893, 50, 51), True),
     ("K2", smem.slot_floats(894, 50, 51), False),
@@ -259,6 +264,48 @@ def test_lanes_mirror_reads_kernel_constants():
                 smem.chol_lanes_floats(n, lb)
 
 
+def test_warp_mirror_reads_kernel_constants():
+    # smem.chol_warp_floats is chol_warp.cuh's warp_floats, the block of K1
+    # and B9; the wrappers' column limit is its kMaxGroups groups of 32,
+    # their matrices a block and a small batch's warps a matrix the ones
+    # its shape_ok takes; its kernel_for picks 1, 2, 4, 8 column groups up
+    # to n = 32, 64, 128, 256, and each kernel's C entry launches through
+    # it with that kernel's instances (kernel source text, no nvcc)
+    csrc = Path(pchol.__file__).parent / "csrc"
+    src = (csrc / "chol_warp.cuh").read_text()
+    c = _consts(src)
+    assert 32 * c["kMaxGroups"] == pchol.WARP_MAX_N
+    assert c["kMaxWarps"] == max(pchol.WARP_TILES)
+    assert c["kSmallP"] == pchol.WARP_SMALL_P
+    assert re.findall(r"n <= (\d+)\s*\? K::template at<(\d+), P>\(\)", src) \
+        == [("32", "1"), ("64", "2"), ("128", "4")]
+    assert re.search(r": K::template at<(\d+), P>\(\);", src).group(1) == \
+        str(c["kMaxGroups"])
+    assert "n <= 32 * kMaxGroups && per_block >= 1 && per_block <= kMaxWarps" \
+        in src
+    assert "(P == 1 || (P == kSmallP && per_block == 1))" in src
+    for kernel, name, entry in (("chol_rinv.cu", "chol_rinv_kernel", "K1"),
+                                ("chol_dense.cu", "chol_dense_kernel", "B9")):
+        ksrc = (csrc / kernel).read_text()
+        assert '#include "chol_warp.cuh"' in ksrc
+        assert f"static WarpKernel at() {{ return &{name}<G, P>; }}" in ksrc
+        assert f"return launch_warp<{entry}Kernel>(" in ksrc
+    body = re.search(r"size_t warp_floats\(int n, int per_block\) \{(.*?)"
+                     r"\n\}", src, re.S).group(1)
+    t_expr = re.search(r"const size_t T = (.*?);", body, re.S).group(1)
+    ret = re.search(r"return (.*?);", body, re.S).group(1)
+
+    def py(expr):
+        expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1", expr)
+        return expr.replace("/", "//")
+
+    for n in (1, 10, 12, 20, 32, 50, 64, 100, 116, 240, 256, 277):
+        T = eval(py(t_expr), {}, {"n": n})
+        for w in pchol.WARP_TILES:
+            assert eval(py(ret), {}, {"T": T, "per_block": w}) == \
+                smem.chol_warp_floats(n, w)
+
+
 def test_blk_mirror_reads_kernel_constants():
     # smem.chol_blk_floats is chol_blk.cu's Blk<NT>::floats: the panel
     # width, the block size, the phase-2 k-tile and its row stride, the
@@ -311,7 +358,49 @@ def test_lanes_tile_is_the_largest_that_fits(n):
         == [32, 32, 8, 2, 1]
 
 
+# K1's and B9's warps a block from (B, n) on an H100 (132 SMs): the most
+# of 8, 4, 2, 1 whose block fits in 48 KB while the batch still gives
+# every SM a block (config 2's 10240 lanes at n = 50: 8; the stages batch
+# of 1024: 4), else 1.
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("B,n,warps", [
+    (10240, 50, 8), (1024, 50, 4), (256, 50, 1), (10240, 53, 8),
+    (10240, 54, 4), (10240, 73, 4), (10240, 74, 2), (10240, 98, 2),
+    (10240, 99, 1), (256, 240, 1), (64, 256, 1), (10240, 10, 8),
+    (528, 10, 4), (524, 10, 2), (131, 10, 1)])
+def test_warp_tile_fits_and_gives_every_sm_a_block(B, n, warps):
+    w = pchol.warp_tile(B, n, H100_SMEM, H100_SMS)
+    assert w == warps
+    assert w == 1 or (4 * smem.chol_warp_floats(n, w) <= pchol.WARP_BUDGET
+                      and -(-B // w) >= H100_SMS)
+    if w < max(pchol.WARP_TILES):               # twice as many would not
+        assert 4 * smem.chol_warp_floats(n, 2 * w) > pchol.WARP_BUDGET \
+            or -(-B // (2 * w)) < H100_SMS
+
+
+# A batch of at most 10 matrices an SM runs one matrix of 4 warps a
+# block (config 4's retry batch of 256, the stages batches of 1024,
+# limits' 64 at n = 256), and so does a width whose warp_tile is 1 (n >=
+# 99); a larger batch at a smaller width a warp a matrix, warp_tile
+# matrices a block.
+@pytest.mark.parametrize("B,n,shape", [
+    (256, 50, (1, 4)), (1024, 50, (1, 4)), (1320, 50, (1, 4)),
+    (1321, 50, (8, 1)), (10240, 50, (8, 1)), (64, 256, (1, 4)),
+    (1024, 100, (1, 4)), (2048, 80, (2, 1)), (2048, 98, (2, 1)),
+    (2048, 99, (1, 4)), (1, 10, (1, 4))])
+def test_warp_shape_small_batch_shares_a_matrix(B, n, shape):
+    assert pchol.warp_shape(B, n, H100_SMEM, H100_SMS) == shape
+    w = pchol.warp_tile(B, n, H100_SMEM, H100_SMS)
+    if shape[1] == 1:
+        assert shape[0] == w > 1
+    else:
+        assert B <= pchol.WARP_SMALL_PER_SM * H100_SMS or w == 1
+
+
 @pytest.mark.parametrize("wrapper,twin,count", [
+    (pchol.chol_rinv, pchol.chol_rinv_plain, "launches"),
     (pchol.chol_rinv_lanes, pchol.chol_rinv_lanes_plain, "lanes_launches"),
     (pchol.chol_rinv_dense, pchol.chol_rinv_dense_plain, "dense_launches"),
     (pchol.chol_rinv_blk, pchol.chol_rinv_blk_plain, "blk_launches")])
