@@ -10,9 +10,12 @@ For BASELINE config 2 (``solve_batch_kernel_stream``, chunk 256), its
 soft variant (rows 0-19 SOFT, ``has_soft=True``), its SOFT_WEIGHTS
 variant (``sw=``), config 3 (``solve_mpc_scan_kernel_fused``, seg 10),
 config 4 (``solve_batch_prox_kernel``), config 4b
-(``solve_batch_hiqp_kernel``), configAVI (``solve_batch_avi_kernel``)
-and configLP (``solve_batch_lp_kernel``, per-pass and fused), at the data
-of ``chip_smoke.py``, it runs
+(``solve_batch_hiqp_kernel``), configAVI (``solve_batch_avi_kernel``),
+configLP (``solve_batch_lp_kernel``, per-pass and fused), the backstop
+(``backstop_resolve`` of ``chip_smoke.py``'s forced failures, on the
+first 256 lanes) and config
+1 (16 single-instance ``quadprog`` solves, f64 and f32), at the data of
+``chip_smoke.py``, it runs
 one warm-up call and then one call under ``torch.profiler`` (CPU and
 CUDA activities), and prints one JSON line per cell: the host wall of the
 profiled call, the device time summed over kernels, the device's busy and
@@ -700,6 +703,22 @@ def main():
         profiled("configLP_fused" if fused else "configLP",
                  lambda: dt.solve_batch_lp_kernel(*args_lp, st_lp,
                                                   fused=fused), card)
+
+    # the backstop on chip_smoke.py's forced failures of the first 256
+    # lanes (each re-solved lane takes ~0.2 s of host-driven loop on the
+    # card)
+    full = [torch.as_tensor(d[k][:cs.B_BACK], device=dev) for k in keys]
+    failed, _ = cs.force_failures(dt.solve_batch_kernel_stream(
+        *full, st=st, chunk=256))
+    profiled("backstop", lambda: dt.backstop_resolve(failed, *full, ms=0),
+             card)
+    probs = cs.config1(gen)[:16]
+    for dtype, st1 in ((torch.float64, None),
+                       (torch.float32, dt.default_settings_f32())):
+        profiled(f"config1_{str(dtype)[6:]}", lambda: [
+            dt.quadprog(H, f, A, bu, bl, sense, ms=cs.MS1, dtype=dtype,
+                        settings=st1, device="cuda")
+            for _, H, f, A, bu, bl, sense in probs], card)
     print(card, flush=True)
     return 0
 

@@ -47,6 +47,20 @@ before and read just after:
   checked by ``bench_extra.py``'s objective-gap and feasibility gate
   against the JAX package's own census on the same lanes.
 
+* ``backstop``: step 4 of the main path: config 2's first 256 lanes
+  through the stream, every 12th lane then made loud and every 12th
+  from the 6th silent, then ``backstop_resolve`` (the f64 re-solve of
+  loud and KKT-failing lanes through the port's own ``quadprog``, on the
+  card), checked against the constructed optimum; the 2-sw batch, then
+  ``backstop_resolve(sw=...)`` of the sw phase's 256-lane sample and
+  the first 24 loud lanes, the re-solved lanes checked against the
+  lifted f64 QP; and ``deadline``: expired (every lane TIMELIMIT) and
+  generous (the flags and host syncs of none) (K1, K2);
+* ``single``: BASELINE config 1 (256 QPs of ``tests/gen.generate_test_qp
+  (10, 30, 10, 8, 1e2)``, seed 2025) one at a time through
+  ``dt.quadprog(device="cuda")`` in f64 and f32, then one ``Model`` per
+  type (a host-driven loop over tensors on the card: no kernel);
+
 * ``stages``: the factorization stage (``scripts/profile_stages.py``):
   per-stage ms on its four B = 1024 batches (K1, B8, B9, B10, the
   library, the regularized wrapper, the transform, the whole solve), then
@@ -204,6 +218,42 @@ LP_OPT = {k: max(0.9, 1.0 - 2.0 * (len(v) + len(JAX_LP_BEYOND[k])) / B_LP)
 K6_AGREE = 0.97       # lanes whose failed, lane_run, lflag agree (segment)
 LP_OUTER_AGREE = 0.999  # lane-passes whose outer half decides as the twin's
 LP_E_TOL = 1e-2       # E after the bordered add, / (1 + ||E||_inf)
+# BASELINE config 1 (BASELINE.md, configs to reproduce, item 1): one dense
+# convex QP at a time, n = 10, 10 box bounds and 20 general rows, 8
+# active, kappa 1e2 (KAPPA); 256 instances from one generator seed
+B1, N1, M1, MS1, NACT1, SEED1 = 256, 10, 30, 10, 8, 2025
+SINGLE_TOL64 = 1e-6   # ||x - x_ref||_2 in f64, tests/test_backstop.py:30
+SINGLE_RATE32 = 0.99  # f32: flag 1 and ||x - x_ref||_2 <= ACC_TOL
+# The JAX package's own f32 lanes flagged 1 beyond ACC_TOL on these 256
+# (daqp_tpu.quadprog(dtype=float32) on the CPU; held by
+# tests/test_torch_single.py::test_config1_f32_jax_reference_lanes): lane
+# 129 misses a box bound whose multiplier is 0.31 because the bound is
+# violated by 1.9e-5, below the f32 primal_tol 3e-5, and lands 5.9e-4 from
+# x_ref, KKT-certified (stationarity 2.4e-8, violation 1.2e-5).
+JAX_SINGLE_SILENT32 = (129,)
+# Lanes where the JAX package lands the same way once H and A move by at
+# most one f32 ulp (the move's seed beside each lane; held by
+# tests/test_torch_single.py::test_config1_f32_edge_lanes): when lane 8
+# would add box row 6 (multiplier 0.030 in f64), the row is violated by
+# 2.98e-5, 2e-8 under primal_tol, so the rounding of the sums decides
+# whether it enters; left out, x lands 1.71e-4 from x_ref with the row
+# violated under primal_tol.  The card sums in another order than the
+# CPU and leaves it out on the unmoved data.  A lane flagged 1 beyond
+# ACC_TOL must be one of these, and pass the backstop's f64 KKT gate
+# (1e-4), the test of an honest f32 exit (tests/test_f32_robustness.py:60)
+JAX_SINGLE_EDGE32 = {8: 6}
+MODEL_WARM_ITERS = 5  # a warm re-solve after an f / bound update,
+                      # tests/test_model.py:58 (1 unchanged, :41)
+# the backstop phase: config 2's first B_BACK lanes through the stream,
+# then every BACK_STRIDE-th lane made loud (ITERLIMIT, x zero) and every
+# BACK_STRIDE-th from BACK_STRIDE // 2 silent (flag 1, x moved by
+# BACK_SHIFT), tests/test_backstop.py's forced and silent cases.  A low
+# iter_limit cannot fail these lanes: the stream, as the JAX one, checks
+# it between rounds of 192 steps, and they need 81-131 iterations.  The
+# 2-sw backstop takes the sw phase's 256-lane sample and the batch's
+# first SW_BACK_LOUD loud lanes
+B_BACK, BACK_STRIDE, BACK_SHIFT = 256, 12, 0.05
+SW_BACK_LOUD = 24
 # one H100 SXM, published peaks: f32 outside the tensor cores,
 # HBM bandwidth
 PEAK_F32 = 67e12
@@ -1330,7 +1380,7 @@ def dense_state(args, st, sw=None):
     soft = ((ldpd.sense & dt.SOFT) > 0).float()
     return dense.dense_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling,
                             immut, soft, sw=None if sw is None
-                            else pbatch._normalize_sw(sw, ldpd))
+                            else transform.normalize_soft_weights(sw, ldpd))
 
 
 def sw_weights(Bn, m):
@@ -2552,9 +2602,240 @@ def phase_lp(args, d, st, card):
     return ok_p and ok_f, {"lp_per_pass": l_p, "lp_fused": l_f}
 
 
+def config1(gen):
+    """BASELINE config 1: B1 QPs of ``tests/gen.generate_test_qp`` from
+    one seed, each (x_ref, H, f, A, bu, bl, sense), f64 numpy."""
+    rng = np.random.default_rng(SEED1)
+    return [gen.generate_test_qp(N1, M1, MS1, NACT1, KAPPA, rng)
+            for _ in range(B1)]
+
+
+def single_solves(probs, dtype, st):
+    """Each QP through ``dt.quadprog(..., device="cuda")``, one at a time,
+    numpy in and x back on the host: (flags, ||x - x_ref||_2, the f64 KKT
+    residual max(stationarity, violation), ms a solve (host clock,
+    synchronized), host syncs a solve, results on the card, iterations,
+    x)."""
+    flags, err, kkt, ms, iters, xs = [], [], [], [], [], []
+    on_card = True
+    s0 = ops.host_syncs
+    for x, H, f, A, bu, bl, sense in probs:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = dt.quadprog(H, f, A, bu, bl, sense, ms=MS1, dtype=dtype,
+                        settings=st, device="cuda")
+        xr = r.x.cpu().numpy()
+        ms.append(1e3 * (time.perf_counter() - t))
+        on_card &= r.x.is_cuda and r.lam.is_cuda and r.x.dtype == dtype
+        flags.append(r.exitflag)
+        iters.append(r.iterations)
+        xs.append(xr)
+        err.append(np.linalg.norm(xr.astype(np.float64) - x))
+        stat, viol = dt.kkt_residuals(H[None], f[None], A[None], bu[None],
+                                      bl[None], sense[None], xr[None],
+                                      r.lam.cpu().numpy()[None], ms=MS1)
+        kkt.append(max(stat[0], viol[0]))
+    return (np.asarray(flags), np.asarray(err), np.asarray(kkt),
+            np.asarray(ms), (ops.host_syncs - s0) / len(probs), on_card,
+            np.asarray(iters), np.asarray(xs))
+
+
+def model_case(prob, dtype, st):
+    """``dt.Model`` on the card: set up, solve, solve again unchanged,
+    update f and the bounds (tests/test_model.py:48-60), re-solve; the
+    last against a cold ``quadprog`` of the updated QP."""
+    x, H, f, A, bu, bl, sense = prob
+    d = dt.Model(st).setup(H, f, A, bu, bl, sense, ms=MS1, dtype=dtype,
+                           device="cuda")
+    r1, r2 = d.solve(), d.solve()
+    upd = dict(f=f * 1.001, bupper=bu + 1e-4, blower=bl - 1e-4)
+    d.update(**upd)
+    r3 = d.solve()
+    ref = dt.quadprog(H, upd["f"], A, upd["bupper"], upd["blower"], sense,
+                      ms=MS1, dtype=dtype, settings=st, device="cuda")
+    gap = float((r3.x - ref.x).abs().max())
+    ok = (r1.exitflag == r2.exitflag == r3.exitflag == 1
+          and r2.iterations == 1 and r3.iterations <= MODEL_WARM_ITERS
+          and r3.x.is_cuda and gap <= (1e-8 if dtype == torch.float64
+                                       else ACC_TOL))
+    return ok, dict(first_iters=r1.iterations, unchanged_iters=r2.iterations,
+                    updated_iters=r3.iterations, cold_iters=ref.iterations,
+                    x_gap_to_cold=gap)
+
+
+def phase_single(gen, card):
+    """BASELINE config 1 through the single-instance path on the card, in
+    f64 (every QP flag 1 within SINGLE_TOL64) and in f32 with the f32
+    settings (the accuracy rate within ACC_TOL >= SINGLE_RATE32; a lane
+    flagged 1 beyond it only among JAX_SINGLE_SILENT32 and
+    JAX_SINGLE_EDGE32, each KKT-certified within 1e-4), then one
+    ``Model`` per type.  The path launches none of the
+    port's kernels: the counts must stay 0."""
+    t0 = time.perf_counter()
+    probs = config1(gen)
+    reset_counts()
+    out, ok = {}, True
+    for dtype, st in ((torch.float64, None),
+                      (torch.float32, dt.default_settings_f32())):
+        flags, err, kkt, ms, syncs, on_card, iters, xs = single_solves(
+            probs, dtype, st)
+        f64 = dtype == torch.float64
+        good = (flags == 1) & (err <= (SINGLE_TOL64 if f64 else ACC_TOL))
+        silent = (flags > 0) & ~good
+        m_ok, m_fields = model_case(probs[0], dtype, st)
+        name = str(dtype).split(".")[-1]
+        out[name] = dict(
+            optimal_rate=float(np.mean(flags == 1)),
+            accuracy_pass_rate=float(np.mean(good)),
+            max_err=float(err.max()), max_kkt=float(kkt.max()),
+            silent_wrong={int(b): dict(err=float(err[b]),
+                                       kkt=float(kkt[b]),
+                                       iterations=int(iters[b]),
+                                       x=xs[b].tolist())
+                          for b in np.nonzero(silent)[0]},
+            median_ms=float(np.median(ms)),
+            p90_ms=float(np.percentile(ms, 90)),
+            host_syncs_per_solve=syncs, on_card=on_card, model=m_fields)
+        ok &= on_card and m_ok and (
+            bool(good.all()) if f64
+            else float(np.mean(good)) >= SINGLE_RATE32
+            and set(np.flatnonzero(silent)) <= set(JAX_SINGLE_SILENT32)
+            | set(JAX_SINGLE_EDGE32)
+            and bool((kkt[silent] <= 1e-4).all()))
+    launches = read_counts()
+    emit("single", t0, B=B1, n=N1, m=M1, ms=MS1, n_active=NACT1,
+         kappa=KAPPA, seed=SEED1, launches=launches, **out, card=card)
+    return ok and not any(launches.values()), launches
+
+
+def loud(flags):
+    return int(np.sum(flags <= 0))
+
+
+def force_failures(res):
+    """``res`` with every BACK_STRIDE-th lane loud (ITERLIMIT and x zero,
+    as a lane that ran out of iterations) and every BACK_STRIDE-th from
+    BACK_STRIDE // 2 silent (its flag kept, x moved by BACK_SHIFT):
+    (result, the lanes changed)."""
+    lanes = torch.arange(res.x.shape[0], device=res.x.device)
+    loud_ = (lanes % BACK_STRIDE == 0)[:, None]
+    silent = (lanes % BACK_STRIDE == BACK_STRIDE // 2)[:, None]
+    x = torch.where(loud_, 0.0, res.x) + BACK_SHIFT * silent
+    flags = torch.where(loud_[:, 0], dt.EXIT_ITERLIMIT, res.exitflag)
+    forced = res._replace(x=x.to(res.x.dtype), exitflag=flags.to(
+        res.exitflag.dtype))
+    return forced, (loud_ | silent)[:, 0].cpu().numpy()
+
+
+def phase_backstop(full, d, sw_np, st, card):
+    """Step 4 of the main path.  (a) Config 2's first B_BACK lanes through
+    the stream, lanes made to fail (``force_failures``), then
+    ``backstop_resolve``: every changed lane re-solved, every lane flag 1
+    within ACC_TOL.  (b) The 2-sw batch through the stream, then
+    ``backstop_resolve(sw=...)`` of the sw phase's sample and the first
+    SW_BACK_LOUD loud lanes: no lane it re-solves to a flag > 0 lies
+    beyond SW_TOL of the lifted f64 QP, and the loud count does not grow.
+    (c) An expired deadline gives every lane of (a)'s batch TIMELIMIT, a
+    generous one the flags of none."""
+    t0 = time.perf_counter()
+    args = [a[:B_BACK] for a in full]
+    x_ref = d['x'][:B_BACK]
+
+    reset_counts()
+    res = dt.solve_batch_kernel_stream(*args, st=st, chunk=B_CHUNK)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    syncs0 = ops.host_syncs
+    res, changed = force_failures(res)
+    flags0 = res.exitflag.cpu().numpy()
+    lanes0 = pbatch.backstop_lanes
+    tb = time.perf_counter()
+    fixed = dt.backstop_resolve(res, *args, ms=0)
+    torch.cuda.synchronize()
+    back_s = time.perf_counter() - tb
+    n_back = pbatch.backstop_lanes - lanes0
+    flags1 = fixed.exitflag.cpu().numpy()
+    err = np.linalg.norm(fixed.x.cpu().numpy().astype(np.float64) - x_ref,
+                         axis=1)
+    forced = dict(lanes=B_BACK, stride=BACK_STRIDE, shift=BACK_SHIFT,
+                  changed=int(changed.sum()), loud_before=loud(flags0),
+                  loud_after=loud(flags1), resolved=n_back,
+                  ms_per_resolved_lane=1e3 * back_s / max(n_back, 1),
+                  syncs_stream=syncs0,
+                  syncs_backstop=ops.host_syncs - syncs0,
+                  max_err=float(err.max()),
+                  max_err_changed=float(err[changed].max()),
+                  on_card=fixed.x.is_cuda)
+    ok = n_back >= int(changed.sum()) and bool((flags1 == 1).all()) \
+        and float(err.max()) <= ACC_TOL and fixed.x.is_cuda
+
+    # (b) the 2-sw batch
+    oracle = oracle_module("daqp_numpy")
+    sargs = full[:5] + [soft_sense(full[5])]
+    sw = sw_tensors(sw_np, full[0].device)
+    res_sw = dt.solve_batch_kernel_stream(*sargs, st=st, chunk=B_CHUNK,
+                                          has_soft=True, sort_stream=True,
+                                          sw=sw)
+    fs_all = res_sw.exitflag.cpu().numpy()
+    idx = np.arange(0, B, SW_STRIDE) + np.arange(B // SW_STRIDE) % 2
+    idx = np.union1d(idx, np.flatnonzero(fs_all <= 0)[:SW_BACK_LOUD])
+    it = torch.as_tensor(idx, device=full[0].device)
+    res_s = res_sw._replace(**{k: v[it] for k, v in
+                               res_sw._asdict().items()})
+    fs0 = fs_all[idx]
+    s1, l1 = ops.host_syncs, pbatch.backstop_lanes
+    tb = time.perf_counter()
+    fixed_sw = dt.backstop_resolve(res_s, *(a[it] for a in sargs), ms=0,
+                                   settings=st,
+                                   sw=sw_tensors(sw_np, full[0].device,
+                                                 idx))
+    torch.cuda.synchronize()
+    sw_s = time.perf_counter() - tb
+    n_sw = pbatch.backstop_lanes - l1
+    fs1 = fixed_sw.exitflag.cpu().numpy()
+    x_sw = fixed_sw.x.cpu().numpy().astype(np.float64)
+    moved = np.nonzero((fs1 != fs0) | (fixed_sw.x != res_s.x).any(1)
+                       .cpu().numpy())[0]
+    beyond = [int(idx[i]) for i in moved if fs1[i] > 0
+              and np.abs(x_sw[i] - lifted_reference(oracle, d, sw_np,
+                                                    idx[i])[0]).max()
+              > SW_TOL]
+    sw_fields = dict(lanes=len(idx), of=B, loud_in_batch=loud(fs_all),
+                     loud_before=loud(fs0), loud_after=loud(fs1),
+                     resolved=n_sw, changed=len(moved),
+                     ms_per_resolved_lane=1e3 * sw_s / max(n_sw, 1),
+                     syncs_backstop=ops.host_syncs - s1,
+                     beyond_gate=beyond)
+    ok &= loud(fs1) <= loud(fs0) and not beyond
+
+    # (c) the deadline
+    plain = dt.solve_batch_kernel_stream(*args, st=st, chunk=B_CHUNK)
+    ops.host_syncs = 0
+    late = dt.solve_batch_kernel_stream(*args, st=st, chunk=B_CHUNK,
+                                        deadline=time.perf_counter() - 1.0)
+    syncs_late = ops.host_syncs
+    ops.host_syncs = 0
+    far = dt.solve_batch_kernel_stream(*args, st=st, chunk=B_CHUNK,
+                                       deadline=time.perf_counter() + 1e6)
+    syncs_far = ops.host_syncs
+    ops.host_syncs = 0
+    dt.solve_batch_kernel_stream(*args, st=st, chunk=B_CHUNK)
+    syncs_none = ops.host_syncs
+    all_late = bool((late.exitflag == dt.EXIT_TIMELIMIT).all())
+    same = bool(torch.equal(far.exitflag, plain.exitflag))
+    ok &= all_late and same and syncs_far == syncs_none
+    emit("backstop", t0, launches=launches, forced=forced, sw=sw_fields,
+         deadline=dict(expired_all_timelimit=all_late,
+                       generous_same_flags=same, syncs_expired=syncs_late,
+                       syncs_generous=syncs_far, syncs_none=syncs_none),
+         card=card)
+    return ok and launches["chol_rinv"] >= 1 \
+        and launches["slot_round"] >= 1, launches
+
+
 PHASES = ("k1", "k2", "slice", "k8", "k9", "k10", "stages", "limits", "k7",
-          "soft", "sw", "k3", "mpc", "k4", "prox", "hiqp", "k5", "avi", "k6",
-          "lp")
+          "soft", "sw", "backstop", "single", "k3", "mpc", "k4", "prox",
+          "hiqp", "k5", "avi", "k6", "lp")
 
 
 def main():
@@ -2611,7 +2892,9 @@ def main():
         (args_c, sw_tensors(sw_np, dev, lanes.cpu().numpy())), st)
     run("soft", phase_soft, full, d, st, card)
     run("sw", phase_sw, full, d, sw_np, st, card)
+    run("backstop", phase_backstop, full, d, sw_np, st, card)
     del full
+    run("single", phase_single, gen, card)
 
     d3 = config3(gen)
     args3 = [torch.as_tensor(d3[k], device=dev)
@@ -2644,7 +2927,7 @@ def main():
             print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1 if failed or set(only) - set(res) else 0
     paths = {p: res[p][1] for p in ("slice", "mpc", "prox", "soft", "sw",
-                                    "hiqp", "avi")}
+                                    "hiqp", "avi", "backstop")}
     paths.update(res["lp"][1])
     paths.update(res["stages"][1])
 

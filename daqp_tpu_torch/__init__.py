@@ -1,14 +1,16 @@
-"""daqp_tpu_torch: the PyTorch / CUDA port of daqp_tpu's batched QP paths.
+"""daqp_tpu_torch: the PyTorch / CUDA port of daqp_tpu.
 
 The cold batch path of ``daqp_tpu`` (transform, slot active-set solver
 for hard batches, dense-mask solver for batches with soft rows or
-SOFT_WEIGHTS slack data, stream entry), the warm MPC horizon (``mpc``),
-the semidefinite proximal batch, the batched hierarchical least-squares
-walk, batched affine variational inequalities and batched LPs (the
-adaptive-eps proximal LP tier), with their TPU kernels
-rewritten for Hopper in CUDA C++ (``ops/csrc``).  Entry points run on the
-card unless asked for the CPU (CPU tensors or ``device="cpu"``), where
-each kernel's plain PyTorch twin runs.
+SOFT_WEIGHTS slack data, stream entry, the f64 backstop), the warm MPC
+horizon (``mpc``), the semidefinite proximal batch, the batched
+hierarchical least-squares walk, batched affine variational inequalities
+and batched LPs (the adaptive-eps proximal LP tier), with their TPU
+kernels rewritten for Hopper in CUDA C++ (``ops/csrc``); and the
+single-instance dense QP solver with its public API (``solve``,
+``quadprog``, ``Model``, ``minrep``, ``isfeasible``).  Entry points run
+on the card unless asked for the CPU (CPU tensors or ``device="cpu"``),
+where each kernel's plain PyTorch twin runs.
 
 TF32 is switched off here: it keeps ~3 decimal digits and would corrupt
 the f32 solver math, as bf16 does on the TPU.
@@ -23,12 +25,16 @@ from .types import (  # noqa: E402
     ACTIVE, LOWER, IMMUTABLE, SOFT, BINARY, DAQP_INF, EXIT_OPTIMAL,
     EXIT_SOFT_OPTIMAL, EXIT_NO_DOF,
     EXIT_INFEASIBLE, EXIT_CYCLE, EXIT_UNBOUNDED, EXIT_ITERLIMIT,
-    EXIT_NONCONVEX,
-    EXIT_UNSUPPORTED, EXIT_RUNNING, EXIT_REFACTOR, Settings, SoftWeights,
+    EXIT_NONCONVEX, EXIT_OVERDETERMINED_INITIAL, EXIT_TIMELIMIT,
+    EXIT_UNSUPPORTED, EXIT_RUNNING, EXIT_REFACTOR, FLAG_TO_STATUS,
+    PRICING_DANTZIG, PRICING_BLAND, Problem, Result, Settings, SoftWeights,
     default_settings_f32, as_settings)
 from .batch import (  # noqa: E402
     BatchResult, solve_batch_kernel, solve_batch_kernel_stream,
     solve_batch_prox_kernel, solve_batch_hiqp_kernel, solve_batch_avi_kernel,
-    solve_batch_lp_kernel, kkt_residuals)
+    solve_batch_lp_kernel, kkt_residuals, backstop_resolve)
+from .api import solve, quadprog  # noqa: E402
+from .model import Model  # noqa: E402
+from .geometry import minrep, isfeasible  # noqa: E402
 from .mpc import (  # noqa: E402
     MPCStep, solve_mpc_scan_kernel, solve_mpc_scan_kernel_fused)

@@ -5,8 +5,8 @@ solve_batch_pallas_jit``, ``:315 solve_batch_pallas_stream_jit``, ``:428
 _difficulty_nviol``, ``:451 _pallas_batch_core`` (its hard, soft and
 SOFT_WEIGHTS branches, :551-694), ``:699 solve_batch_prox_pallas_jit``,
 ``:981 solve_batch_lp_pallas_jit``, ``:1587
-solve_batch_avi_pallas_jit``, ``:1999 solve_batch_hiqp_pallas_jit`` and
-``:2582 kkt_residuals``.
+solve_batch_avi_pallas_jit``, ``:1999 solve_batch_hiqp_pallas_jit``,
+``:2582 kkt_residuals`` and ``:2772 backstop_resolve``.
 
 Every entry point runs where its inputs are: tensors keep their device
 (inputs on mixed devices raise) and other inputs (numpy arrays, lists) go
@@ -26,8 +26,15 @@ batched affine variational inequalities on B5 and K2, and
 B6 with ``fused=True``).  Left behind as TPU workarounds: the 512-lane
 guard and its routing, the 128-lane padding, the n-padding of the AVI
 matrices, and the in-core difficulty sort for tile occupancy (one block
-per QP has no tiles).  ``guess_cap`` and
-``deadline`` belong to later slices and raise NotImplementedError.
+per QP has no tiles).  ``guess_cap`` belongs to a later slice and raises
+NotImplementedError.
+
+Every entry takes ``deadline``, an absolute ``time.perf_counter()``
+time: the host checks it between kernel rounds (``ops.slot.slot_solve``,
+``ops.dense.dense_solve``) and once per outer pass, segment, level or
+chunk of the drivers, and a lane still running past it exits
+``EXIT_TIMELIMIT``.  The check reads only the host's clock, so it adds no
+host sync, and ``deadline=None`` skips it.
 """
 from __future__ import annotations
 
@@ -37,13 +44,13 @@ import numpy as np
 import torch
 
 from . import transform
-from .ops import chol, dense, host_any, slot
+from .ops import chol, dense, host_any, host_numpy, late, slot
 from .prox import auto_eta
-from .types import (ACTIVE, IMMUTABLE, LOWER, SOFT, DAQP_INF, EXIT_CYCLE,
-                    EXIT_ITERLIMIT, EXIT_NO_DOF, EXIT_NONCONVEX,
+from .types import (ACTIVE, BINARY, IMMUTABLE, LOWER, SOFT, DAQP_INF,
+                    EXIT_CYCLE, EXIT_ITERLIMIT, EXIT_NO_DOF, EXIT_NONCONVEX,
                     EXIT_OPTIMAL, EXIT_REFACTOR, EXIT_RUNNING,
-                    EXIT_UNBOUNDED, EXIT_UNSUPPORTED, PRICING_BLAND,
-                    Settings, SoftWeights)
+                    EXIT_SOFT_OPTIMAL, EXIT_TIMELIMIT, EXIT_UNBOUNDED,
+                    EXIT_UNSUPPORTED, PRICING_BLAND, Settings, SoftWeights)
 
 
 class BatchResult(NamedTuple):
@@ -55,15 +62,16 @@ class BatchResult(NamedTuple):
     soft_slack: torch.Tensor  # (B,)
 
 
-def _unported(deadline, guess_cap=None) -> None:
+def _unported(guess_cap=None) -> None:
     if guess_cap:
         raise NotImplementedError(
             "guess_cap (primal-init active-set guess) is ported in a later "
             "slice (ROADMAP A5)")
-    if deadline is not None:
-        raise NotImplementedError(
-            "deadline (wall-clock limit between rounds) is ported in a later "
-            "slice (ROADMAP A5)")
+
+
+def timed_out(flag, run):
+    """``flag`` with the ``run`` lanes set to EXIT_TIMELIMIT."""
+    return torch.where(run, EXIT_TIMELIMIT, flag).to(torch.int32)
 
 
 def resolve_device(inputs, device=None) -> torch.device:
@@ -110,22 +118,10 @@ def _difficulty_nviol(f, A, bupper, blower, ms: int, Rinv):
     return ((vals > bupper) | (vals < blower)).sum(dim=-1)
 
 
-def _normalize_sw(sw: SoftWeights, ldpd) -> SoftWeights:
-    """SOFT_WEIGHTS data against the lanes' row scaling, zero on hard
-    rows: d / scaling, rho scaling^2 (utils.c:99-110; batch.py:551-570)."""
-    soft = (ldpd.sense & SOFT) > 0
-    sc = ldpd.scaling
-
-    def norm(x, p):
-        return torch.where(soft, x.to(sc.dtype) * sc ** p, 0.0)
-
-    return SoftWeights(d_ls=norm(sw.d_ls, -1), d_us=norm(sw.d_us, -1),
-                       rho_ls=norm(sw.rho_ls, 2), rho_us=norm(sw.rho_us, 2))
-
-
 def _kernel_batch_core(H, f, A, bupper, blower, sense, st: Settings,
                        ms: int = 0, fact=None, has_soft: bool = False,
-                       sw: Optional[SoftWeights] = None) -> BatchResult:
+                       sw: Optional[SoftWeights] = None,
+                       deadline=None) -> BatchResult:
     """Factor (or take ``fact`` = (Rinv, ok, reg_mask, eps_used)), build
     the LDP, solve and map back to QP space: on the slot tier (K2), or
     with ``has_soft`` on the dense-mask tier (B7), where soft rows carry
@@ -155,12 +151,12 @@ def _kernel_batch_core(H, f, A, bupper, blower, sense, st: Settings,
     if has_soft:
         s = dense.dense_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling,
                              immut, soft_b, fbound=fb,
-                             sw=None if sw is None else _normalize_sw(sw,
-                                                                      ldpd))
+                             sw=None if sw is None
+                             else transform.normalize_soft_weights(sw, ldpd))
         if host_any(act_bits):
             # equalities / warm starts: bulk-activate the sense-ACTIVE rows
             s = dense.dense_activate(s, act_bits & ~lo_bits, lo_bits, st)
-        s = dense.dense_solve(s, st, n_true=n)
+        s = dense.dense_solve(s, st, n_true=n, deadline=deadline)
         act = s.act_up + s.act_lo
         lam = s.lam_star * act * s.scaling
         if sw is None:
@@ -174,7 +170,7 @@ def _kernel_batch_core(H, f, A, bupper, blower, sense, st: Settings,
                            immut, n_true=n, fbound=fb)
         if host_any(act_bits):
             s = slot.slot_activate(s, act_bits & ~lo_bits, lo_bits, st)
-        s = slot.slot_solve(s, st, n_true=n)
+        s = slot.slot_solve(s, st, n_true=n, deadline=deadline)
         lam = slot.slot_duals_dense(s)
         slack = torch.zeros(B, dtype=f32, device=H.device)
     x = transform.ldp_to_qp_solution(ldpd, s.u[:, :n])
@@ -203,12 +199,13 @@ def solve_batch_kernel(H, f, A, bupper, blower, sense, st: Settings,
     variant (implies ``has_soft``)."""
     H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
                                               sense, device)
-    _unported(deadline, guess_cap)
+    _unported(guess_cap)
     sw = _sw_tensors(sw, H)
     if has_soft is None:
         has_soft = sw is not None or host_any((sense & SOFT) > 0)
     return _kernel_batch_core(H, f, A, bupper, blower, sense, st, ms=ms,
-                              has_soft=bool(has_soft), sw=sw)
+                              has_soft=bool(has_soft), sw=sw,
+                              deadline=deadline)
 
 
 def _sw_tensors(sw, like) -> Optional[SoftWeights]:
@@ -236,8 +233,9 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
     (stable sort).  Each lane's result depends on that lane alone, so
     ``chunk`` and the order only bound memory and shape the waves; outputs
     come back in input order.  ``sw`` (raw user units, implies
-    ``has_soft``) follows the sort and the chunks."""
-    _unported(deadline, guess_cap)
+    ``has_soft``) follows the sort and the chunks.  ``deadline`` is
+    checked as each chunk's rounds start and between them."""
+    _unported(guess_cap)
     H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
                                               sense, device)
     sw = _sw_tensors(sw, H)
@@ -258,7 +256,8 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
         parts.append(_kernel_batch_core(
             H[sl], f[sl], A[sl], bupper[sl], blower[sl], sense[sl], st,
             ms=ms, fact=tuple(x[sl] for x in fact), has_soft=has_soft,
-            sw=None if sw is None else SoftWeights(*(x[sl] for x in sw))))
+            sw=None if sw is None else SoftWeights(*(x[sl] for x in sw)),
+            deadline=deadline))
     out = BatchResult(*(torch.cat(p) for p in zip(*parts)))
     if order is not None:
         unsort = torch.argsort(order)
@@ -295,7 +294,8 @@ def prox_init(H, f, A, bupper, blower, sense, st: Settings, ms: int = 0):
 
 def solve_batch_prox_kernel(H, f, A, bupper, blower, sense, st: Settings,
                             ms: int = 0, max_outer: int = 200,
-                            fused: bool = True, device=None) -> BatchResult:
+                            fused: bool = True, deadline=None,
+                            device=None) -> BatchResult:
     """Batched semidefinite-H QP solve: the proximal-point outer loop
     (``daqp_prox.c`` full-shift regime) over the slot tier, as
     ``solve_batch_prox_pallas_jit``.
@@ -313,7 +313,8 @@ def solve_batch_prox_kernel(H, f, A, bupper, blower, sense, st: Settings,
     ``fused=False`` runs every pass as a warm ``slot_solve`` on K2.
     Hard constraints only; lanes the factorization rejects exit
     NONCONVEX, lanes still running after ``max_outer`` passes
-    ITERLIMIT."""
+    ITERLIMIT, and past ``deadline`` (checked per pass and per segment)
+    TIMELIMIT."""
     global prox_resumed_lanes
     H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
                                               sense, device)
@@ -327,19 +328,24 @@ def solve_batch_prox_kernel(H, f, A, bupper, blower, sense, st: Settings,
     def v_of(x):
         return torch.einsum('bji,bj->bi', Rinv, f - eps[:, None] * x)
 
-    def carry_solve(s, v, lane_run):
+    def carry_solve(s, v, lane_run, deadline=None):
         Mv = torch.einsum('bmj,bj->bm', s.M, v)
         s = slot.reset_control(slot.slot_refresh_bounds(s, bu_s + Mv,
                                                         bl_s + Mv), lane_run)
-        return slot.slot_solve(s, st, n_true=n, steps=PROX_STEPS)
+        return slot.slot_solve(s, st, n_true=n, steps=PROX_STEPS,
+                               deadline=deadline)
 
     def passes(budget, s, x, lane_run, stall, best_diff, lane_flag, tot):
         """The per-pass outer loop (``batch.py:806-857``) on K2."""
         for _ in range(budget):
+            if late(deadline):
+                lane_flag = timed_out(lane_flag, lane_run)
+                lane_run = torch.zeros_like(lane_run)
+                break
             if not host_any(lane_run):
                 break
             v = v_of(x)
-            s = carry_solve(s, v, lane_run)
+            s = carry_solve(s, v, lane_run, deadline)
             tot = tot + torch.where(lane_run, s.iterations, 0.0)
             inner_ok = s.status > 0
             x_new = torch.einsum('bij,bj->bi', Rinv, s.u - v)
@@ -370,6 +376,10 @@ def solve_batch_prox_kernel(H, f, A, bupper, blower, sense, st: Settings,
     else:
         lr = okl.to(f32)
         for _ in range(0, max_outer, PSEG):
+            if late(deadline):
+                lane_flag = timed_out(lane_flag, lr > 0)
+                lr = torch.zeros_like(lr)
+                break
             if not host_any(lr > 0):
                 break
             s, x, lr, stall, best_diff, lane_flag, tot, failed = \
@@ -427,7 +437,7 @@ def hiqp_settings(st: Settings, rho_floor: float = None) -> Settings:
 
 def solve_batch_hiqp_kernel(H, f, A, bupper, blower, sense, st: Settings,
                             ms: int = 0, break_points: tuple = (),
-                            rho_floor: float = None,
+                            rho_floor: float = None, deadline=None,
                             device=None) -> BatchResult:
     """Batched hierarchical (lexicographic least-squares) QP solve on B7:
     the level walk of ``daqp_hiqp`` (hierarchical.c:5-108) as
@@ -443,7 +453,9 @@ def solve_batch_hiqp_kernel(H, f, A, bupper, blower, sense, st: Settings,
     hierarchical.c:72-95), E gets one Newton refresh, and a lane whose
     degrees of freedom are spent stops.  A lane whose level fails exits
     ``EXIT_NO_DOF`` with the previous level's point; one over
-    ``iter_limit`` exits ITERLIMIT.
+    ``iter_limit`` exits ITERLIMIT.  A lane still walking when a level
+    starts past ``deadline``, or whose level solve ran past it, exits
+    TIMELIMIT with the previous level's point.
 
     ``break_points`` is strictly increasing and ends at m, shared by the
     batch.  ``H=None`` is the identity metric and then fval = f'x.  Warm
@@ -491,6 +503,9 @@ def solve_batch_hiqp_kernel(H, f, A, bupper, blower, sense, st: Settings,
     tot = torch.zeros(B, dtype=f32, device=dev)
     rho, ptol = st.rho_soft, st.primal_tol
     for i in range(1, len(bp)):
+        if late(deadline):
+            lane_flag = timed_out(lane_flag, ~done)
+            break
         start, end = bp[i - 1], bp[i]
         lvl = ((rows >= start) & (rows < end)).to(f32).expand(B, m)
         beyond = (rows >= end).to(f32)
@@ -509,11 +524,12 @@ def solve_batch_hiqp_kernel(H, f, A, bupper, blower, sense, st: Settings,
             repaired=torch.zeros_like(s.repaired),
             best_fval=torch.full_like(s.best_fval, -1.0),
             pend=s.pend * (1.0 - run_m[:, 0]))
-        s = dense.dense_solve(s, st, n_true=n)
+        s = dense.dense_solve(s, st, n_true=n, deadline=deadline)
         s = s._replace(status=torch.where(lane_run, s.status,
                                           prev_status).to(torch.int32))
         tot = tot + torch.where(lane_run, s.iterations, 0.0)
         failed = lane_run & (s.status < 0)
+        late_lane = failed & (s.status == EXIT_TIMELIMIT)
 
         # freeze the level's optimal soft violations into d, with the
         # symmetric ptol margin of the JAX tier (batch.py:2161-2178), and
@@ -537,7 +553,8 @@ def solve_batch_hiqp_kernel(H, f, A, bupper, blower, sense, st: Settings,
             nfree = nfree - torch.where(lane_run, n_imm, 0.0)
 
         iterlim = lane_run & ~failed & (tot >= st.iter_limit)
-        lane_flag = torch.where(failed, EXIT_NO_DOF, lane_flag)
+        lane_flag = torch.where(failed, torch.where(
+            late_lane, EXIT_TIMELIMIT, EXIT_NO_DOF), lane_flag)
         lane_flag = torch.where(iterlim, EXIT_ITERLIMIT, lane_flag)
         u_best = torch.where(lane_run[:, None],
                              torch.where(failed[:, None], u_prev, s.u),
@@ -738,11 +755,10 @@ def solve_batch_avi_kernel(H, f, A, bupper, blower, sense, st: Settings,
     segment on the per-pass path for PSEG passes, and Newton-refreshes E.
     ``fused=False`` runs every pass as a warm ``slot_solve`` on K2.  Hard
     rows only; a lane still running after ``max_outer`` passes exits
-    ITERLIMIT.  lam is the KKT step's, scattered to rows (0 on a lane the
+    ITERLIMIT, and past ``deadline`` (checked per pass and per segment)
+    TIMELIMIT.  lam is the KKT step's, scattered to rows (0 on a lane the
     KKT step never reached); fval = f'x."""
     global avi_kkt_services, avi_resumed_lanes
-    if deadline is not None:
-        _unported(deadline)
     a = avi_init(H, f, A, bupper, blower, sense, st, ms, device)
     H, f, prob, Rinv = a.prob.H, a.prob.f, a.prob, a.ldpd.Rinv
     B, n = f.shape
@@ -757,6 +773,10 @@ def solve_batch_avi_kernel(H, f, A, bupper, blower, sense, st: Settings,
                flag, tot):
         """The per-pass outer loop (``batch.py:1757-1820``) on K2."""
         for _ in range(budget):
+            if late(deadline):
+                flag = timed_out(flag, lane_run)
+                lane_run = torch.zeros_like(lane_run)
+                break
             if not host_any(lane_run):
                 break
             Hx = mv(H, x)
@@ -769,7 +789,8 @@ def solve_batch_avi_kernel(H, f, A, bupper, blower, sense, st: Settings,
             held = ~lane_run & (s.status == EXIT_RUNNING)
             s = s._replace(status=torch.where(held, slot._HELD, s.status)
                            .to(torch.int32))
-            s = slot.slot_solve(s, st, n_true=n, steps=AVI_STEPS)
+            s = slot.slot_solve(s, st, n_true=n, steps=AVI_STEPS,
+                                deadline=deadline)
             s = s._replace(status=torch.where(held, EXIT_RUNNING, s.status)
                            .to(torch.int32))
             tot = tot + torch.where(lane_run, s.iterations, 0.0)
@@ -815,6 +836,10 @@ def solve_batch_avi_kernel(H, f, A, bupper, blower, sense, st: Settings,
     else:
         ops_ = avi_segment_operands(a)
         for _ in range(0, max_outer, PSEG):
+            if late(deadline):
+                flag = timed_out(flag, lr > 0)
+                lr = torch.zeros_like(lr)
+                break
             if not host_any(lr > 0):
                 break
             (s, x, y, xold, minres, ctr, tlim, lr, flag, tot, failed,
@@ -1003,9 +1028,10 @@ def solve_batch_lp_kernel(f, A, bupper, blower, sense, st: Settings,
     refutes exits CYCLE.  Elsewhere lam is the slot duals over eps; unlike
     the JAX tier, a flag-1 lane the re-fit cannot judge exits CYCLE unless
     those duals are stationary within ``LP_DUAL_TOL``.  fval = f'x,
-    iterations the inner iterations summed over passes."""
+    iterations the inner iterations summed over passes.  A lane still
+    running past ``deadline`` (checked per pass and per segment) exits
+    TIMELIMIT; the retries and the certificate leave it so."""
     global lp_resumed_lanes, lp_certified_lanes
-    _unported(deadline)
     p = lp_init(f, A, bupper, blower, sense, st, ms, device)
     f, s0 = p.f, p.s0
     B, n = f.shape
@@ -1032,13 +1058,18 @@ def solve_batch_lp_kernel(f, A, bupper, blower, sense, st: Settings,
         best = torch.full((Bn,), float("inf"), dtype=f32, device=dev)
         tot = torch.zeros(Bn, dtype=f32, device=dev)
         for k in range(budget):
+            if late(deadline):
+                flag = timed_out(flag, lane_run)
+                lane_run = torch.zeros_like(lane_run)
+                break
             if not host_any(lane_run):
                 break
             v = fz * eps[:, None] - x
             Mv = torch.einsum('bmj,bj->bm', s.M, v)
             s = slot.reset_control(slot.slot_refresh_bounds(
                 s, bu_s + Mv, bl_s + Mv), lane_run)
-            s = slot.slot_solve(s, st_k, n_true=n, steps=LP_STEPS)
+            s = slot.slot_solve(s, st_k, n_true=n, steps=LP_STEPS,
+                                deadline=deadline)
             tot = tot + torch.where(lane_run, s.iterations, 0.0)
             inner_ok = s.status > 0
             x_new = s.u - v
@@ -1075,7 +1106,8 @@ def solve_batch_lp_kernel(f, A, bupper, blower, sense, st: Settings,
         stopped (``cont``) or cold, and merge back lane by lane.  A lane's
         passes depend on that lane alone, so only those lanes run (the JAX
         tier runs the whole batch with the others held)."""
-        fail = (flag < 0) & (flag != EXIT_UNBOUNDED)
+        fail = (flag < 0) & (flag != EXIT_UNBOUNDED) \
+            & (flag != EXIT_TIMELIMIT)
         if not host_any(fail):
             return s, x, eps, flag, tot
         idx = torch.nonzero(fail)[:, 0]
@@ -1100,6 +1132,10 @@ def solve_batch_lp_kernel(f, A, bupper, blower, sense, st: Settings,
         resumes = torch.zeros(B, dtype=f32, device=dev)
         data = (f, p.bu_s, p.bl_s, p.bu_r, p.bl_r)
         for _ in range(0, max_outer, LP_PSEG):
+            if late(deadline):
+                lflag = timed_out(lflag, lr > 0)
+                lr = torch.zeros_like(lr)
+                break
             if not host_any(lr > 0):
                 break
             s, x, eps, stall, best, lr, lflag, tot, passes, failed = \
@@ -1169,7 +1205,8 @@ def solve_batch_lp_kernel(f, A, bupper, blower, sense, st: Settings,
     bscale = 1.0 + torch.where(torch.isfinite(p.bu_r), p.bu_r,
                                0.0).abs().amax(1)
     tol_f = 10.0 * st.primal_tol * bscale
-    cand = ((flag < 0) & (flag != EXIT_UNBOUNDED)) | (flag == EXIT_OPTIMAL)
+    cand = ((flag < 0) & (flag != EXIT_UNBOUNDED)
+            & (flag != EXIT_TIMELIMIT)) | (flag == EXIT_OPTIMAL)
     lam_fit, refit_ok, x_fit = torch.zeros_like(lam), \
         torch.zeros_like(cand), torch.zeros_like(x)
     if host_any(cand):
@@ -1257,3 +1294,63 @@ def kkt_residuals(H, f, A, bupper, blower, sense, x, lam, ms: int = 0):
     comp = np.where(hard, slack_claim, 0.0)
     viol = np.maximum(np.where(hard, viol, -np.inf), comp).max(-1)
     return stat, viol
+
+
+# the f32 tolerances a re-solve in f64 drops for the reference defaults
+_F32_TOLS = ('primal_tol', 'dual_tol', 'zero_tol', 'pivot_tol',
+             'progress_tol', 'sing_tol')
+backstop_lanes = 0       # lanes re-solved by backstop_resolve
+
+
+def backstop_resolve(res: BatchResult, H, f, A, bupper, blower, sense=None,
+                     ms: int = 0, settings=None, kkt_tol: float = 1e-4,
+                     sw: Optional[SoftWeights] = None) -> BatchResult:
+    """The f32 outlier backstop (``daqp_tpu/batch.py:2772``): the lanes
+    whose exit flag is not optimal, or whose f64 KKT residual
+    (``kkt_residuals``) exceeds ``kkt_tol``, are solved again one by one
+    in f64 through the port's single-instance ``quadprog``, on the batch's
+    device, with the reference's f64 tolerances in place of the f32 ones
+    of ``settings``.  With ``sw`` (the batch's SOFT_WEIGHTS data, (B, m)
+    fields in raw units) a lane with SOFT rows is solved with its own
+    slack bounds and weights.  Lanes with BINARY bits are left as they
+    are.  A lane solved optimal takes the new x, lam and fval; every
+    re-solved lane takes the new flag.
+
+    A clean batch costs one KKT check on the host and comes back as the
+    same object."""
+    global backstop_lanes
+    from .api import quadprog
+    x, lam, flags = host_numpy(res.x, res.lam, res.exitflag)
+    B, m = lam.shape
+    sense_np = np.zeros((B, m), np.int32) if sense is None \
+        else _np(sense).astype(np.int32)
+    stat, viol = kkt_residuals(H, f, A, bupper, blower, sense_np, x, lam,
+                               ms=ms)
+    bad = (~np.isin(flags, (EXIT_OPTIMAL, EXIT_SOFT_OPTIMAL))
+           | (stat > kkt_tol) | (viol > kkt_tol))
+    bad &= ~np.any(sense_np & BINARY, axis=-1)
+    if not bad.any():
+        return res
+    st = {} if settings is None else dict(settings) \
+        if isinstance(settings, dict) else settings._asdict()
+    for k in _F32_TOLS:
+        st.pop(k, None)
+    dev = res.x.device
+    x_out, lam_out, fval_out = res.x.clone(), res.lam.clone(), \
+        res.fval.clone()
+    flag_out = res.exitflag.clone()
+    for b in np.nonzero(bad)[0]:
+        soft_w = None
+        if sw is not None and np.any(sense_np[b] & SOFT):
+            soft_w = {k: v[b] for k, v in zip(SoftWeights._fields, sw)}
+        one = quadprog(H[b], f[b], A[b], bupper[b], blower[b], sense_np[b],
+                       ms=ms, settings=st or None, dtype=torch.float64,
+                       soft_weights=soft_w, device=dev)
+        backstop_lanes += 1
+        if one.exitflag in (EXIT_OPTIMAL, EXIT_SOFT_OPTIMAL):
+            x_out[b] = one.x
+            lam_out[b] = one.lam
+            fval_out[b] = one.fval
+        flag_out[b] = one.exitflag
+    return res._replace(x=x_out, lam=lam_out, fval=fval_out,
+                        exitflag=flag_out)

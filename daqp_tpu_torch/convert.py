@@ -4,17 +4,20 @@ The functions read JAX objects only through ``np.asarray`` and field
 access, so this module (like the rest of the package) never imports
 jax.  They let a test feed one state to a JAX function and to its
 counterpart here: JAX keeps slot state lanes-last ((m, B), (1, B)), the
-port batch-leading ((B, m), (B,)).
+port batch-leading ((B, m), (B,)).  The single-instance ``LDPState``
+keeps its arrays as they are; its control scalars are Python values
+here, 0-d arrays in JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .ldp import LDPState
 from .ops.dense import DenseState
 from .ops.slot import SlotState
 from .transform import LDPData
-from .types import Settings
+from .types import Settings, SoftWeights
 
 # per-lane scalars: (1, B) in JAX, (B,) here
 _SCALARS = ("fbound", "pend", "plam", "plo", "pid", "pdd", "fval",
@@ -144,3 +147,58 @@ def ldp_from_jax(ldpd, device="cpu") -> LDPData:
     return LDPData(**{
         name: torch.as_tensor(np.array(getattr(ldpd, name)), device=device)
         for name in LDPData._fields})
+
+
+# LDPState's control scalars: Python ints / bools here, 0-d arrays in JAX
+_LDP_INT = ("n_active", "ns_active", "iterations", "cycle_counter",
+            "tried_repair", "status")
+_LDP_BOOL = ("sing", "in_bnb")
+
+
+def ldp_state_from_jax(s, device="cpu") -> LDPState:
+    """A JAX single-instance ``LDPState`` -> the port's (WS as int64)."""
+    fields = {}
+    for name in LDPState._fields:
+        v = getattr(s, name)
+        if name == "sw":
+            fields[name] = None if v is None else SoftWeights(
+                *(torch.as_tensor(np.array(x), device=device) for x in v))
+        elif name in _LDP_INT:
+            fields[name] = int(np.asarray(v))
+        elif name in _LDP_BOOL:
+            fields[name] = bool(np.asarray(v))
+        else:
+            t = torch.as_tensor(np.array(v), device=device)
+            fields[name] = t.to(torch.int64) if name == "WS" else t
+    return LDPState(**fields)
+
+
+def ldp_state_to_numpy(s: LDPState) -> dict:
+    """The port's ``LDPState`` (or JAX's) as numpy arrays: every field,
+    the scalars as 0-d arrays, WS as int32, ``sw`` as a tuple or None."""
+    out = {}
+    for name in LDPState._fields:
+        v = getattr(s, name)
+        if name == "sw":
+            out[name] = None if v is None else tuple(_host(x) for x in v)
+        else:
+            out[name] = _host(v).astype(np.int32) if name == "WS" \
+                else _host(v)
+    return out
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.array(x)
+
+
+def result_to_numpy(r) -> dict:
+    """A single-instance result of either package (the port's ``Result``
+    or the JAX one) as numpy arrays and Python numbers."""
+    return dict(x=_host(r.x), lam=_host(r.lam), fval=float(_host(r.fval)),
+                exitflag=int(_host(r.exitflag)),
+                iterations=int(_host(r.iterations)),
+                soft_slack=float(_host(r.soft_slack)),
+                nodes=int(_host(r.nodes)))
+

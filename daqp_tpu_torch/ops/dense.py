@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import host_any, smem
+from . import check_deadline, host_any, smem
 from .slot import (MAX_ROUNDS, STEPS, _HELD, _check, _cuda_device,
                    _first_min, _launch)
 from ..types import (Settings, DAQP_INF, EXIT_CYCLE, EXIT_INFEASIBLE,
@@ -745,8 +745,8 @@ def polish(s: DenseState, st: Settings, refine_steps: int = 2) -> DenseState:
 
 
 def dense_solve(s: DenseState, st: Settings, n_true: int,
-                steps: int = STEPS, max_rounds: int = MAX_ROUNDS
-                ) -> DenseState:
+                steps: int = STEPS, max_rounds: int = MAX_ROUNDS,
+                deadline=None) -> DenseState:
     """Kernel rounds until every lane is terminal, exact repair between
     rounds where a lane needs it, two polish / re-open cycles, one more
     polish whose re-opened lanes exit loud, then ITERLIMIT (iterations
@@ -759,13 +759,16 @@ def dense_solve(s: DenseState, st: Settings, n_true: int,
     tier's ROADMAP Queue C fault, which the JAX ``dense_solve`` shares
     (pallas_batch.py:1300-1303): without it a lane re-opened by the
     second polish ends on unrefined kernel steps and may exit OPTIMAL with
-    its active rows not met."""
+    its active rows not met.  ``deadline`` is checked before the first
+    round and after each one (``ops.check_deadline``,
+    pallas_batch.py:1267-1295)."""
     iter_limit = float(torch.tensor(min(float(st.iter_limit),
                                         float(steps * max_rounds)),
                                     dtype=torch.float32))
     lane_rounds = torch.zeros_like(s.iterations)
     if host_any(repair_needed(s)):
         s = exact_repair(s, st)
+    s = check_deadline(s, deadline)
 
     def rounds(s, lane_rounds):
         while True:
@@ -783,6 +786,7 @@ def dense_solve(s: DenseState, st: Settings, n_true: int,
             lane_rounds = lane_rounds + live.to(lane_rounds.dtype)
             if host_any(repair_needed(s)):
                 s = exact_repair(s, st)
+            s = check_deadline(s, deadline)
 
     s, lane_rounds = rounds(s, lane_rounds)
     for _ in range(2):

@@ -42,7 +42,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, host_any, smem
+from . import _build, check_deadline, host_any, smem
 from ..types import (Settings, DAQP_INF, EXIT_CYCLE, EXIT_INFEASIBLE,
                      EXIT_ITERLIMIT, EXIT_OPTIMAL, EXIT_REFACTOR,
                      EXIT_RUNNING, EXIT_UNBOUNDED, PRICING_BLAND)
@@ -564,7 +564,8 @@ def polish(s: SlotState, st: Settings) -> SlotState:
 
 
 def slot_solve(s: SlotState, st: Settings, n_true: int,
-               steps: int = STEPS, max_rounds: int = MAX_ROUNDS) -> SlotState:
+               steps: int = STEPS, max_rounds: int = MAX_ROUNDS,
+               deadline=None) -> SlotState:
     """Kernel rounds of ``steps`` iterations until every lane is
     terminal, exact repair between rounds where a lane needs it, then two
     polish / re-open cycles; finally a still-running lane exits ITERLIMIT
@@ -575,13 +576,19 @@ def slot_solve(s: SlotState, st: Settings, n_true: int,
     lane whose iterations reached the limit, or which has had
     ``max_rounds`` live rounds, is held out of further rounds (the JAX
     loop counts rounds for the whole batch and keeps running every live
-    lane while any lane is under the limit)."""
+    lane while any lane is under the limit).
+
+    ``deadline`` (``ops.check_deadline``) is checked before the first
+    round and after each one, as in the JAX ``slot_solve``
+    (pallas_slot.py:2230-2256): a lane running past it exits
+    TIMELIMIT."""
     iter_limit = float(torch.tensor(min(float(st.iter_limit),
                                         float(steps * max_rounds)),
                                     dtype=torch.float32))
     lane_rounds = torch.zeros_like(s.iterations)
     if host_any(repair_needed(s)):
         s = exact_repair(s, st)
+    s = check_deadline(s, deadline)
 
     def rounds(s, lane_rounds):
         while True:
@@ -599,6 +606,7 @@ def slot_solve(s: SlotState, st: Settings, n_true: int,
             lane_rounds = lane_rounds + live.to(lane_rounds.dtype)
             if host_any(repair_needed(s)):
                 s = exact_repair(s, st)
+            s = check_deadline(s, deadline)
 
     s, lane_rounds = rounds(s, lane_rounds)
     for _ in range(2):

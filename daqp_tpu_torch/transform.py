@@ -2,8 +2,10 @@
 
 Counterpart of ``daqp_tpu/transform.py``: ``:42 LDPData``, ``:57
 factorize_hessian``, ``:140 build_ldp`` (vmapped in ``batch.py:523``),
-``:236 update_vd`` and ``:340 ldp_to_qp_solution``.  Batch-leading:
-(B, m, n), (B, m), (B,).  The factorization and the products are plain
+``:236 update_vd``, ``:248 update_sense``, ``:280 update_d_from_v``,
+``:287 get_proximal_regularization``, ``:322 check_unconstrained`` and
+``:340 ldp_to_qp_solution``.  Batch-leading: (B, m, n), (B, m), (B,);
+the single-instance path runs them at B = 1.  The factorization and the products are plain
 ``torch.linalg`` / ``torch.matmul`` calls: the JAX package does this work
 in XLA, outside any Pallas kernel.  TF32 is off package-wide.
 """
@@ -13,8 +15,9 @@ from typing import NamedTuple
 
 import torch
 
+from .ops import host_any
 from .types import (ACTIVE, IMMUTABLE, SOFT, EXIT_INFEASIBLE,
-                    EXIT_NONCONVEX, Settings)
+                    EXIT_NONCONVEX, Settings, SoftWeights)
 
 
 class LDPData(NamedTuple):
@@ -106,14 +109,20 @@ def factorize_hessian(H: torch.Tensor, st: Settings):
 
 
 def build_ldp(f, A, bupper, blower, sense, ms: int, st: Settings,
-              Rinv: torch.Tensor = None, H: torch.Tensor = None) -> LDPData:
+              Rinv: torch.Tensor = None, H: torch.Tensor = None,
+              soft_weights: torch.Tensor = None) -> LDPData:
     """M = [Rinv[:ms]; A Rinv], v, the bounds check with auto-equality,
     row normalization with zero rows, and d = b * scaling + M v
     (``daqp_update_ldp``, utils.c:14-135).  Rinv is the given factor, or
     ``factorize_hessian(H)`` when none is given.  With neither (LP mode,
     ``transform.py:162-166``) Rinv = I in A's type, every direction is
     proximal (``prox_mask`` all true, ``n_prox`` = n) and the proximal
-    outer loop supplies v; ``f`` None gives v = 0."""
+    outer loop supplies v; ``f`` None gives v = 0.
+
+    ``soft_weights`` ((B, m) per-row penalties): a SOFT row's penalty
+    rho_i becomes the uniform rho_soft on the row scaled by
+    sqrt(rho_soft / rho_i), kept in ``scaling`` (``transform.py:209-223``;
+    slack bounds are ``SoftWeights``' business, not this one's)."""
     fact_err = None
     lp_mode = Rinv is None and H is None
     if lp_mode:
@@ -163,6 +172,14 @@ def build_ldp(f, A, bupper, blower, sense, ms: int, st: Settings,
         & ((sense & IMMUTABLE) == 0) & ((sense & SOFT) == 0)).any(dim=1)
     sense = torch.where(zero_row, (sense | IMMUTABLE) & ~ACTIVE, sense)
 
+    if soft_weights is not None:
+        w = soft_weights.to(dtype)
+        c = torch.sqrt(torch.tensor(st.rho_soft, dtype=dtype, device=dev)
+                       / torch.clamp(w, min=1e-30))
+        c = torch.where((sense & SOFT) > 0, c, torch.ones_like(c))
+        M = M * c[..., None]
+        scaling = scaling * c
+
     # d = b * scaling + M v  (daqp_update_d, utils.c:410-455)
     Mv = torch.matmul(M, v[..., None])[..., 0]
     err = torch.where(fact_err != 0, fact_err,
@@ -186,3 +203,88 @@ def update_vd(ldp: LDPData, f, bupper, blower) -> LDPData:
 def ldp_to_qp_solution(ldp: LDPData, u: torch.Tensor) -> torch.Tensor:
     """x = Rinv (u - v)  (``ldp2qp_solution``, daqp.c:111-139)."""
     return torch.matmul(ldp.Rinv, (u - ldp.v)[..., None])[..., 0]
+
+
+def update_sense(ldp: LDPData, sense, bupper, blower,
+                 st: Settings) -> LDPData:
+    """The sense-only update (mask UPDATE_sense, utils.c:31-39): the new
+    user sense with the derived bits re-applied (auto-equality where
+    bu - bl < zero_tol, IMMUTABLE on the zero rows, which the normalized
+    M keeps at zero) and the bound error re-derived under it; a
+    factorization error stays.  No refactorization, no M / v / d
+    rebuild."""
+    dtype = ldp.M.dtype
+    sense = sense.to(torch.int32)
+    bu, bl = bupper.to(dtype), blower.to(dtype)
+    mutable = (sense & IMMUTABLE) == 0
+    diff = bu - bl
+    trivially_infeasible = (mutable & (diff < -st.primal_tol)).any(dim=1)
+    is_eq = mutable & (diff < st.zero_tol) & ((sense & SOFT) == 0)
+    sense = torch.where(is_eq, sense | (ACTIVE | IMMUTABLE), sense)
+    zero_row = (ldp.M * ldp.M).sum(dim=2) < 0.5
+    zero_row_infeasible = (
+        zero_row & ((bu < -st.zero_tol) | (bl > st.zero_tol))
+        & ((sense & IMMUTABLE) == 0) & ((sense & SOFT) == 0)).any(dim=1)
+    sense = torch.where(zero_row, (sense | IMMUTABLE) & ~ACTIVE, sense)
+    err = torch.where(ldp.error == EXIT_NONCONVEX, ldp.error,
+                      torch.where(trivially_infeasible | zero_row_infeasible,
+                                  EXIT_INFEASIBLE, 0))
+    return ldp._replace(sense=sense.to(torch.int32),
+                        error=err.to(torch.int32))
+
+
+def update_d_from_v(ldp: LDPData, v, bupper, blower) -> LDPData:
+    """A caller's v (the proximal outer loops) and d refreshed from it."""
+    Mv = torch.matmul(ldp.M, v[..., None])[..., 0]
+    return ldp._replace(v=v, dupper=bupper * ldp.scaling + Mv,
+                        dlower=blower * ldp.scaling + Mv)
+
+
+def get_proximal_regularization(ldp: LDPData, H=None,
+                                st: Settings = None) -> torch.Tensor:
+    """The applied proximal shift per lane
+    (``daqp_get_proximal_regularization``, utils.c:299-343): the tracked
+    ``eps_used`` (0 for a PD Hessian), or with ``H`` ((B, n, n)) the shift
+    recovered from the factor, 1 / Rinv[0, 0]^2 - H[0, 0], rounded up to
+    the retry level eps0 2^k (0 below eps0 / 2)."""
+    if H is None:
+        return ldp.eps_used
+    zero_tol = st.zero_tol if st is not None else 1e-11
+    eps_prox = st.eps_prox if st is not None else 1e-6
+    rinv00 = ldp.Rinv[:, 0, 0]
+    recovered = 1.0 / (rinv00 * rinv00) - H[:, 0, 0]
+    scale = torch.diagonal(H, dim1=1, dim2=2).abs().amax(1)
+    eps = torch.clamp(zero_tol ** 0.5 * scale, min=eps_prox)
+    while host_any(1.5 * eps < recovered):
+        eps = torch.where(1.5 * eps < recovered, eps * 2.0, eps)
+    return torch.where(recovered < 0.5 * torch.clamp(
+        zero_tol ** 0.5 * scale, min=eps_prox), torch.zeros_like(eps), eps)
+
+
+def check_unconstrained(ldp: LDPData, st: Settings):
+    """Per lane, whether the unconstrained optimum x = -Rinv v is feasible
+    and no row is active or immutable (``daqp_check_unconstrained``,
+    utils.c:529-598): u = 0 solves the LDP, so dlower <= 0 <= dupper on
+    the rows that are not IMMUTABLE.  Returns ``(feasible (B,), x
+    (B, n))``."""
+    x = -torch.matmul(ldp.Rinv, ldp.v[..., None])[..., 0]
+    up_ok = ldp.dupper >= -st.primal_tol * ldp.scaling
+    lo_ok = ldp.dlower <= st.primal_tol * ldp.scaling
+    ignored = (ldp.sense & IMMUTABLE) > 0
+    feasible = (up_ok | ignored).all(dim=1) & (lo_ok | ignored).all(dim=1)
+    no_active = ((ldp.sense & (ACTIVE | IMMUTABLE)) == 0).all(dim=1)
+    return feasible & no_active, x
+
+
+def normalize_soft_weights(sw: SoftWeights, ldpd: LDPData) -> SoftWeights:
+    """SOFT_WEIGHTS data (raw units, the shape of ``ldpd.scaling``) in the
+    row-scaled dual formulation, zero on hard rows (utils.c:99-110;
+    ``daqp_tpu/batch.py:551-570``): d / scaling, rho scaling^2."""
+    soft = (ldpd.sense & SOFT) > 0
+    sc = ldpd.scaling
+
+    def norm(x, p):
+        return torch.where(soft, x.to(sc.dtype) * sc ** p, 0.0)
+
+    return SoftWeights(d_ls=norm(sw.d_ls, -1), d_us=norm(sw.d_us, -1),
+                       rho_ls=norm(sw.rho_ls, 2), rho_us=norm(sw.rho_us, 2))

@@ -2,13 +2,13 @@
 
 Counterpart of ``daqp_tpu/types.py`` (sense bits :26-31, exit flags
 :36-56, ``Settings`` :87-114, ``default_settings_f32`` :121-148,
-``SoftWeights`` :151), of
+``SoftWeights`` :151, ``Problem`` :167, ``Result`` :188), of
 ``daqp_tpu/api.py:24 _as_settings`` and of ``daqp_tpu/ldp_flat.py:65
 EXIT_REFACTOR``.  Same names, values and defaults; no jax.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -110,3 +110,41 @@ def as_settings(settings, dtype) -> Settings:
                 else Settings())
         return base._replace(**(settings or {}))
     return settings
+
+
+class Problem(NamedTuple):
+    """A dense QP instance (types.h:14-50):
+
+    minimize    0.5 x' H x + f' x
+    subject to  blower[:ms] <= x[:ms] <= bupper[:ms]
+                blower[ms:] <= A x    <= bupper[ms:]
+
+    H is None for an LP; A has shape (m - ms, n); ``sense`` holds the
+    per-row bit flags; ``break_points`` the hierarchy's levels."""
+    H: Optional[torch.Tensor]
+    f: Optional[torch.Tensor]
+    A: torch.Tensor
+    bupper: torch.Tensor
+    blower: torch.Tensor
+    sense: Optional[torch.Tensor] = None
+    ms: int = 0
+    break_points: Optional[tuple] = None
+
+
+class Result(NamedTuple):
+    """A single-instance solve's result (include/api.h:14-26): x, lam
+    (m,) and fval, soft_slack (0-d) as tensors on the solve's device; the
+    exit flag, iteration and node counts as Python ints."""
+    x: torch.Tensor
+    lam: torch.Tensor
+    fval: torch.Tensor
+    exitflag: int
+    iterations: int
+    soft_slack: torch.Tensor
+    nodes: int
+    solve_time: float = 0.0
+    setup_time: float = 0.0
+
+    @property
+    def status(self) -> str:
+        return FLAG_TO_STATUS.get(int(self.exitflag), "unknown")

@@ -26,13 +26,18 @@ def test_import_leaves_jax_out():
     # entry bound (one extern "C" function per .cu file)
     code = ("import sys, daqp_tpu_torch, daqp_tpu_torch.mpc, "
             "daqp_tpu_torch.prox, daqp_tpu_torch.ops.dense, "
-            "daqp_tpu_torch.ops.slot, daqp_tpu_torch.convert; "
+            "daqp_tpu_torch.ops.slot, daqp_tpu_torch.convert, "
+            "daqp_tpu_torch.api, daqp_tpu_torch.core, daqp_tpu_torch.ldp, "
+            "daqp_tpu_torch.model, daqp_tpu_torch.warmstart, "
+            "daqp_tpu_torch.geometry; "
             "from daqp_tpu_torch.ops import _build; "
             "srcs = sorted(p.stem for p in _build._CSRC.glob('*.cu')); "
             "assert srcs == sorted(k[:-4] for k in _build._SIGNATURES), srcs; "
             "assert {'avi_segment', 'lp_segment'} <= set(srcs); "
             "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert 'daqp_tpu' not in sys.modules, 'daqp_tpu imported'")
+            "assert 'daqp_tpu' not in sys.modules, 'daqp_tpu imported'; "
+            "assert not any(k == 'oracle' or k.startswith('oracle.') "
+            "for k in sys.modules), 'oracle imported'")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -121,9 +126,9 @@ def test_lp_entry_and_segment_device_rules():
         gap = np.abs(np.einsum('bn,bn->b', f, r.x.numpy() - x_ref))
         assert gap.max() < 1e-4 * (1 + np.abs(np.einsum('bn,bn->b', f,
                                                          x_ref)).max())
-    with pytest.raises(NotImplementedError):
-        dt.solve_batch_lp_kernel(*args, None, st, deadline=1.0,
-                                 device="cpu")
+    # a deadline long past: every lane exits TIMELIMIT
+    r = dt.solve_batch_lp_kernel(*args, None, st, deadline=1.0, device="cpu")
+    assert (r.exitflag.numpy() == dt.EXIT_TIMELIMIT).all(), r.exitflag
     s = _meta_state()
     vec = torch.empty((2,), device="meta")
     rows = torch.empty((2, 4), device="meta")
@@ -241,6 +246,13 @@ def test_unported_options_raise(kw):
                       ('H', 'f', 'A', 'bupper', 'blower')), range(5),
                     z[b] + 0.0, z[b] + 0.1, z[b] + 1.0, z[b] + 2.0)
                 assert np.abs(r.x[b].numpy() - ref).max() < 5e-4
+        return
+    if "deadline" in kw:
+        # ported: a deadline long past gives every lane TIMELIMIT
+        for solve in (dt.solve_batch_kernel_stream, dt.solve_batch_kernel):
+            r = solve(*args, st=st, **kw)
+            assert (r.exitflag.numpy() == dt.EXIT_TIMELIMIT).all(), \
+                r.exitflag
         return
     with pytest.raises(NotImplementedError):
         dt.solve_batch_kernel_stream(*args, st=st, **kw)
