@@ -13,8 +13,9 @@ config 4 (``solve_batch_prox_kernel``), config 4b
 (``solve_batch_hiqp_kernel``), configAVI (``solve_batch_avi_kernel``),
 configLP (``solve_batch_lp_kernel``, per-pass and fused), the backstop
 (``backstop_resolve`` of ``chip_smoke.py``'s forced failures, on the
-first 256 lanes) and config
-1 (16 single-instance ``quadprog`` solves, f64 and f32), at the data of
+first 256 lanes), config
+1 (16 single-instance ``quadprog`` solves, f64 and f32) and config 5
+(``solve_batch_miqp_kernel``: node waves on K1 and K2), at the data of
 ``chip_smoke.py``, it runs
 one warm-up call and then one call under ``torch.profiler`` (CPU and
 CUDA activities), and prints one JSON line per cell: the host wall of the
@@ -22,6 +23,8 @@ profiled call, the device time summed over kernels, the device's busy and
 idle shares of the wall, the host syncs, and the kernels that took most
 device time with their launch counts.  The Chrome traces go to
 ``chiprun_out/profile_<cell>.json.gz``.  Without a CUDA device it exits 2.
+``python3 chip_profile.py --cells config5 config1_float64`` profiles the
+named cells alone.
 
     python3 chip_profile.py --probe k2
 
@@ -122,7 +125,12 @@ def device_us(evt):
     return 0.0
 
 
+CELLS = None      # --cells: the cells to profile (None: every cell)
+
+
 def profiled(cell, fn, card):
+    if CELLS is not None and cell not in CELLS:
+        return
     fn()
     torch.cuda.synchronize()
     ops.host_syncs = 0
@@ -274,8 +282,16 @@ def probe_round(lib, s, st, n_true, steps):
 
 
 def probe_k2(dev, card):
+    if "--cells" in sys.argv:
+        global CELLS
+        CELLS = set(sys.argv[sys.argv.index("--cells") + 1:])
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)
     gen = cs.load("daqp_test_gen", "tests/gen.py")
+    d5 = cs.config5()
+    args5 = [torch.as_tensor(d5[k], device=dev) for k in (
+        'H', 'f', 'A', 'bupper', 'blower', 'sense')]
+    profiled("config5", lambda: dt.solve_batch_miqp_kernel(*args5, st),
+             card)
     d = gen.generate_test_qp_batch(cs.B, cs.N, cs.M_ROWS, 0, cs.N_ACT,
                                    cs.KAPPA, rng=cs.SEED, dtype=np.float32)
     full = [torch.as_tensor(d[k], device=dev)
@@ -422,8 +438,16 @@ def probe_segment(case, source, entry, launch, name, B, card,
 
 def probe_k3(dev, card):
     """B3 at k3's warm segment 1 of config 3, its one launch per call."""
+    if "--cells" in sys.argv:
+        global CELLS
+        CELLS = set(sys.argv[sys.argv.index("--cells") + 1:])
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)
     gen = cs.load("daqp_test_gen", "tests/gen.py")
+    d5 = cs.config5()
+    args5 = [torch.as_tensor(d5[k], device=dev) for k in (
+        'H', 'f', 'A', 'bupper', 'blower', 'sense')]
+    profiled("config5", lambda: dt.solve_batch_miqp_kernel(*args5, st),
+             card)
     d3 = cs.config3(gen)
     args = [torch.as_tensor(d3[k], device=dev)
             for k in ('H', 'A', 'f_seq', 'bu_seq', 'bl_seq')]
@@ -458,8 +482,16 @@ def probe_k4(dev, card):
 def probe_k5(dev, card):
     """B5 at k5's cold segment and at the last launch of one configAVI
     solve."""
+    if "--cells" in sys.argv:
+        global CELLS
+        CELLS = set(sys.argv[sys.argv.index("--cells") + 1:])
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)
     gen = cs.load("daqp_test_gen", "tests/gen.py")
+    d5 = cs.config5()
+    args5 = [torch.as_tensor(d5[k], device=dev) for k in (
+        'H', 'f', 'A', 'bupper', 'blower', 'sense')]
+    profiled("config5", lambda: dt.solve_batch_miqp_kernel(*args5, st),
+             card)
     d = cs.config_avi(gen)
     args = [torch.as_tensor(d[k], device=dev)
             for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
@@ -655,8 +687,16 @@ def main():
         print_sass(card)
         print(card, flush=True)
         return 0
+    if "--cells" in sys.argv:
+        global CELLS
+        CELLS = set(sys.argv[sys.argv.index("--cells") + 1:])
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)
     gen = cs.load("daqp_test_gen", "tests/gen.py")
+    d5 = cs.config5()
+    args5 = [torch.as_tensor(d5[k], device=dev) for k in (
+        'H', 'f', 'A', 'bupper', 'blower', 'sense')]
+    profiled("config5", lambda: dt.solve_batch_miqp_kernel(*args5, st),
+             card)
     keys = ('H', 'f', 'A', 'bupper', 'blower', 'sense')
 
     d = gen.generate_test_qp_batch(cs.B, cs.N, cs.M_ROWS, 0, cs.N_ACT,

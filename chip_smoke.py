@@ -60,6 +60,23 @@ before and read just after:
   (10, 30, 10, 8, 1e2)``, seed 2025) one at a time through
   ``dt.quadprog(device="cuda")`` in f64 and f32, then one ``Model`` per
   type (a host-driven loop over tensors on the card: no kernel);
+* ``miqp``: BASELINE config 5 (B = 256 dense MIQPs, n = 20, m = 40, 6
+  binary rows, seed 13, f32; ``bench_extra.py:196-216``) through
+  ``solve_batch_miqp_kernel``: node waves of K2 with the per-lane
+  dominance cut, after one K1 factorization, checked against the f64
+  branch-and-bound oracle on every 4th lane and the JAX tier's optimal
+  rate (K1, K2);
+* ``meta``: the single-instance meta-solvers on the card (no kernel):
+  16 configLP LPs through ``dt.linprog`` in f32 with the f64 backstop,
+  8 configAVI AVIs through ``dt.avi``, 16 config-4b hierarchies through
+  ``dt.quadprog(break_points=...)`` and 16 config-5 MIQPs through
+  ``dt.quadprog`` in f64, each against its gate, and one ``Model`` of an
+  LP, a hierarchy and a MIQP equal to the one-shot result.
+
+The ``hiqp``, ``avi`` and ``lp`` phases end with their tier's backstop
+(``backstop_resolve_hiqp``, ``_avi``, ``_lp``): the batch's loud lanes
+and every 16th lane forced loud, re-solved in f64 through the
+single-instance API on the card and held to the phase's own gate.
 
 * ``stages``: the factorization stage (``scripts/profile_stages.py``):
   per-stage ms on its four B = 1024 batches (K1, B8, B9, B10, the
@@ -69,7 +86,9 @@ before and read just after:
   the factor's kernel).
 
 Phases ``k1``-``k10`` hold each kernel against its plain twin at the
-paths' shapes (``k2`` and ``k7`` also at the streams' 256-lane chunk
+paths' shapes (``k2`` also with a finite dominance bound on every other
+lane of the 256-lane chunk, case b; ``k2`` and ``k7`` also at the
+streams' 256-lane chunk
 and at the largest m whose block fits, ``k2`` also from slots scattered
 by a permutation, ``k8`` also at n = 10, 12, 20, 32, 64 and 100, so at
 every lane tile, ``k10`` at n = 100-500, beside K1; ``k1`` at the same
@@ -256,6 +275,19 @@ B_BACK, BACK_STRIDE, BACK_SHIFT = 256, 12, 0.05
 SW_BACK_LOUD = 24
 # one H100 SXM, published peaks: f32 outside the tensor cores,
 # HBM bandwidth
+# BASELINE config 5 (bench_extra.py:196-216): dense MIQPs with binaries on
+# identity rows, f32, iter_limit 1000 (main's st)
+B5, N5, M5, NB5, SEED5 = 256, 20, 40, 6, 13
+MIQP_STRIDE = 4       # the oracle gates every 4th lane (64 lanes)
+MIQP_TOL = 1e-3       # fval within 1e-3 (1 + |fval|), test_batch_miqp.py:76
+# The JAX tier's own census on config 5 (solve_batch_miqp_pallas_jit,
+# interpret mode, on the CPU; 256 lanes, mean 6.0 nodes): every lane
+# flag 1, each of the 64 gated lanes the oracle's flag within 1.8e-6
+JAX_MIQP_OPT_RATE = 256 / 256
+# meta: the single-instance meta-solvers on the card
+META_LP, META_AVI, META_HIQP, META_MIQP = 16, 8, 16, 16
+META_MIQP_TOL = 1e-6  # f64 MIQP fval against bnb_numpy, / (1 + |fval|)
+
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -627,18 +659,66 @@ def scattered(s, seed):
                       E=E.contiguous(), **vec)
 
 
+def k2_cut_case(s_e, st):
+    """K2's per-lane dominance cut (``fbound``, slot_step.cuh:650) against
+    its twin on case e's lanes: every other lane that the twin's unbounded
+    round leaves OPTIMAL gets a bound of half its optimal LDP fval, the
+    rest DAQP_INF.  Gates: kernel and twin flag every cut lane
+    INFEASIBLE; on the other lanes the kernel's state is bit for bit its
+    unbounded round's and the twin's its own, so kernel and twin agree
+    there as in case e."""
+    n = s_e.M.shape[2]
+    sk_e = slot.run_slot_round(s_e, st, n, STEPS)
+    sp_e = slot.run_slot_round_plain(s_e, st, n, STEPS)
+    lanes = torch.arange(s_e.M.shape[0], device=s_e.M.device)
+    cut = (lanes % 2 == 0) & (sp_e.status == dt.EXIT_OPTIMAL)
+    fb = torch.where(cut, 0.5 * sp_e.fval, dt.DAQP_INF).contiguous()
+    s_b = s_e._replace(fbound=fb)
+    sk = slot.run_slot_round(s_b, st, n, STEPS)
+    sp = slot.run_slot_round_plain(s_b, st, n, STEPS)
+    rest = ~cut
+    same_k = bool(all(torch.equal(getattr(sk, k)[rest], getattr(sk_e, k)[rest])
+                      for k in slot.STATE))
+    same_p = bool(torch.equal(sp.status[rest], sp_e.status[rest])
+                  and torch.equal(sp.u[rest], sp_e.u[rest]))
+    agree_b = (sk.status == sp.status)[rest]
+    agree_e = (sk_e.status == sp_e.status)[rest]
+    cut_k = bool((sk.status[cut] == dt.EXIT_INFEASIBLE).all())
+    cut_p = bool((sp.status[cut] == dt.EXIT_INFEASIBLE).all())
+    steps_cut = (sk.iterations - s_b.iterations)[cut].sum().item()
+    steps_free = (sk_e.iterations - s_e.iterations)[cut].sum().item()
+    ms = cuda_ms(lambda: slot.run_slot_round(s_b, st, n, STEPS), 5)
+    plain_ms = cuda_ms(lambda: slot.run_slot_round_plain(s_b, st, n, STEPS),
+                       2)
+    out = dict(B=int(lanes.numel()), cut_lanes=int(cut.sum()),
+               cut_kernel_infeasible=cut_k, cut_twin_infeasible=cut_p,
+               flags_equal_on_cut=bool(torch.equal(sk.status[cut],
+                                                   sp.status[cut])),
+               rest_kernel_bitwise_as_unbounded=same_k,
+               rest_twin_as_unbounded=same_p,
+               rest_agree_as_case_e=bool(torch.equal(agree_b, agree_e)),
+               rest_agree_rate=agree_b.float().mean().item(),
+               steps_cut_lanes=steps_cut, steps_cut_lanes_unbounded=steps_free,
+               ms=ms, plain_ms=plain_ms)
+    ok = cut_k and cut_p and same_k and same_p \
+        and bool(torch.equal(agree_b, agree_e)) and int(cut.sum()) > 0
+    return ok, out
+
+
 def phase_k2(args, chunk, st):
     """K2 against its twin: (a) one cold round on the first B_K2 config-2
     lanes; (e) the first 256-lane chunk of the sorted config-2 stream
-    (``chunk``, its QP args), K2's launch shape on the main path; (f)
-    B_EDGE random lanes at n = N and the largest m whose block fits;
-    (w) case e's lanes after W_STEPS steps of the twin, each lane's slots
-    permuted, the rest of the round from there."""
+    (``chunk``, its QP args), K2's launch shape on the main path; (b)
+    case e with a finite dominance bound on every other lane
+    (``k2_cut_case``); (f) B_EDGE random lanes at n = N and the largest m
+    whose block fits; (w) case e's lanes after W_STEPS steps of the twin,
+    each lane's slots permuted, the rest of the round from there."""
     t0 = time.perf_counter()
     dev = args[0].device
     ok_a, a = k2_case(slot_state(args, st), st)
     s_e = slot_state(chunk, st)
     ok_e, e = k2_case(s_e, st)
+    ok_b, b = k2_cut_case(s_e, st)
     M, du, dl = edge_lanes(slot_edge_m(dev), dev)
     one = torch.ones_like(du)
     ok_f, f = k2_case(slot.slot_init(M, du, dl, one, 0.0 * one, n_true=N),
@@ -646,15 +726,16 @@ def phase_k2(args, chunk, st):
     s_w = scattered(slot.run_slot_round_plain(s_e, st, N, W_STEPS), SEED)
     holes = slot_holes(s_w)
     ok_w, w = k2_case(s_w, st, STEPS - W_STEPS)
-    emit("k2", t0, config2=a, chunk256=e, edge=f,
+    emit("k2", t0, config2=a, chunk256=e, cut=b, edge=f,
          scattered=dict(lanes_with_holes=holes, **w))
-    ok = ok_a and ok_e and ok_f and ok_w and holes > 0
+    ok = ok_a and ok_e and ok_b and ok_f and ok_w and holes > 0
     return ok, dict(
         max_abs_err=max(a["du_inf"], e["du_inf"], f["du_inf"], w["du_inf"]),
         ms=a["ms"], plain_ms=a["plain_ms"], library_ms=None,
         bound_ms=a["bound_ms"], bound_by=a["bound_by"], ms_b256=e["ms"],
         plain_ms_b256=e["plain_ms"], bound_ms_b256=e["bound_ms"],
-        m_edge=f["m"], ms_edge=f["ms"], ms_scattered=w["ms"])
+        ms_cut=b["ms"], plain_ms_cut=b["plain_ms"], m_edge=f["m"],
+        ms_edge=f["ms"], ms_scattered=w["ms"])
 
 
 def phase_slice(full, d, st, card):
@@ -1660,18 +1741,72 @@ def hiqp_reference(d4b, st):
     return np.asarray(flags), np.stack(xs)
 
 
+def hiqp_class(f):
+    """A hierarchy's exit class: optimal (1, 2), no DOF left (3), loud."""
+    return np.where((f == 1) | (f == 2), 0, np.where(f == 3, 1, 2))
+
+
 def hiqp_counts(flags, x, ref_flags, ref_x):
     """(lanes whose flag class differs from the oracle's, lanes flagged 1
-    or 2 beyond HIQP_TOL where the oracle is positive, flags legal): the
-    classes are optimal (1, 2), no DOF left (3) and loud (< 0)."""
-    def cls(f):
-        return np.where((f == 1) | (f == 2), 0, np.where(f == 3, 1, 2))
-
+    or 2 beyond HIQP_TOL where the oracle is positive, flags legal)."""
+    cls = hiqp_class
     err = np.abs(x.astype(np.float64) - ref_x).max(1)
     mism = ((flags == 1) | (flags == 2)) & (err > HIQP_TOL) & (ref_flags > 0)
     legal = np.isin(flags, (1, 2, 3)) | (flags < 0)
     return int(np.sum(cls(flags) != cls(ref_flags))), int(mism.sum()), \
         bool(legal.all()), err
+
+
+# the tier backstops (lp, avi, hiqp): the batch's loud lanes plus every
+# TIER_BACK_STRIDE-th lane forced loud as force_failures does
+TIER_BACK_STRIDE = 16
+
+
+def tier_backstop(res, resolve, gate_fn, *args, **kw):
+    """``res`` with every TIER_BACK_STRIDE-th lane forced loud (ITERLIMIT,
+    x zero), then ``resolve(res, *args, **kw)`` (a tier backstop):
+    (ok, fields).  ``gate_fn(x, lanes)`` gives, per lane of ``lanes``,
+    whether an x on the host lies within the phase's own gate.  Gates:
+    every re-solved lane with a positive flag within the gate; the loud
+    count after at most the count before; the flag-1 lanes beyond the
+    gate after the backstop among those before it."""
+    lanes = torch.arange(res.x.shape[0], device=res.x.device)
+    forced = lanes % TIER_BACK_STRIDE == 0
+    res = res._replace(
+        x=torch.where(forced[:, None], 0.0, res.x).to(res.x.dtype),
+        exitflag=torch.where(forced, dt.EXIT_ITERLIMIT, res.exitflag)
+        .to(res.exitflag.dtype))
+    flags0 = res.exitflag.cpu().numpy()
+    x0 = res.x.cpu().numpy().astype(np.float64)
+    all_lanes = np.arange(flags0.size)
+    beyond0 = set(np.flatnonzero((flags0 == 1)
+                                 & ~gate_fn(x0, all_lanes)).tolist())
+    n0, s0 = pbatch.backstop_lanes, ops.host_syncs
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = resolve(res, *args, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    n_re = pbatch.backstop_lanes - n0
+    flags1 = out.exitflag.cpu().numpy()
+    x1 = out.x.cpu().numpy().astype(np.float64)
+    moved = np.flatnonzero((flags1 != flags0) | (x1 != x0).any(1)
+                           | np.isnan(x0).any(1))
+    within = gate_fn(x1, all_lanes)
+    bad = [int(b) for b in moved if flags1[b] > 0 and not within[b]]
+    beyond1 = set(np.flatnonzero((flags1 == 1) & ~within).tolist())
+    fields = dict(forced=int(forced.sum()), loud_before=loud(flags0),
+                  loud_after=loud(flags1), resolved=n_re,
+                  resolved_positive=int(np.sum(flags1[moved] > 0)),
+                  resolved_beyond_gate=bad,
+                  flag1_beyond_gate_before=sorted(beyond0),
+                  flag1_beyond_gate_after=sorted(beyond1),
+                  ms_per_resolved_lane=1e3 * secs / max(n_re, 1),
+                  syncs_per_resolved_lane=(ops.host_syncs - s0)
+                  / max(n_re, 1), on_card=out.x.is_cuda)
+    ok = not bad and loud(flags1) <= loud(flags0) and beyond1 <= beyond0 \
+        and n_re >= int(forced.sum()) and out.x.is_cuda
+    return ok, fields
 
 
 def phase_hiqp(args4b, d4b, st, card):
@@ -1705,6 +1840,14 @@ def phase_hiqp(args4b, d4b, st, card):
                                         ref_flags, ref_x)
     opt = (flags == 1) | (flags == 2)
     shape_ok = x.shape == (B4B, N4B) and bool(np.isfinite(x).all())
+    # the tier's backstop: the f64 walk at the tier's rho, held to the
+    # oracle at that rho where the oracle is optimal (hiqp_counts' rule)
+    ok_back, back = tier_backstop(
+        r, dt.backstop_resolve_hiqp, lambda xh, ls: (np.abs(
+            xh[ls] - ref_x[ls]).max(1) <= HIQP_TOL)
+        | ~np.isin(ref_flags[ls], (1, 2)),
+        None, *args4b, break_points=BP4B,
+        settings=pbatch.hiqp_settings(st))
     emit("hiqp", t0, B=B4B, n=N4B, break_points=BP4B, launches=launches,
          host_syncs=syncs, shape_finite_ok=shape_ok, flags_legal=legal,
          flags={int(k): int(v) for k, v in zip(*np.unique(
@@ -1720,10 +1863,10 @@ def phase_hiqp(args4b, d4b, st, card):
          max_err_optimal=float(err[opt].max()) if opt.any() else None,
          b7_launches_per_call=launches["dense_round"],
          solves_per_s=4 * B4B / best, window_s=best, oracle_s=oracle_s,
-         card=card)
+         backstop=back, card=card)
     ok = shape_ok and legal and diffs <= HIQP_CLASS_LIMIT \
         and mism <= JAX_HIQP_MISMATCHES + HIQP_SLACK \
-        and launches["dense_round"] >= 1
+        and launches["dense_round"] >= 1 and ok_back
     return ok, launches
 
 
@@ -2226,6 +2369,9 @@ def phase_avi(args, d_avi, st, card):
         best = w if best is None else min(best, w)
     shape_ok = x.shape == (B_AVI, N_AVI) and r.lam.shape == (B_AVI, M_AVI) \
         and bool(np.isfinite(x[flags == 1]).all())
+    ok_back, back = tier_backstop(
+        r, dt.backstop_resolve_avi, lambda xh, ls: np.abs(
+            xh[ls] - d_avi['x'][ls]).max(1) < AVI_TOL, *args, settings=st)
     emit("avi", t0, B=B_AVI, n=N_AVI, m=M_AVI, launches=launches,
          host_syncs=syncs, kkt_services=services, resumed_lanes=resumed,
          shape_finite_ok=shape_ok, flags_legal=bool(legal.all()),
@@ -2238,9 +2384,9 @@ def phase_avi(args, d_avi, st, card):
          loud_lanes=int(loud.size), loud_solved_by_f64_oracle=loud_solved,
          median_iters=float(np.median(r.iterations.cpu().numpy())),
          solves_per_s=4 * B_AVI / best, window_s=best, oracle_s=oracle_s,
-         card=card)
+         backstop=back, card=card)
     ok = shape_ok and bool(legal.all()) and silent == 0 \
-        and opt_rate >= AVI_OPT and launches["avi_segment"] >= 1
+        and opt_rate >= AVI_OPT and launches["avi_segment"] >= 1 and ok_back
     return ok, launches
 
 
@@ -2566,6 +2712,13 @@ def lp_path(args, d, st, fused, card):
     shape_ok = x.shape == (B_LP, N_LP) and r.lam.shape == (B_LP, M_LP) \
         and bool(np.isfinite(x[opt]).all())
     opt_rate = float(opt.mean())
+
+    def within(xh, ls):
+        g, fe = lp_gate({k: v[ls] for k, v in d.items()}, xh[ls])
+        return (g < LP_TOL) & (fe < LP_TOL)
+
+    ok_back, back = tier_backstop(r, dt.backstop_resolve_lp, within, *args,
+                                  settings=st)
     fields = dict(
         launches=launches, host_syncs=syncs, resumed_lanes=resumed,
         certified_lanes=certified, shape_finite_ok=shape_ok,
@@ -2579,8 +2732,10 @@ def lp_path(args, d, st, fused, card):
         max_gap_optimal=float(gap[opt].max()) if opt.any() else None,
         max_feas_optimal=float(feas[opt].max()) if opt.any() else None,
         median_iters=float(np.median(r.iterations.cpu().numpy())),
-        lp_solves_per_s=4 * B_LP / best, window_s=best, card=card)
+        lp_solves_per_s=4 * B_LP / best, window_s=best, backstop=back,
+        card=card)
     ok = shape_ok and bool(legal.all()) and opt_rate >= LP_OPT[path] \
+        and ok_back \
         and len(beyond) <= len(JAX_LP_BEYOND[path]) \
         and all(c["passes"] for c in checks.values()) \
         and (launches["lp_segment"] >= 1 if fused
@@ -2706,6 +2861,237 @@ def phase_single(gen, card):
     emit("single", t0, B=B1, n=N1, m=M1, ms=MS1, n_active=NACT1,
          kappa=KAPPA, seed=SEED1, launches=launches, **out, card=card)
     return ok and not any(launches.values()), launches
+
+
+def config5():
+    """bench_extra.py:199-216: BASELINE config 5's MIQPs, f32."""
+    rng = np.random.default_rng(SEED5)
+    Q = rng.standard_normal((B5, N5, N5)).astype(np.float32)
+    H = np.einsum('bij,bkj->bik', Q, Q) + 0.5 * np.eye(N5, dtype=np.float32)
+    f = (10 * rng.standard_normal((B5, N5))).astype(np.float32)
+    A = rng.standard_normal((B5, M5, N5)).astype(np.float32)
+    bu = (20 * rng.random((B5, M5))).astype(np.float32)
+    bl = (-20 * rng.random((B5, M5))).astype(np.float32)
+    bu[:, :NB5] = 1.0
+    bl[:, :NB5] = 0.0
+    A[:, :NB5] = 0.0
+    A[:, np.arange(NB5), np.arange(NB5)] = 1.0
+    sense = np.zeros((B5, M5), np.int32)
+    sense[:, :NB5] = dt.BINARY
+    return dict(H=H, f=f, A=A, bupper=bu, blower=bl, sense=sense)
+
+
+def miqp_oracle(d5, lanes):
+    """``oracle/bnb_numpy.solve_miqp`` in f64 on ``lanes``: (flags,
+    fval)."""
+    bnb = oracle_module("bnb_numpy")
+    out = [bnb.solve_miqp(*(d5[k][b].astype(np.float64) for k in (
+        'H', 'f', 'A', 'bupper', 'blower')), d5['sense'][b], ms=0)
+        for b in lanes]
+    return (np.array([o['exitflag'] for o in out]),
+            np.array([o['fval'] for o in out]))
+
+
+def phase_miqp(d5, st, card):
+    """BASELINE config 5 through ``solve_batch_miqp_kernel`` on the card
+    (K1, K2 with the per-lane dominance cut in every node wave), against
+    the f64 oracle on every MIQP_STRIDE-th lane: the same exit flag, fval
+    within MIQP_TOL (1 + |fval|), no lane flagged 1 beyond it; the optimal
+    rate over the batch at least the JAX tier's census; K1 and K2
+    launched, B7 not."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    H, f, A, bu, bl, sense = (torch.as_tensor(d5[k], device=dev) for k in (
+        'H', 'f', 'A', 'bupper', 'blower', 'sense'))
+
+    def solve(i=0):
+        return dt.solve_batch_miqp_kernel(H, f + 1e-4 * i, A, bu, bl, sense,
+                                          st)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    r = solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tw
+    launches = read_counts()
+    syncs, waves = ops.host_syncs, pbatch.miqp_waves
+    flags = r.exitflag.cpu().numpy()
+    fval = r.fval.cpu().numpy().astype(np.float64)
+    nodes = r.iterations.cpu().numpy()
+    lanes = np.arange(0, B5, MIQP_STRIDE)
+    t_or = time.perf_counter()
+    ref_flags, ref_fval = miqp_oracle(d5, lanes)
+    oracle_s = time.perf_counter() - t_or
+    rel = np.abs(fval[lanes] - ref_fval) / (1.0 + np.abs(ref_fval))
+    opt_ref = ref_flags == 1
+    flag_diffs = [int(b) for b, a, o in zip(lanes, flags[lanes], ref_flags)
+                  if a != o]
+    beyond = [int(b) for b, e, o in zip(lanes, rel, opt_ref)
+              if o and e > MIQP_TOL]
+    silent = [int(b) for b, a, e, o in zip(lanes, flags[lanes], rel, opt_ref)
+              if a == 1 and (not o or e > MIQP_TOL)]
+    calls = 4
+    best = None
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(calls):
+            solve(i)
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t
+        best = w if best is None else min(best, w)
+    opt_rate = float(np.mean(flags == 1))
+    x = r.x.cpu().numpy()
+    shape_ok = x.shape == (B5, N5) and r.lam.shape == (B5, M5) \
+        and bool(np.isfinite(x[flags == 1]).all())
+    emit("miqp", t0, B=B5, n=N5, m=M5, binaries=NB5, seed=SEED5,
+         launches=launches, waves=waves, host_syncs_per_call=syncs,
+         host_syncs_per_wave=syncs / max(waves, 1), wall_s=wall,
+         mean_nodes=float(nodes.mean()), max_nodes=int(nodes.max()),
+         flags={int(k): int(v) for k, v in zip(*np.unique(
+             flags, return_counts=True))},
+         optimal_rate=opt_rate, optimal_gate=JAX_MIQP_OPT_RATE,
+         gated_lanes=int(lanes.size), flag_diffs=flag_diffs,
+         fval_beyond=beyond, silent_wrong=len(silent),
+         max_fval_rel_err=float(rel[opt_ref].max()) if opt_ref.any()
+         else None, oracle_s=oracle_s, shape_finite_ok=shape_ok,
+         miqp_per_s=calls * B5 / best, window_s=best, card=card)
+    ok = shape_ok and not flag_diffs and not beyond and not silent \
+        and opt_rate >= JAX_MIQP_OPT_RATE and launches["chol_rinv"] >= 1 \
+        and launches["slot_round"] >= 1 and launches["dense_round"] == 0
+    return ok, launches
+
+
+def timed_solves(fn, items):
+    """``fn(item)`` for each item, on the card: (results, the median ms a
+    solve, host syncs a solve)."""
+    s0 = ops.host_syncs
+    out, ms = [], []
+    for it in items:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out.append(fn(it))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    return out, float(np.median(ms)), (ops.host_syncs - s0) / len(items)
+
+
+def phase_meta(d_lp, d_avi, d4b, d5, card):
+    """The single-instance meta-solvers on the card, each class its own
+    gate: META_LP configLP LPs through ``dt.linprog`` in f32 with the
+    default f64 backstop at configLP's iteration limit (bench_lp's gate), META_AVI configAVI AVIs
+    through ``dt.avi`` in f64 (AVI_TOL of the constructed solution),
+    META_HIQP config-4b hierarchies through ``dt.quadprog(break_points=
+    ...)`` in f64 at the tier's rho (HIQP_TOL of the f64 oracle at that
+    rho), META_MIQP config-5 MIQPs through ``dt.quadprog`` in f64 (the
+    oracle's flag, fval within META_MIQP_TOL); then one ``dt.Model`` each
+    of an LP, a hierarchy and a MIQP, whose solve must equal the one-shot
+    result.  No kernel is launched."""
+    t0 = time.perf_counter()
+    f64 = dict(dtype=torch.float64, device="cuda")
+    reset_counts()
+    out = {}
+
+    # configLP's iteration limit (bench_lp's): an f32 LP can run to it at
+    # its arithmetic floor before the f64 re-solve (PERF.md §6)
+    lp_res, ms, syn = timed_solves(lambda b: dt.linprog(
+        d_lp['f'][b], d_lp['A'][b], d_lp['bupper'][b], d_lp['blower'][b],
+        d_lp['sense'][b], ms=0, settings={"iter_limit": 3000},
+        dtype=torch.float32, device="cuda"), range(META_LP))
+    sub = {k: v[:META_LP] for k, v in d_lp.items()}
+    xs = np.stack([r.x.cpu().numpy().astype(np.float64) for r in lp_res])
+    gap, feas = lp_gate(sub, xs)
+    fl = np.array([r.exitflag for r in lp_res])
+    ok_lp = bool(((fl == 1) & (gap < LP_TOL) & (feas < LP_TOL)).all())
+    out["lp"] = dict(solves=META_LP, flags={int(k): int(v) for k, v in zip(
+        *np.unique(fl, return_counts=True))},
+        resolved_in_f64=int(sum(r.x.dtype == torch.float64 for r in lp_res)),
+        max_gap=float(gap.max()), max_feas=float(feas.max()),
+        median_ms=ms, host_syncs_per_solve=syn)
+
+    avi_res, ms, syn = timed_solves(lambda b: dt.avi(
+        *(d_avi[k][b] for k in ('H', 'f', 'A', 'bupper', 'blower',
+                                'sense')), ms=0, **f64), range(META_AVI))
+    err = np.array([np.abs(r.x.cpu().numpy() - d_avi['x'][b]).max()
+                    for b, r in enumerate(avi_res)])
+    fl = np.array([r.exitflag for r in avi_res])
+    ok_avi = bool(((fl == 1) & (err < AVI_TOL)).all())
+    out["avi"] = dict(solves=META_AVI, flags={int(k): int(v) for k, v in zip(
+        *np.unique(fl, return_counts=True))}, max_err=float(err.max()),
+        median_ms=ms, host_syncs_per_solve=syn)
+
+    hq = oracle_module("hiqp_numpy")
+    st4b = {"rho_soft": HIQP_RHO}
+    hier_res, ms, syn = timed_solves(lambda b: dt.quadprog(
+        None, d4b['f'][b], d4b['A'][b], d4b['bupper'][b], d4b['blower'][b],
+        d4b['sense'][b], ms=0, break_points=BP4B, settings=st4b, **f64),
+        range(META_HIQP))
+    refs = [hq.hiqp(None, *(d4b[k][b].astype(np.float64) for k in (
+        'f', 'A', 'bupper', 'blower')), d4b['sense'][b], 0, BP4B, st4b)
+        for b in range(META_HIQP)]
+    err = np.array([np.abs(r.x.cpu().numpy() - o['x']).max()
+                    for r, o in zip(hier_res, refs)])
+    fl = np.array([r.exitflag for r in hier_res])
+    fo = np.array([o['exitflag'] for o in refs])
+    # the classes of hiqp_counts: optimal (1, 2), no DOF (3), loud
+    same = hiqp_class(fl) == hiqp_class(fo)
+    ok_hier = bool(same.all() and (err[np.isin(fo, (1, 2))]
+                                   <= HIQP_TOL).all())
+    out["hierarchy"] = dict(solves=META_HIQP, flags={
+        int(k): int(v) for k, v in zip(*np.unique(fl, return_counts=True))},
+        oracle_classes_equal=bool(same.all()), max_err=float(err.max()),
+        median_ms=ms, host_syncs_per_solve=syn)
+
+    mi_res, ms, syn = timed_solves(lambda b: dt.quadprog(
+        *(d5[k][b] for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')),
+        ms=0, **f64), range(META_MIQP))
+    ref_flags, ref_fval = miqp_oracle(d5, range(META_MIQP))
+    fl = np.array([r.exitflag for r in mi_res])
+    fv = np.array([float(r.fval) for r in mi_res])
+    rel = np.abs(fv - ref_fval) / (1.0 + np.abs(ref_fval))
+    ok_mi = bool((fl == ref_flags).all() and (rel[ref_flags == 1]
+                                             <= META_MIQP_TOL).all())
+    out["miqp"] = dict(solves=META_MIQP, flags={int(k): int(v) for k, v in
+                                                zip(*np.unique(
+                                                    fl, return_counts=True))},
+                       oracle_flags_equal=bool((fl == ref_flags).all()),
+                       max_fval_rel_err=float(rel.max()),
+                       mean_nodes=float(np.mean([r.nodes for r in mi_res])),
+                       median_ms=ms, host_syncs_per_solve=syn)
+
+    models = {}
+    for name, setup, one in (
+            ("lp", lambda m_: m_.setup(None, d_lp['f'][0], d_lp['A'][0],
+                                       d_lp['bupper'][0], d_lp['blower'][0],
+                                       ms=0, **f64),
+             lambda: dt.linprog(d_lp['f'][0], d_lp['A'][0],
+                                d_lp['bupper'][0], d_lp['blower'][0], ms=0,
+                                **f64)),
+            ("hierarchy", lambda m_: m_.setup(
+                None, d4b['f'][0], d4b['A'][0], d4b['bupper'][0],
+                d4b['blower'][0], ms=0, break_points=BP4B, **f64),
+             lambda: dt.quadprog(None, d4b['f'][0], d4b['A'][0],
+                                 d4b['bupper'][0], d4b['blower'][0], ms=0,
+                                 break_points=BP4B, settings=st4b, **f64)),
+            ("miqp", lambda m_: m_.setup(*(d5[k][0] for k in (
+                'H', 'f', 'A', 'bupper', 'blower', 'sense')), ms=0, **f64),
+             lambda: dt.quadprog(*(d5[k][0] for k in (
+                 'H', 'f', 'A', 'bupper', 'blower', 'sense')), ms=0,
+                 **f64))):
+        st_m = st4b if name == "hierarchy" else None
+        r = setup(dt.Model(st_m)).solve()
+        o = one()
+        models[name] = dict(flag=r.exitflag, equal_to_one_shot=bool(
+            torch.equal(r.x, o.x) and r.exitflag == o.exitflag),
+            on_card=r.x.is_cuda)
+    ok_models = all(v["equal_to_one_shot"] and v["on_card"]
+                    for v in models.values())
+    launches = read_counts()
+    emit("meta", t0, launches=launches, models=models, **out, card=card)
+    ok = ok_lp and ok_avi and ok_hier and ok_mi and ok_models \
+        and not any(launches.values())
+    return ok, launches
 
 
 def loud(flags):
@@ -2835,7 +3221,7 @@ def phase_backstop(full, d, sw_np, st, card):
 
 PHASES = ("k1", "k2", "slice", "k8", "k9", "k10", "stages", "limits", "k7",
           "soft", "sw", "backstop", "single", "k3", "mpc", "k4", "prox",
-          "hiqp", "k5", "avi", "k6", "lp")
+          "hiqp", "k5", "avi", "k6", "lp", "miqp", "meta")
 
 
 def main():
@@ -2920,6 +3306,10 @@ def main():
     run("k6", phase_k6, args_lp, st_lp)
     run("lp", phase_lp, args_lp, d_lp, st_lp, card)
 
+    d5 = config5()
+    run("miqp", phase_miqp, d5, st, card)
+    run("meta", phase_meta, d_lp, d_avi, d4b, d5, card)
+
     failed = [name for name in PHASES if name in res and not res[name][0]]
     if only is not None:
         print(card, flush=True)
@@ -2927,7 +3317,7 @@ def main():
             print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1 if failed or set(only) - set(res) else 0
     paths = {p: res[p][1] for p in ("slice", "mpc", "prox", "soft", "sw",
-                                    "hiqp", "avi", "backstop")}
+                                    "hiqp", "avi", "backstop", "miqp")}
     paths.update(res["lp"][1])
     paths.update(res["stages"][1])
 

@@ -4,11 +4,13 @@ The cold batch path of ``daqp_tpu`` (transform, slot active-set solver
 for hard batches, dense-mask solver for batches with soft rows or
 SOFT_WEIGHTS slack data, stream entry, the f64 backstop), the warm MPC
 horizon (``mpc``), the semidefinite proximal batch, the batched
-hierarchical least-squares walk, batched affine variational inequalities
-and batched LPs (the adaptive-eps proximal LP tier), with their TPU
-kernels rewritten for Hopper in CUDA C++ (``ops/csrc``); and the
-single-instance dense QP solver with its public API (``solve``,
-``quadprog``, ``Model``, ``minrep``, ``isfeasible``).  Entry points run
+hierarchical least-squares walk, batched affine variational inequalities,
+batched LPs (the adaptive-eps proximal LP tier) and batched MIQP branch
+and bound in node waves, with their TPU kernels rewritten for Hopper in
+CUDA C++ (``ops/csrc``); and the single-instance solvers with their
+public API (``solve``, ``quadprog``, ``linprog``, ``avi``, ``Model``,
+``minrep``, ``isfeasible``): dense QPs, LPs, AVIs, hierarchies and MIQP
+branch and bound, with the f64 backstops of every batched tier.  Entry points run
 on the card unless asked for the CPU (CPU tensors or ``device="cpu"``),
 where each kernel's plain PyTorch twin runs.
 
@@ -32,8 +34,10 @@ from .types import (  # noqa: E402
 from .batch import (  # noqa: E402
     BatchResult, solve_batch_kernel, solve_batch_kernel_stream,
     solve_batch_prox_kernel, solve_batch_hiqp_kernel, solve_batch_avi_kernel,
-    solve_batch_lp_kernel, kkt_residuals, backstop_resolve)
-from .api import solve, quadprog  # noqa: E402
+    solve_batch_lp_kernel, solve_batch_miqp_kernel, kkt_residuals,
+    backstop_resolve, backstop_resolve_lp, backstop_resolve_avi,
+    backstop_resolve_hiqp)
+from .api import solve, quadprog, linprog, avi  # noqa: E402
 from .model import Model  # noqa: E402
 from .geometry import minrep, isfeasible  # noqa: E402
 from .mpc import (  # noqa: E402

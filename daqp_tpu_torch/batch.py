@@ -6,7 +6,9 @@ _difficulty_nviol``, ``:451 _pallas_batch_core`` (its hard, soft and
 SOFT_WEIGHTS branches, :551-694), ``:699 solve_batch_prox_pallas_jit``,
 ``:981 solve_batch_lp_pallas_jit``, ``:1587
 solve_batch_avi_pallas_jit``, ``:1999 solve_batch_hiqp_pallas_jit``,
-``:2582 kkt_residuals`` and ``:2772 backstop_resolve``.
+``:2233 solve_batch_miqp_pallas_jit``, ``:2582 kkt_residuals``,
+``:2637-2771`` (``backstop_resolve_lp``, ``_avi``, ``_hiqp``) and
+``:2772 backstop_resolve``.
 
 Every entry point runs where its inputs are: tensors keep their device
 (inputs on mixed devices raise) and other inputs (numpy arrays, lists) go
@@ -23,11 +25,17 @@ solve_batch_hiqp_pallas_jit``) walks the hierarchy's levels on B7, and
 ``solve_batch_avi_kernel`` runs the Douglas-Rachford splitting of
 batched affine variational inequalities on B5 and K2, and
 ``solve_batch_lp_kernel`` the adaptive-eps proximal LP regime on K2 (or
-B6 with ``fused=True``).  Left behind as TPU workarounds: the 512-lane
-guard and its routing, the 128-lane padding, the n-padding of the AVI
-matrices, and the in-core difficulty sort for tile occupancy (one block
-per QP has no tiles).  ``guess_cap`` belongs to a later slice and raises
-NotImplementedError.
+B6 with ``fused=True``); ``solve_batch_miqp_kernel`` runs branch and
+bound in node waves on K1 and K2.  The backstops re-solve a batch's loud
+lanes in f64 through the single-instance API (``quadprog``, ``linprog``,
+``avi``, ``quadprog(break_points=...)``).  ``solve_batch_miqp_jit`` (the
+vmap of the single-instance branch and bound) belongs to the flat tier
+and raises NotImplementedError naming ROADMAP A13.  Left behind as TPU
+workarounds: the 512-lane guard and its routing, the 128-lane padding,
+the n-padding of the AVI matrices, the MIQP tier's 31-bit words and
+one-hot bin-to-row einsum, and the in-core difficulty sort for tile
+occupancy (one block per QP has no tiles).  ``guess_cap`` belongs to a
+later slice and raises NotImplementedError naming ROADMAP A5.
 
 Every entry takes ``deadline``, an absolute ``time.perf_counter()``
 time: the host checks it between kernel rounds (``ops.slot.slot_solve``,
@@ -47,7 +55,8 @@ from . import transform
 from .ops import chol, dense, host_any, host_numpy, late, slot
 from .prox import auto_eta
 from .types import (ACTIVE, BINARY, IMMUTABLE, LOWER, SOFT, DAQP_INF,
-                    EXIT_CYCLE, EXIT_ITERLIMIT, EXIT_NO_DOF, EXIT_NONCONVEX,
+                    EXIT_CYCLE, EXIT_INFEASIBLE, EXIT_ITERLIMIT, EXIT_NO_DOF,
+                    EXIT_NONCONVEX,
                     EXIT_OPTIMAL, EXIT_REFACTOR, EXIT_RUNNING,
                     EXIT_SOFT_OPTIMAL, EXIT_TIMELIMIT, EXIT_UNBOUNDED,
                     EXIT_UNSUPPORTED, PRICING_BLAND, Settings, SoftWeights)
@@ -1246,6 +1255,193 @@ def solve_batch_lp_kernel(f, A, bupper, blower, sense, st: Settings,
                        soft_slack=torch.zeros(B, dtype=f32, device=dev))
 
 
+MIQP_STEPS = 64          # K2 steps a round of a node wave
+miqp_waves = 0           # node waves of the last solve_batch_miqp_kernel
+
+
+def solve_batch_miqp_kernel(H, f, A, bupper, blower, sense, st: Settings,
+                            ms: int = 0, bin_ids: tuple = None,
+                            max_waves: int = 512, deadline=None,
+                            device=None) -> BatchResult:
+    """Batched MIQP branch and bound whose node relaxations are solved in
+    whole-batch WAVES on K1 and K2 (``solve_batch_miqp_pallas_jit``,
+    ``batch.py:2233``; BASELINE config 5).
+
+    K1 factors the batch once (``chol.batched_rinv_regularized``; a lane
+    that needed a shift is NONCONVEX).  Each lane keeps its own DFS stack
+    of nodes (the binaries fixed, their sides and the parent's final
+    working set, as (B, cap, nb) and (B, cap, m) bool masks).  A wave pops
+    every live lane's top node and solves all the relaxations at once:
+    ``slot.slot_init`` with the lane's live incumbent bound as K2's
+    per-lane dominance cut ``fbound`` (rel_subopt / abs_subopt folded in,
+    bnb.c:29-31, 68, in LDP space where the v'v shift is the same at every
+    node), the fixed binaries and equalities bulk-activated with the
+    parent's working set (``slot.slot_activate``; a lane whose warm set is
+    dependent falls back to fixed and equality rows alone, as the
+    reference drops dependent adds, auxiliary.c:446-469), then
+    ``slot.slot_solve(steps=64)``.  Then per lane: the dominance prune,
+    the first binary off its endpoints branched nearest endpoint first
+    (bnb.c:130-156), both children pushed with this node's working set,
+    or the incumbent updated.  The JAX tier's 31-bit words, one-hot
+    bin-to-row einsum and lane padding were TPU workarounds; they are
+    not here.
+
+    ``bin_ids``: the BINARY rows, shared by the batch (default: every row
+    with a BINARY bit on some lane; a lane without the bit on a row never
+    branches on it).  Strictly convex H and hard rows.  A lane whose tree
+    is not exhausted after ``max_waves`` waves exits ITERLIMIT; past
+    ``deadline`` (checked in the slot rounds) its relaxation exits
+    TIMELIMIT and so does the lane.  ``iterations`` is the lane's node
+    count.  Host syncs a wave: the live-lane test and ``slot_solve``'s
+    own round tests."""
+    global miqp_waves
+    H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
+                                              sense, device)
+    f32 = torch.float32
+    H, f, A, bupper, blower = (x.to(f32) for x in (H, f, A, bupper, blower))
+    B, n = f.shape
+    m = bupper.shape[1]
+    dev = H.device
+    if bin_ids is None:
+        bin_ids = tuple(np.flatnonzero(np.any(
+            host_numpy(sense)[0] & BINARY, axis=0)).tolist())
+    nb = len(bin_ids)
+    if nb == 0:
+        raise ValueError("solve_batch_miqp_kernel: no BINARY rows")
+    bins = torch.as_tensor(bin_ids, dtype=torch.int64, device=dev)
+    cap = nb + 2
+    Rinv, okl, regl, _ = chol.batched_rinv_regularized(H, st)
+    ldpd = transform.build_ldp(f, A, bupper, blower, sense, ms, st,
+                               Rinv=Rinv)
+    err0 = torch.where(okl & ~regl, ldpd.error, EXIT_NONCONVEX)
+    vv = (ldpd.v * ldpd.v).sum(1)
+    du0, dl0, scaling = ldpd.dupper, ldpd.dlower, ldpd.scaling
+    immut0 = (ldpd.sense & IMMUTABLE) > 0
+    eq_act = (ldpd.sense & ACTIVE) > 0
+    eq_lo = eq_act & ((ldpd.sense & LOWER) > 0)
+    bin_du, bin_dl = du0[:, bins], dl0[:, bins]
+    bin_tol = st.primal_tol * scaling[:, bins]
+    lane_is_bin = (sense[:, bins] & BINARY) > 0          # (B, nb)
+    # the subopt folding in LDP space (bnb.c:29-31, 68)
+    eps_r = 1.0 / (1.0 + torch.tensor(st.rel_subopt, dtype=f32))
+    abs2 = 2.0 * torch.tensor(st.abs_subopt, dtype=f32)
+    bound0 = (2.0 * torch.tensor(st.fval_bound, dtype=f32) - abs2) * eps_r
+
+    def rows(per_bin):
+        """(B, nb) bool per binary -> (B, m) bool per row."""
+        out = torch.zeros((B, m), dtype=torch.bool, device=dev)
+        out[:, bins] = per_bin
+        return out
+
+    lanes = torch.arange(B, device=dev)
+    slot_iota = torch.arange(cap, device=dev)
+    stack_fx = torch.zeros((B, cap, nb), dtype=torch.bool, device=dev)
+    stack_lo = torch.zeros_like(stack_fx)
+    stack_wu = torch.zeros((B, cap, m), dtype=torch.bool, device=dev)
+    stack_wl = torch.zeros_like(stack_wu)
+    sp = torch.where(err0 < 0, 0, 1).to(torch.int64)
+    best_fldp = torch.full((B,), DAQP_INF, dtype=f32, device=dev)
+    bound_fldp = bound0.to(dev).expand(B).clone()
+    best_u = torch.zeros((B, n), dtype=f32, device=dev)
+    best_lam = torch.zeros((B, m), dtype=f32, device=dev)
+    found = torch.zeros(B, dtype=torch.bool, device=dev)
+    nodes = torch.zeros(B, dtype=torch.int32, device=dev)
+    lane_err = torch.where(err0 < 0, err0, 0).to(torch.int32)
+    waves = 0
+    while waves < max_waves and host_any((sp > 0) & (lane_err == 0)):
+        live = (sp > 0) & (lane_err == 0)
+        idx = torch.clamp(sp - 1, min=0)
+        fx, lo = stack_fx[lanes, idx], stack_lo[lanes, idx]
+        wu, wl = stack_wu[lanes, idx], stack_wl[lanes, idx]
+        sp = sp - live.to(sp.dtype)
+        nodes = nodes + live.to(nodes.dtype)
+        fixed = rows(fx) & live[:, None]
+        lower = rows(fx & lo) & live[:, None]
+        du = torch.where(fixed & lower, dl0, du0)
+        dl = torch.where(fixed & ~lower, du0, dl0)
+        s = slot.slot_init(ldpd.M, du, dl, scaling, immut0 | fixed,
+                           n_true=n, fbound=bound_fldp)
+        up_f = (fixed & ~lower) | (eq_act & ~eq_lo)
+        lo_f = lower | eq_lo
+        warm = ~fixed & ~eq_act & live[:, None]
+        sw_ = slot.slot_activate(s, up_f | (wu & warm),
+                                 lo_f | (wl & warm & ~wu), st)
+        # a dependent warm set falls back to the fixed and equality rows
+        # (selected per lane: no read)
+        sf = slot.slot_activate(s, up_f, lo_f, st)
+        s = slot.select_lanes(sw_.status == EXIT_REFACTOR, sf, sw_)
+        # exhausted and errored lanes are terminal: the kernel skips them
+        s = s._replace(status=torch.where(live, s.status, EXIT_OPTIMAL)
+                       .to(torch.int32))
+        s = slot.slot_solve(s, st, n_true=n, steps=MIQP_STEPS,
+                            deadline=deadline)
+        flag, fldp = s.status, s.fval
+        u = s.u[:, :n]
+        viable = live & (flag > 0) & (fldp < bound_fldp)
+        hard_fail = live & (flag < 0) & (flag != EXIT_INFEASIBLE) \
+            & (flag != EXIT_RUNNING)
+        lane_err = torch.where(hard_fail, flag, lane_err)
+
+        # the branch: the first binary off both endpoints of its original
+        # bounds, nearest endpoint first
+        mu = torch.einsum('bmj,bj->bm', ldpd.M, u)[:, bins]
+        diff = 0.5 * (bin_du + bin_dl) - mu
+        dist = 0.5 * (bin_du - bin_dl) - diff.abs()
+        frac = ~fx & (dist > bin_tol) & lane_is_bin
+        has_branch = frac.any(1)
+        pos = torch.argmax(frac.to(torch.int32), dim=1)
+        lower_first = diff.gather(1, pos[:, None])[:, 0] >= 0
+
+        # integer feasible: the incumbent and the folded bound (bnb.c:68)
+        take = viable & ~has_branch
+        best_fldp = torch.where(take, fldp, best_fldp)
+        bound_fldp = torch.where(take, (fldp - abs2) * eps_r, bound_fldp)
+        best_u = torch.where(take[:, None], u, best_u)
+        best_lam = torch.where(take[:, None], slot.slot_duals_dense(s)[:, :m],
+                               best_lam)
+        found = found | take
+
+        # push the children, far endpoint first: both keep this node's
+        # final working set (tree_WS is written at the branch point,
+        # bnb.c:211-222)
+        push = viable & has_branch
+        bitk = (torch.arange(nb, device=dev) == pos[:, None]) & push[:, None]
+        at0 = push[:, None] & (slot_iota == sp[:, None])
+        at1 = push[:, None] & (slot_iota == sp[:, None] + 1)
+        at01 = (at0 | at1)[:, :, None]
+        child_fx = (fx | bitk)[:, None, :]
+        far_lo = (lo | (bitk & ~lower_first[:, None]))[:, None, :]
+        near_lo = (lo | (bitk & lower_first[:, None]))[:, None, :]
+        stack_fx = torch.where(at01, child_fx, stack_fx)
+        stack_lo = torch.where(at0[:, :, None], far_lo,
+                               torch.where(at1[:, :, None], near_lo,
+                                           stack_lo))
+        stack_wu = torch.where(at01, (s.act_up[:, None, :m] > 0.5), stack_wu)
+        stack_wl = torch.where(at01, (s.act_lo[:, None, :m] > 0.5), stack_wl)
+        sp = sp + 2 * push.to(sp.dtype)
+        waves += 1
+    miqp_waves = waves
+
+    x = transform.ldp_to_qp_solution(ldpd, best_u)
+    pending = sp > 0
+    exitflag = torch.where(
+        lane_err < 0, lane_err,
+        torch.where(pending, EXIT_ITERLIMIT,
+                    torch.where(found, EXIT_OPTIMAL, EXIT_INFEASIBLE)))
+    return BatchResult(x=x, lam=best_lam, fval=0.5 * (best_fldp - vv),
+                       exitflag=exitflag.to(torch.int32), iterations=nodes,
+                       soft_slack=torch.zeros(B, dtype=f32, device=dev))
+
+
+def solve_batch_miqp_jit(*args, **kw):
+    """The vmap of the single-instance branch and bound
+    (``daqp_tpu/batch.py:2566``) belongs to the flat tier."""
+    raise NotImplementedError(
+        "solve_batch_miqp_jit (the flat tier's vmapped branch and bound) "
+        "is ported in a later slice (ROADMAP A13); solve_batch_miqp_kernel "
+        "solves batched MIQPs")
+
+
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
@@ -1299,7 +1495,7 @@ def kkt_residuals(H, f, A, bupper, blower, sense, x, lam, ms: int = 0):
 # the f32 tolerances a re-solve in f64 drops for the reference defaults
 _F32_TOLS = ('primal_tol', 'dual_tol', 'zero_tol', 'pivot_tol',
              'progress_tol', 'sing_tol')
-backstop_lanes = 0       # lanes re-solved by backstop_resolve
+backstop_lanes = 0       # lanes re-solved by the backstops
 
 
 def backstop_resolve(res: BatchResult, H, f, A, bupper, blower, sense=None,
@@ -1318,12 +1514,9 @@ def backstop_resolve(res: BatchResult, H, f, A, bupper, blower, sense=None,
 
     A clean batch costs one KKT check on the host and comes back as the
     same object."""
-    global backstop_lanes
     from .api import quadprog
     x, lam, flags = host_numpy(res.x, res.lam, res.exitflag)
-    B, m = lam.shape
-    sense_np = np.zeros((B, m), np.int32) if sense is None \
-        else _np(sense).astype(np.int32)
+    sense_np = _sense_rows(sense, *lam.shape)
     stat, viol = kkt_residuals(H, f, A, bupper, blower, sense_np, x, lam,
                                ms=ms)
     bad = (~np.isin(flags, (EXIT_OPTIMAL, EXIT_SOFT_OPTIMAL))
@@ -1331,26 +1524,136 @@ def backstop_resolve(res: BatchResult, H, f, A, bupper, blower, sense=None,
     bad &= ~np.any(sense_np & BINARY, axis=-1)
     if not bad.any():
         return res
+    st = _f64_settings(settings)
+    dev = res.x.device
+
+    def one(b):
+        soft_w = None
+        if sw is not None and np.any(sense_np[b] & SOFT):
+            soft_w = {k: v[b] for k, v in zip(SoftWeights._fields, sw)}
+        return quadprog(H[b], f[b], A[b], bupper[b], blower[b], sense_np[b],
+                        ms=ms, settings=st, dtype=torch.float64,
+                        soft_weights=soft_w, device=dev)
+
+    return _resolve_lanes(res, bad, one, lambda fl: fl in (
+        EXIT_OPTIMAL, EXIT_SOFT_OPTIMAL))
+
+
+def _f64_settings(settings) -> Optional[dict]:
+    """``settings`` as a dict of overrides without the f32 tolerances, so
+    that an f64 re-solve takes the reference's (None if nothing is
+    left)."""
     st = {} if settings is None else dict(settings) \
         if isinstance(settings, dict) else settings._asdict()
     for k in _F32_TOLS:
         st.pop(k, None)
-    dev = res.x.device
-    x_out, lam_out, fval_out = res.x.clone(), res.lam.clone(), \
-        res.fval.clone()
-    flag_out = res.exitflag.clone()
-    for b in np.nonzero(bad)[0]:
-        soft_w = None
-        if sw is not None and np.any(sense_np[b] & SOFT):
-            soft_w = {k: v[b] for k, v in zip(SoftWeights._fields, sw)}
-        one = quadprog(H[b], f[b], A[b], bupper[b], blower[b], sense_np[b],
-                       ms=ms, settings=st or None, dtype=torch.float64,
-                       soft_weights=soft_w, device=dev)
+    return st or None
+
+
+def _resolve_lanes(res: BatchResult, bad, one_solve, accept) -> BatchResult:
+    """The ``bad`` lanes (a host bool array) solved again one by one
+    through ``one_solve(b)`` (a ``Result``), counted in
+    ``backstop_lanes``: a lane takes the new x, lam and fval when
+    ``accept(flag)``, and always the new flag."""
+    global backstop_lanes
+    x_out, lam_out = res.x.clone(), res.lam.clone()
+    fval_out, flag_out = res.fval.clone(), res.exitflag.clone()
+    for b in np.flatnonzero(bad):
+        one = one_solve(b)
         backstop_lanes += 1
-        if one.exitflag in (EXIT_OPTIMAL, EXIT_SOFT_OPTIMAL):
+        if accept(one.exitflag):
             x_out[b] = one.x
             lam_out[b] = one.lam
             fval_out[b] = one.fval
         flag_out[b] = one.exitflag
     return res._replace(x=x_out, lam=lam_out, fval=fval_out,
                         exitflag=flag_out)
+
+
+def _loud_lanes(res: BatchResult, bad_flag) -> np.ndarray:
+    """Lanes whose flag fails ``bad_flag`` (on a host array) or whose x
+    is not finite, in one read."""
+    flags, finite = host_numpy(res.exitflag,
+                               torch.isfinite(res.x).all(dim=-1))
+    return bad_flag(flags) | ~finite
+
+
+def _sense_rows(sense, B: int, m: int) -> np.ndarray:
+    return np.zeros((B, m), np.int32) if sense is None \
+        else _np(sense).astype(np.int32)
+
+
+def backstop_resolve_lp(res: BatchResult, f, A, bupper, blower, sense=None,
+                        ms: int = 0, settings=None) -> BatchResult:
+    """The LP tier's backstop (``daqp_tpu/batch.py:2637``): the lanes
+    whose flag is neither optimal nor UNBOUNDED, or whose x is not
+    finite, are solved again one by one in f64 through the port's own
+    ``linprog`` (the adaptive eps and the vertex cleanup), on the batch's
+    device, with the reference's f64 tolerances in place of the f32 ones
+    of ``settings``.  A lane solved optimal takes the new x, lam and fval;
+    every re-solved lane takes the new flag.  A clean batch costs one read
+    and comes back as the same object."""
+    from .api import linprog
+    bad = _loud_lanes(res, lambda fl: (fl != EXIT_OPTIMAL)
+                      & (fl != EXIT_UNBOUNDED))
+    if not bad.any():
+        return res
+    sense_np = _sense_rows(sense, *res.lam.shape)
+    st = _f64_settings(settings)
+    dev = res.x.device
+    return _resolve_lanes(
+        res, bad, lambda b: linprog(f[b], A[b], bupper[b], blower[b],
+                                    sense_np[b], ms=ms, settings=st,
+                                    dtype=torch.float64, device=dev),
+        lambda fl: fl == EXIT_OPTIMAL)
+
+
+def backstop_resolve_avi(res: BatchResult, H, f, A, bupper, blower,
+                         sense=None, ms: int = 0, settings=None
+                         ) -> BatchResult:
+    """The AVI tier's backstop (``daqp_tpu/batch.py:2679``): the lanes
+    whose flag is not optimal, or whose x is not finite, are solved again
+    one by one in f64 through the port's own ``avi`` (the splitting with
+    its exact KKT step and Newton revert), as ``backstop_resolve_lp``
+    does for LPs."""
+    from .api import avi
+    bad = _loud_lanes(res, lambda fl: fl != EXIT_OPTIMAL)
+    if not bad.any():
+        return res
+    sense_np = _sense_rows(sense, *res.lam.shape)
+    st = _f64_settings(settings)
+    dev = res.x.device
+    return _resolve_lanes(
+        res, bad, lambda b: avi(H[b], f[b], A[b], bupper[b], blower[b],
+                                sense_np[b], ms=ms, settings=st,
+                                dtype=torch.float64, device=dev),
+        lambda fl: fl == EXIT_OPTIMAL)
+
+
+def backstop_resolve_hiqp(res: BatchResult, H, f, A, bupper, blower,
+                          sense=None, ms: int = 0, break_points: tuple = (),
+                          settings=None) -> BatchResult:
+    """The hierarchical tier's backstop (``daqp_tpu/batch.py:2725``): the
+    lanes whose flag is negative (the iteration limit, a numerical
+    failure; exit 3, no degrees of freedom, is an outcome, not a failure),
+    or whose x is not finite, walk the hierarchy again one by one in f64
+    through the port's own ``quadprog(break_points=...)`` (``H=None``:
+    the identity metric).  A lane that exits positive takes the new x,
+    lam and fval; every re-solved lane takes the new flag."""
+    from .api import quadprog
+    bad = _loud_lanes(res, lambda fl: fl < 0)
+    if not bad.any():
+        return res
+    sense_np = _sense_rows(sense, *res.lam.shape)
+    st = _f64_settings(settings)
+    dev = res.x.device
+    n = res.x.shape[1]
+
+    def one(b):
+        return quadprog(None if H is None else H[b],
+                        torch.zeros(n, dtype=torch.float64, device=dev)
+                        if f is None else f[b], A[b], bupper[b], blower[b],
+                        sense_np[b], ms=ms, break_points=break_points,
+                        settings=st, dtype=torch.float64, device=dev)
+
+    return _resolve_lanes(res, bad, one, lambda fl: fl > 0)

@@ -12,10 +12,10 @@ masks of ``daqp_update_ldp``, src/utils.c:14-135):
   sets everything up again.
 
 The ``LDPState`` is carried across ``solve`` calls, so a re-solve at the
-optimum takes one iteration (core_tests.jl:449-496).  A problem the port
-solves only through ``api.solve`` (a semidefinite H) is sent there; the
-special problems (AVI, BINARY bits, a hierarchy, an LP) are sent there
-too, where they raise NotImplementedError until they are ported.
+optimum takes one iteration (core_tests.jl:449-496).  A semidefinite H
+and the special problems (an AVI, BINARY bits, a hierarchy, an LP) are
+solved by ``api.solve`` afresh at each ``solve``, as the JAX package's
+Model does: its result is the one-shot result.
 """
 from __future__ import annotations
 

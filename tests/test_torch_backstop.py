@@ -2,7 +2,11 @@
 every batched entry, on the CPU.
 
 Counterparts of test_backstop.py (a forced-failure batch, a silent
-corruption, a clean batch returned as the same object), of the SW
+corruption, a clean batch returned as the same object), of the LP, AVI
+and hierarchical backstops of test_batch_lp.py, test_batch_avi.py and
+test_batch_hiqp.py on the port's tiers (the loud and injected lanes
+re-solved in f64 by the port's own ``linprog``, ``avi`` and hierarchical
+``quadprog``, as the JAX package's backstops re-solve them), of the SW
 escalation of test_soft_weights.py (a forced-failure SOFT_WEIGHTS lane
 re-solved by the port and by ``daqp_tpu.batch.backstop_resolve(sw=...)``
 to the same answer) and of test_timelimit.py's batched cases: an
@@ -231,7 +235,14 @@ ENTRIES = {
         *_avi_args(), st=_st(), fused=fused, deadline=dl),
     "lp": lambda dl, fused=False: dt.solve_batch_lp_kernel(
         *_lp_args(), st=_st(), fused=fused, deadline=dl),
+    "miqp": lambda dl, **kw: dt.solve_batch_miqp_kernel(
+        *_miqp_args(), st=_st(), deadline=dl, device="cpu"),
 }
+
+
+def _miqp_args():
+    from tests.test_torch_miqp import _miqps
+    return _miqps(8, 8, 20, 3, seed=23)
 
 
 def _st():
@@ -241,7 +252,7 @@ def _st():
 @pytest.mark.parametrize("entry,fused", [
     ("kernel", None), ("kernel_soft", None), ("stream", None),
     ("prox", True), ("prox", False), ("hiqp", None), ("avi", True),
-    ("avi", False), ("lp", False), ("lp", True)])
+    ("avi", False), ("lp", False), ("lp", True), ("miqp", None)])
 def test_deadline_on_batched_entries(entry, fused):
     kw = {} if fused is None else dict(fused=fused)
     run = ENTRIES[entry]
@@ -279,3 +290,121 @@ def test_jax_batched_kernel_deadline_agrees():
         assert (np.asarray(rj.exitflag) == want).all()
         assert (rp.exitflag.numpy() == want).all()
     assert daqp_tpu.EXIT_TIMELIMIT == dt.EXIT_TIMELIMIT
+
+
+def _lp_batch(B, n, m, seed):
+    rng = np.random.default_rng(seed)
+    probs = [generate_test_lp(n, m, 0, rng) for _ in range(B)]
+    return [np.stack([p[i] for p in probs]) for i in range(5)]
+
+
+def _inject(res, lane, flag, x_val):
+    flags = res.exitflag.clone()
+    flags[lane] = flag
+    x = res.x.clone()
+    x[lane] = x_val
+    return res._replace(exitflag=flags, x=x)
+
+
+def test_backstop_lp_on_the_port_tier():
+    # test_batch_lp.py's differential batch (its first 16 lanes) on the
+    # port's per-pass tier: the loud lanes and an injected one re-solve
+    # to the constructed vertex, each as the single-instance f64 linprog
+    # gives it
+    xs, fs, As, bus, bls = _lp_batch(16, 10, 50, 3)
+    args = [torch.as_tensor(a, dtype=torch.float32)
+            for a in (fs, As, bus, bls)]
+    sense = np.zeros((16, 50), np.int32)
+    res = dt.solve_batch_lp_kernel(*args, torch.as_tensor(sense),
+                                   dt.as_settings({"iter_limit": 3000},
+                                                  torch.float32))
+    res = _inject(res, 5, dt.EXIT_ITERLIMIT, float("nan"))
+    loud = (res.exitflag.numpy() != 1).sum()
+    n0 = pbatch.backstop_lanes
+    rep = dt.backstop_resolve_lp(res, fs, As, bus, bls, sense)
+    assert pbatch.backstop_lanes - n0 == loud >= 1
+    assert (rep.exitflag.numpy() == 1).all(), rep.exitflag
+    assert np.abs(rep.x.numpy() - xs).max() < 1e-4
+    one = dt.linprog(fs[5], As[5], bus[5], bls[5], ms=0,
+                     dtype=torch.float64, device="cpu")
+    assert np.abs(rep.x[5].numpy() - one.x.numpy()).max() < 1e-6
+    # a clean batch comes back as the same object
+    assert dt.backstop_resolve_lp(rep, fs, As, bus, bls, sense) is rep
+
+
+def test_backstop_lp_keeps_unbounded_lanes():
+    # test_batch_lp_unbounded_lane: an UNBOUNDED lane is an answer, not
+    # a failure: the backstop leaves it
+    xs, fs, As, bus, bls = _lp_batch(8, 6, 20, 9)
+    fs[3] = 0.0
+    fs[3, 0] = -1.0
+    As[3] = 0.0
+    As[3, :, 1] = 1.0
+    bus[3], bls[3] = 1.0, -1.0
+    sense = np.zeros((8, 20), np.int32)
+    res = dt.solve_batch_lp_kernel(
+        *(torch.as_tensor(a, dtype=torch.float32)
+          for a in (fs, As, bus, bls)), torch.as_tensor(sense),
+        dt.as_settings({"iter_limit": 2000}, torch.float32))
+    assert res.exitflag[3] == dt.EXIT_UNBOUNDED
+    rep = dt.backstop_resolve_lp(res, fs, As, bus, bls, sense)
+    flags = rep.exitflag.numpy()
+    assert flags[3] == dt.EXIT_UNBOUNDED and (np.delete(flags, 3) == 1).all()
+    assert np.abs(np.delete(rep.x.numpy() - xs, 3, axis=0)).max() < 1e-4
+
+
+def test_backstop_avi_on_the_port_tier_as_jax():
+    # test_batch_avi_backstop: lane 3 made loud with garbage x re-solves
+    # to the constructed solution, as the JAX package's backstop gives
+    # it; the other lanes are untouched
+    rng = np.random.default_rng(47)
+    probs = [generate_test_avi_two_sided(8, 20, rng) for _ in range(8)]
+    xs, Hs, fs, As, bus, bls = (np.stack([p[i] for p in probs])
+                                for i in range(6))
+    sense = np.zeros((8, 20), np.int32)
+    res = dt.solve_batch_avi_kernel(
+        *(torch.as_tensor(a, dtype=torch.float32)
+          for a in (Hs, fs, As, bus, bls)), torch.as_tensor(sense),
+        dt.as_settings({"iter_limit": 1500}, torch.float32))
+    bad = _inject(res, 3, dt.EXIT_CYCLE, 1e9)
+    rep = dt.backstop_resolve_avi(bad, Hs, fs, As, bus, bls, sense)
+    assert rep.exitflag[3] == dt.EXIT_OPTIMAL
+    assert np.abs(rep.x[3].numpy() - xs[3]).max() < 1e-5
+    keep = np.flatnonzero(bad.exitflag.numpy() == 1)
+    assert torch.equal(rep.x[keep], bad.x[keep])
+    rj = batch_mod.backstop_resolve_avi(
+        batch_mod.BatchResult(*(jnp.asarray(x.numpy()) for x in bad)),
+        Hs, fs, As, bus, bls, sense)
+    # (the port's result keeps the batch's f32 tensors)
+    assert np.abs(rep.x[3].numpy() - np.asarray(rj.x)[3]).max() < 1e-6
+
+
+def test_backstop_hiqp_on_the_port_tier_as_jax():
+    # test_batch_hiqp_backstop: lane 2 made loud with a NaN x walks the
+    # hierarchy again in f64 (the tier's rho_soft), as the JAX package's
+    # backstop walks it; exit 3 lanes are left as they are
+    rng = np.random.default_rng(53)
+    bp = (0, 6, 12, 18)
+    B, n, m = 8, 8, 18
+    As, bus, bls = np.empty((B, m, n)), np.empty((B, m)), np.empty((B, m))
+    for b in range(B):
+        As[b], bus[b], bls[b] = _rand_hier(rng, n, bp)
+    fs = np.zeros((B, n))
+    sense = np.zeros((B, m), np.int32)
+    res = dt.solve_batch_hiqp_kernel(
+        None, *(torch.as_tensor(a, dtype=torch.float32)
+                for a in (fs, As, bus, bls)), torch.as_tensor(sense),
+        dt.as_settings({"iter_limit": 2000}, torch.float32),
+        break_points=bp)
+    bad = _inject(res, 2, dt.EXIT_ITERLIMIT, float("nan"))
+    st = {"rho_soft": 3e-2}
+    rep = dt.backstop_resolve_hiqp(bad, None, fs, As, bus, bls, sense,
+                                   break_points=bp, settings=st)
+    assert rep.exitflag[2] > 0 and torch.isfinite(rep.x[2]).all()
+    loud = bad.exitflag.numpy() < 0
+    assert (rep.exitflag.numpy()[~loud] == bad.exitflag.numpy()[~loud]).all()
+    rj = batch_mod.backstop_resolve_hiqp(
+        batch_mod.BatchResult(*(jnp.asarray(x.numpy()) for x in bad)),
+        None, fs, As, bus, bls, sense, break_points=bp, settings=st)
+    assert (np.asarray(rj.exitflag) == rep.exitflag.numpy()).all()
+    assert np.abs(rep.x[2].numpy() - np.asarray(rj.x)[2]).max() < 1e-6

@@ -2,8 +2,9 @@
 on the CPU in f64: the QP cases of test_model.py (set-up, warm re-solve,
 the masked updates of f / bounds, sense and A, a new H, settings), each
 with the same exit flags, x and lam within 1e-8 (1 + ||x_jax||_inf) and
-the same iteration counts.  The AVI and break-point cases raise
-NotImplementedError until those paths are ported."""
+the same iteration counts.  The special problems (an AVI, a hierarchy,
+an LP, BINARY bits) go through ``api.solve`` and give its one-shot
+result, as the JAX package's Model does."""
 import numpy as np
 import pytest
 import torch
@@ -137,13 +138,60 @@ def test_model_settings_and_regularization():
 
 
 def test_model_special_problems_raise():
+    # the AVI and break-point problems that raised before their paths
+    # were ported now solve through api.solve: the one-shot result
     rng = np.random.default_rng(79)
     x, H, f, A, b = generate_test_avi(10, 50, rng)
-    d = dt.Model()
-    with pytest.raises(NotImplementedError, match="A6b"):
-        d.setup(H, f, A, b, is_avi=True, ms=0, **F64).solve()
+    r = dt.Model().setup(H, f, A, b, is_avi=True, ms=0, **F64).solve()
+    one = dt.avi(H, f, A, b, ms=0, **F64)
+    assert torch.equal(r.x, one.x) and r.exitflag == one.exitflag == 1
+    assert np.linalg.norm(r.x.numpy() - x) < 1e-4
     A = np.array([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]])
-    d = dt.Model().setup(np.eye(2), np.zeros(2), A, np.array([1.0, 1, 5]),
-                         np.array([1.0, -1, -5]), break_points=(2, 3), **F64)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        d.solve()
+    args = (np.eye(2), np.zeros(2), A, np.array([1.0, 1, 5]),
+            np.array([1.0, -1, -5]))
+    r = dt.Model().setup(*args, break_points=(2, 3), **F64).solve()
+    one = dt.quadprog(*args, break_points=(2, 3), **F64)
+    assert torch.equal(r.x, one.x) and r.exitflag == one.exitflag > 0
+
+
+@pytest.mark.parametrize("kind", ["lp", "binary", "hierarchy", "avi"])
+def test_model_special_paths_match_one_shot_and_jax(kind):
+    rng = np.random.default_rng(83)
+    kw = {}
+    if kind == "lp":
+        from tests.gen import generate_test_lp
+        x, f, A, bu, bl, sense = generate_test_lp(8, 30, 4, rng)
+        args, kw = (None, f, A, bu, bl, sense), dict(ms=4)
+    elif kind == "binary":
+        from tests.test_bnb import _random_miqp
+        H, f, A, bu, bl, sense = _random_miqp(8, 20, 4, 3, rng)
+        args, kw = (H, f, A, bu, bl, sense), dict(ms=4)
+    elif kind == "hierarchy":
+        A = rng.standard_normal((9, 4))
+        x0 = rng.standard_normal(4)
+        b = A @ x0
+        args = (None, np.zeros(4), A, b + 0.1, b - 0.1 - rng.random(9),
+                None)
+        kw = dict(ms=0, break_points=(0, 3, 6, 9))
+    else:
+        x, H, f, A, b = generate_test_avi(8, 20, rng)
+        args, kw = (H, f, A, b, None, None), dict(ms=0, is_avi=True)
+    dp = dt.Model().setup(*args, **kw, **F64)
+    dj = daqp_tpu.Model().setup(*args, **kw)
+    rp = dp.solve()
+    is_avi = kw.pop("is_avi", False)
+    one = dt.solve(H=args[0], f=args[1], A=args[2], bupper=args[3],
+                   blower=args[4], sense=args[5], is_avi=is_avi, **kw,
+                   **F64)
+    assert torch.equal(rp.x, one.x) and rp.exitflag == one.exitflag > 0
+    assert rp.nodes == one.nodes
+    rj = dj.solve()
+    assert rp.exitflag == int(rj.exitflag)
+    assert np.abs(rp.x.numpy() - np.asarray(rj.x)).max() <= 1e-6
+    # a re-solve after an update of f (a special problem is set up again)
+    f2 = args[1] * 1.01
+    dp.update(f=f2)
+    dj.update(f=f2)
+    rp2, rj2 = dp.solve(), dj.solve()
+    assert rp2.exitflag == int(rj2.exitflag)
+    assert np.abs(rp2.x.numpy() - np.asarray(rj2.x)).max() <= 1e-6

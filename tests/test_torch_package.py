@@ -29,7 +29,8 @@ def test_import_leaves_jax_out():
             "daqp_tpu_torch.ops.slot, daqp_tpu_torch.convert, "
             "daqp_tpu_torch.api, daqp_tpu_torch.core, daqp_tpu_torch.ldp, "
             "daqp_tpu_torch.model, daqp_tpu_torch.warmstart, "
-            "daqp_tpu_torch.geometry; "
+            "daqp_tpu_torch.geometry, daqp_tpu_torch.hierarchical, "
+            "daqp_tpu_torch.avi_solver, daqp_tpu_torch.bnb; "
             "from daqp_tpu_torch.ops import _build; "
             "srcs = sorted(p.stem for p in _build._CSRC.glob('*.cu')); "
             "assert srcs == sorted(k[:-4] for k in _build._SIGNATURES), srcs; "
@@ -258,3 +259,11 @@ def test_unported_options_raise(kw):
         dt.solve_batch_kernel_stream(*args, st=st, **kw)
     with pytest.raises(NotImplementedError):
         dt.solve_batch_kernel(*args, st=st, **kw)
+
+
+def test_flat_tier_miqp_names_its_item():
+    # the vmapped branch and bound of the flat tier is not ported: it
+    # raises and names its ROADMAP item; the wave tier solves
+    from daqp_tpu_torch import batch as pbatch
+    with pytest.raises(NotImplementedError, match="A13"):
+        pbatch.solve_batch_miqp_jit()

@@ -292,16 +292,21 @@ def test_device_and_dispatch_rules():
     r = dt.quadprog(*map(torch.as_tensor, (H, f, A, bu, bl)), sense)
     assert r.x.device.type == "cpu"
     assert r.x.dtype == torch.get_default_dtype()
-    # the branches of the dispatch that are not ported name their item
-    with pytest.raises(NotImplementedError, match="A6b"):
-        dt.solve(H=None, f=f, A=A, bupper=bu, blower=bl, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        dt.solve(H=H, f=f, A=A, bupper=bu, blower=bl, is_avi=True,
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        dt.quadprog(H, f, A, bu, bl, break_points=(4, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        dt.quadprog(H, f, A, bu, bl, sense | dt.BINARY, device="cpu")
+    # every branch of the dispatch is ported (an LP, an AVI, a
+    # hierarchy, branch and bound): each runs on the CPU when asked, and
+    # on numpy inputs without a device needs the card
+    t = torch.as_tensor
+    for kw in (dict(H=None), dict(H=t(H), is_avi=True),
+               dict(H=t(H), break_points=(4, 8)),
+               dict(H=t(H), sense=sense | dt.BINARY)):
+        r = dt.solve(**{"f": t(f), "A": t(A), "bupper": t(bu),
+                        "blower": t(bl), **kw})
+        assert r.x.device.type == "cpu" and r.exitflag != 0
+        if not torch.cuda.is_available():
+            np_kw = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                     for k, v in kw.items()}
+            with pytest.raises(RuntimeError, match="CUDA"):
+                dt.solve(f=f, A=A, bupper=bu, blower=bl, **np_kw)
 
 
 def _chip_smoke():

@@ -57,6 +57,49 @@ def test_round_matches_jax_kernel(steps):
         assert gap <= 5e-4 * (1.0 + np.abs(ref).max()), (name, gap)
 
 
+
+def test_round_dominance_cut_matches_jax_kernel():
+    # K2's per-lane fbound cut (slot_step.cuh:650, pallas_slot.py's
+    # per-lane dominance exit): every other lane gets a bound below half
+    # its optimal LDP fval from an unbounded run, the rest DAQP_INF.  The
+    # cut lanes exit INFEASIBLE in both packages; the others run as
+    # without a bound
+    B, n, m = 128, 10, 24
+    d = generate_test_qp_batch(B, n, m, 0, 6, 1e2, rng=33,
+                               dtype=np.float32)
+    st = _as_settings({"iter_limit": 500}, jnp.float32)
+    ldpd = jax.vmap(functools.partial(transform.build_ldp, ms=0, st=st))(
+        *[jnp.asarray(d[k]) for k in KEYS])
+    immut = ((ldpd.sense & IMMUTABLE) > 0).astype(jnp.float32)
+
+    def both(fb):
+        s = ps.slot_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.scaling,
+                         immut, n_true=n, fbound_b=fb)
+        sj = jax.tree_util.tree_map(
+            np.asarray, ps.run_slot_round(s, st, n, steps=192,
+                                          interpret=True))
+        sp = convert.slot_state_to_numpy(pslot.run_slot_round(
+            convert.slot_state_from_jax(s), convert.settings_from_jax(st),
+            n, steps=192))
+        return sj, sp
+
+    free_j, free_p = both(None)
+    opt = free_j.status[0] == dt.EXIT_OPTIMAL
+    cut = opt & (np.arange(B) % 2 == 0)
+    assert cut.sum() >= 60
+    fb = np.where(cut, 0.5 * free_j.fval[0], dt.DAQP_INF).astype(np.float32)
+    sj, sp = both(jnp.asarray(fb))
+    assert (sj.status[0][cut] == dt.EXIT_INFEASIBLE).all()
+    assert (sp['status'][0][cut] == dt.EXIT_INFEASIBLE).all()
+    rest = ~cut
+    assert (sp['status'][0][rest] == free_p['status'][0][rest]).all()
+    assert (sj.status[0][rest] == free_j.status[0][rest]).all()
+    assert np.array_equal(sp['u'][..., rest], free_p['u'][..., rest])
+    # a cut lane stops at the step whose dual objective first passes the
+    # bound, no later than its unbounded run's optimal exit
+    assert (sp['iterations'][0][cut] <= free_p['iterations'][0][cut]).all()
+    assert (sj.iterations[0][cut] <= free_j.iterations[0][cut]).all()
+
 def _solve(d, st):
     args = [torch.as_tensor(d[k]) for k in KEYS]
     return dt.solve_batch_kernel(*args, st=st, ms=0, has_soft=False)
