@@ -14,9 +14,11 @@ config 4 (``solve_batch_prox_kernel``), config 4b
 configLP (``solve_batch_lp_kernel``, per-pass and fused), the backstop
 (``backstop_resolve`` of ``chip_smoke.py``'s forced failures, on the
 first 256 lanes), config
-1 (16 single-instance ``quadprog`` solves, f64 and f32) and config 5
-(``solve_batch_miqp_kernel``: node waves on K1 and K2), at the data of
-``chip_smoke.py``, it runs
+1 (16 single-instance ``quadprog`` solves, f64 and f32), config 5
+(``solve_batch_miqp_kernel``: node waves on K1 and K2) and the flat tier
+(``flat``: ``solve_batch_flat_jit`` on config 2's first 2048 lanes;
+``flat_grid100``: ``solve_batch`` on the reference grid's n = 100 batch
+of 64), at the data of ``chip_smoke.py``, it runs
 one warm-up call and then one call under ``torch.profiler`` (CPU and
 CUDA activities), and prints one JSON line per cell: the host wall of the
 profiled call, the device time summed over kernels, the device's busy and
@@ -702,6 +704,11 @@ def main():
     d = gen.generate_test_qp_batch(cs.B, cs.N, cs.M_ROWS, 0, cs.N_ACT,
                                    cs.KAPPA, rng=cs.SEED, dtype=np.float32)
     full = [torch.as_tensor(d[k], device=dev) for k in keys]
+    head = [a[:cs.FLAT_LANES] for a in full]
+    profiled("flat", lambda: pbatch.solve_batch_flat_jit(*head, st), card)
+    n, m, ms, nact, Bn = cs.FLAT_GRID[0]
+    _, grid = cs.grid_batch(gen, n, m, ms, nact, Bn)
+    profiled("flat_grid100", lambda: dt.solve_batch(*grid, ms=ms), card)
     profiled("config2", lambda: dt.solve_batch_kernel_stream(
         *full, st=st, chunk=256, sort_stream=True), card)
     soft = full[:5] + [cs.soft_sense(full[5])]

@@ -71,7 +71,17 @@ before and read just after:
   8 configAVI AVIs through ``dt.avi``, 16 config-4b hierarchies through
   ``dt.quadprog(break_points=...)`` and 16 config-5 MIQPs through
   ``dt.quadprog`` in f64, each against its gate, and one ``Model`` of an
-  LP, a hierarchy and a MIQP equal to the one-shot result.
+  LP, a hierarchy and a MIQP equal to the one-shot result;
+* ``flat``: the flat tier (``ldp_flat``) and ``solve_batch``'s routing:
+  config 2's first 2048 lanes through ``solve_batch_flat_jit`` at cell
+  2's gate (K1), its first 256 through ``solve_batch`` in f32 (the
+  kernel route: K1, K2) and in f64 (the flat tier), the reference grid
+  (``scripts/grid_accuracy.py``'s sizes, n = 100, 200, 500) as batches
+  through ``solve_batch`` (the flat route: K1, K1, B10), no lane flagged
+  1 beyond 1e-4, then ``backstop_resolve``: every lane within 1e-4;
+  config 3's scenario 0 through ``solve_mpc_scan`` against the f64
+  oracle, and config 5's first 8 MIQPs in f64 through
+  ``solve_batch_miqp_jit`` against the branch-and-bound oracle.
 
 The ``hiqp``, ``avi`` and ``lp`` phases end with their tier's backstop
 (``backstop_resolve_hiqp``, ``_avi``, ``_lp``): the batch's loud lanes
@@ -123,7 +133,8 @@ import numpy as np
 import torch
 
 import daqp_tpu_torch as dt
-from daqp_tpu_torch import batch as pbatch, mpc as pmpc, ops, transform
+from daqp_tpu_torch import (batch as pbatch, ldp_flat, mpc as pmpc, ops,
+                            transform)
 from daqp_tpu_torch.ops import _build, chol, dense, slot, smem
 
 ROOT = Path(__file__).resolve().parent
@@ -287,6 +298,18 @@ JAX_MIQP_OPT_RATE = 256 / 256
 # meta: the single-instance meta-solvers on the card
 META_LP, META_AVI, META_HIQP, META_MIQP = 16, 8, 16, 16
 META_MIQP_TOL = 1e-6  # f64 MIQP fval against bnb_numpy, / (1 + |fval|)
+# flat: the flat tier (ldp_flat) and solve_batch's routing.  Case a runs
+# config 2's first FLAT_LANES lanes (one chunk of batch.LANE_CHUNK), case
+# b its first FLAT_ROUTE lanes in f32 and f64 (the f64 lanes held to
+# F64_TOL of the f64 generator's x); case c the reference grid as
+# batches: scripts/grid_accuracy.py:22-28's sizes (n, m, ms, active) and
+# generator (generate_test_qp, kappa 1e2, rng 1000 + n), B lanes each;
+# case d config 3's scenario 0, case e config 5's first FLAT_MIQP MIQPs
+FLAT_LANES, FLAT_ROUTE, F64_TOL = 2048, 256, 1e-6
+FLAT_GRID = ((100, 500, 50, 80, 64), (200, 1000, 100, 160, 16),
+             (500, 2500, 250, 400, 8))
+GRID_SEED = 1000
+FLAT_MIQP = 8
 
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -472,6 +495,7 @@ def reset_counts():
     slot.mpc_launches = slot.prox_launches = slot.avi_launches = 0
     slot.lp_launches = 0
     ops.host_syncs = pmpc.redone_segments = pbatch.prox_resumed_lanes = 0
+    ldp_flat.rounds = 0
     pbatch.avi_kkt_services = pbatch.avi_resumed_lanes = 0
     pbatch.lp_resumed_lanes = pbatch.lp_certified_lanes = 0
 
@@ -3094,6 +3118,212 @@ def phase_meta(d_lp, d_avi, d4b, d5, card):
     return ok, launches
 
 
+def flat_window(fn):
+    """``fn()`` with every count set to 0 just before and read just after:
+    (result, launches, host syncs, flat rounds, wall seconds)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return r, read_counts(), ops.host_syncs, ldp_flat.rounds, wall
+
+
+def flat_gate(r, x_ref, tol):
+    """Cell 2's gate at ``tol``: (passes at ACC_RATE with no lane flagged
+    1 beyond tol, fields)."""
+    x = r.x.cpu().numpy().astype(np.float64)
+    flags = r.exitflag.cpu().numpy()
+    err = np.linalg.norm(x - x_ref, axis=1)
+    acc = float(np.mean((flags == 1) & (err <= tol)))
+    silent = int(np.sum((flags == 1) & (err > tol)))
+    ok = acc >= ACC_RATE and silent == 0 and bool(np.isfinite(x).all())
+    return ok, dict(accuracy_pass_rate=acc, silent_wrong=silent,
+                    optimal_rate=float(np.mean(flags == 1)),
+                    max_err_optimal=float(err[flags == 1].max())
+                    if (flags == 1).any() else None,
+                    median_iters=float(np.median(
+                        r.iterations.cpu().numpy())))
+
+
+def grid_batch(gen, n, m, ms, nact, Bn):
+    """``Bn`` QPs of scripts/grid_accuracy.py's generator at one size, in
+    its order (rng 1000 + n): (x_ref f64, the f32 tensors on the card)."""
+    rng = np.random.default_rng(GRID_SEED + n)
+    probs = [gen.generate_test_qp(n, m, ms, nact, KAPPA, rng)
+             for _ in range(Bn)]
+    x, H, f, A, bu, bl, sense = (np.stack(v) for v in zip(*probs))
+    dev = torch.device("cuda")
+    return x, [torch.as_tensor(v.astype(np.float32), device=dev)
+               for v in (H, f, A, bu, bl)] + [torch.as_tensor(sense,
+                                                              device=dev)]
+
+
+def phase_flat(head, x_head, d64_head, gen, d3, d5, st, card):
+    """The flat tier and ``solve_batch``'s routing, each case its own count
+    window: (a) config 2's first FLAT_LANES lanes through
+    ``solve_batch_flat_jit`` at cell 2's gate (K1 factors); (b) its first
+    FLAT_ROUTE lanes through ``solve_batch`` in f32 (the kernel route: K2,
+    no flat round) and in f64 (the flat tier: no kernel, within F64_TOL);
+    (c) the reference grid's sizes through ``solve_batch`` (the flat route:
+    K1 at n = 100 and 200, B10 at n = 500), no lane flagged 1 beyond
+    ACC_TOL, then ``backstop_resolve``: every lane flag 1 within ACC_TOL;
+    B10 and the library timed on the n = 500 batch; (d) config 3's
+    scenario 0 through ``solve_mpc_scan`` against the f64 oracle per step
+    (MPC_TOL); (e) config 5's first FLAT_MIQP MIQPs in f64 through
+    ``solve_batch_miqp_jit`` against ``oracle/bnb_numpy.py`` (the flag,
+    fval within META_MIQP_TOL)."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    limit = smem.available(dev)
+    out, windows, ok = {}, {}, True
+
+    # (a) the flat tier at config 2's widths, then the same lanes in
+    # chunks of 512 (the JAX tier's chunk) for the wall beside
+    r, cnt, syncs, rounds, wall = flat_window(
+        lambda: pbatch.solve_batch_flat_jit(*head, st))
+    good, fields = flat_gate(r, x_head, ACC_TOL)
+    _, _, syncs2, rounds2, wall2 = flat_window(
+        lambda: pbatch.solve_batch_flat_jit(*head, st))
+    _, _, syncs512, rounds512, wall512 = flat_window(
+        lambda: pbatch.solve_batch_flat_jit(*head, st, lane_chunk=512))
+    out["a"] = dict(lanes=FLAT_LANES, lane_chunk=pbatch.LANE_CHUNK,
+                    launches=cnt, rounds=rounds, host_syncs=syncs,
+                    first_wall_s=wall, wall_s=wall2,
+                    lanes_per_s=FLAT_LANES / wall2, rounds_again=rounds2,
+                    host_syncs_again=syncs2, chunk512=dict(
+                        wall_s=wall512, rounds=rounds512,
+                        host_syncs=syncs512,
+                        lanes_per_s=FLAT_LANES / wall512), **fields)
+    windows["flat"] = cnt
+    ok = ok and good and cnt["chol_rinv"] >= 1 and rounds >= 1
+
+    # (b) solve_batch routes: f32 to the kernel stream, f64 to the flat
+    a32 = [a[:FLAT_ROUTE] for a in head]
+    r, c32, s32, n32, w32 = flat_window(lambda: dt.solve_batch(
+        *a32, settings=st))
+    g32, f32_ = flat_gate(r, x_head[:FLAT_ROUTE], ACC_TOL)
+    a64 = [torch.as_tensor(d64_head[k], device=dev) for k in (
+        'H', 'f', 'A', 'bupper', 'blower', 'sense')]
+    r, c64, s64, n64, w64 = flat_window(lambda: dt.solve_batch(
+        *a64, settings={"iter_limit": 1000}))
+    g64, f64_ = flat_gate(r, d64_head['x'], F64_TOL)
+    route32 = pbatch.batch_route(torch.float32, N, M_ROWS, False, False,
+                                 limit)
+    route64 = pbatch.batch_route(torch.float64, N, M_ROWS, False, False,
+                                 limit)
+    out["b"] = dict(f32=dict(route=route32, launches=c32, rounds=n32,
+                             host_syncs=s32, wall_s=w32, **f32_),
+                    f64=dict(route=route64, launches=c64, rounds=n64,
+                             host_syncs=s64, wall_s=w64, tol=F64_TOL,
+                             x_dtype=str(r.x.dtype), **f64_))
+    windows["flat_route_f32"], windows["flat_route_f64"] = c32, c64
+    ok = ok and g32 and g64 and route32 == "kernel" and route64 == "flat" \
+        and c32["slot_round"] >= 1 and n32 == 0 \
+        and sum(c64.values()) == 0 and n64 >= 1 \
+        and r.x.dtype == torch.float64
+
+    # (c) the reference grid as batches, past the kernels' blocks
+    routes = {n: chol.factor_route(n, limit) for n in (
+        WARP_LIMIT, WARP_LIMIT + 1, B10_LIMIT, B10_LIMIT + 1)}
+    ok = ok and list(routes.values()) == ["k1", "b10", "b10", "library"]
+    out["factor_routes"] = routes
+    for n, m, ms, nact, Bn in FLAT_GRID:
+        x_ref, args = grid_batch(gen, n, m, ms, nact, Bn)
+        r, cnt, syncs, rounds, wall = flat_window(
+            lambda: dt.solve_batch(*args, ms=ms))
+        flags = r.exitflag.cpu().numpy()
+        err = np.linalg.norm(r.x.cpu().numpy().astype(np.float64) - x_ref,
+                             axis=1)
+        silent = int(np.sum((flags == 1) & (err > ACC_TOL)))
+        tb = time.perf_counter()
+        before = pbatch.backstop_lanes
+        rb = pbatch.backstop_resolve(r, *args, ms=ms)
+        fb = rb.exitflag.cpu().numpy()
+        eb = np.linalg.norm(rb.x.cpu().numpy().astype(np.float64) - x_ref,
+                            axis=1)
+        factor = chol.factor_route(n, limit)
+        kernel = {"k1": "chol_rinv", "b10": "chol_blk"}[factor]
+        rec = dict(B=Bn, m=m, ms=ms, active=nact,
+                   route=pbatch.batch_route(torch.float32, n, m, False,
+                                            False, limit),
+                   factor=factor, launches=cnt, rounds=rounds,
+                   host_syncs=syncs, wall_s=wall, lanes_per_s=Bn / wall,
+                   flags={int(k): int(v) for k, v in zip(*np.unique(
+                       flags, return_counts=True))},
+                   loud=int(np.sum(flags != 1)), silent_wrong=silent,
+                   max_err_optimal=float(err[flags == 1].max())
+                   if (flags == 1).any() else None,
+                   iterations=r.iterations.cpu().numpy().tolist(),
+                   backstop_lanes=pbatch.backstop_lanes - before,
+                   backstop_s=time.perf_counter() - tb,
+                   after_backstop_ok=bool(np.all((fb == 1)
+                                                 & (eb <= ACC_TOL))),
+                   after_backstop_max_err=float(eb.max()))
+        if n == 500:
+            H = args[0]
+            t = in_turns(lambda: library_rinv(H),
+                         lambda: chol.chol_rinv_blk(H), 5, rounds=1)
+            rec["b10_ms"], rec["library_ms"] = t["second"], t["first"]
+            rec["b10_vs_library"] = (chol.chol_rinv_blk(H)
+                                     - library_rinv(H)).abs().max().item()
+            rec.update(bound(H.element_size() * Bn * (n * (n + 1) // 2
+                                                      + n * n),
+                             Bn * 2 * n ** 3 / 3))
+        out[f"c_n{n}"] = rec
+        windows[f"flat_grid_n{n}"] = cnt
+        other = "chol_blk" if kernel == "chol_rinv" else "chol_rinv"
+        ok = ok and rec["route"] == "flat" and cnt[kernel] >= 1 \
+            and cnt[other] == 0 and silent == 0 and rec["after_backstop_ok"]
+        del args, r, rb
+
+    # (d) config 3's scenario 0 on the flat horizon, against the f64
+    # oracle at every step
+    oracle = load("daqp_oracle", "oracle/daqp_numpy.py")
+    args3 = [torch.as_tensor(d3[k][0] if k.endswith("seq") else d3[k],
+                             device=dev)
+             for k in ('H', 'A', 'f_seq', 'bu_seq', 'bl_seq')]
+    r, cnt, syncs, rounds, wall = flat_window(
+        lambda: dt.solve_mpc_scan(*args3, st))
+    flags = r.exitflag.cpu().numpy()
+    x = r.x.cpu().numpy().astype(np.float64)
+    err = np.array([np.linalg.norm(x[t] - oracle.quadprog(*(
+        v.astype(np.float64) for v in (
+            d3['H'], d3['f_seq'][0, t], d3['A'], d3['bu_seq'][0, t],
+            d3['bl_seq'][0, t])))['x']) for t in range(T3)])
+    out["d"] = dict(T=T3, launches=cnt, rounds=rounds, host_syncs=syncs,
+                    wall_s=wall, flags=flags.tolist(),
+                    iterations=r.iterations.cpu().numpy().tolist(),
+                    max_err=float(err.max()), tol=MPC_TOL)
+    windows["flat_mpc"] = cnt
+    ok = ok and bool(np.all(flags == 1)) and err.max() <= MPC_TOL \
+        and cnt["chol_rinv"] == 1
+
+    # (e) config 5's first MIQPs in f64, one branch and bound a lane
+    lanes = np.arange(FLAT_MIQP)
+    a5 = [torch.as_tensor(d5[k][lanes].astype(np.float64)
+                          if k != 'sense' else d5[k][lanes], device=dev)
+          for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
+    r, cnt, syncs, rounds, wall = flat_window(
+        lambda: pbatch.solve_batch_miqp_jit(
+            *a5, dt.as_settings(None, torch.float64),
+            bin_ids=tuple(range(NB5))))
+    ref_flags, ref_fval = miqp_oracle(d5, lanes)
+    flags = r.exitflag.cpu().numpy()
+    rel = np.abs(r.fval.cpu().numpy() - ref_fval) / (1.0 + np.abs(ref_fval))
+    out["e"] = dict(lanes=FLAT_MIQP, launches=cnt, host_syncs=syncs,
+                    wall_s=wall, flags=flags.tolist(),
+                    oracle_flags=ref_flags.tolist(),
+                    nodes=r.nodes.cpu().numpy().tolist(),
+                    max_fval_rel_err=float(rel.max()), tol=META_MIQP_TOL)
+    windows["flat_miqp"] = cnt
+    ok = ok and bool(np.all(flags == ref_flags)) \
+        and bool(np.all(rel[ref_flags == 1] <= META_MIQP_TOL))
+    emit("flat", t0, **out, card=card)
+    return ok, windows
+
+
 def loud(flags):
     return int(np.sum(flags <= 0))
 
@@ -3221,7 +3451,7 @@ def phase_backstop(full, d, sw_np, st, card):
 
 PHASES = ("k1", "k2", "slice", "k8", "k9", "k10", "stages", "limits", "k7",
           "soft", "sw", "backstop", "single", "k3", "mpc", "k4", "prox",
-          "hiqp", "k5", "avi", "k6", "lp", "miqp", "meta")
+          "hiqp", "k5", "avi", "k6", "lp", "miqp", "meta", "flat")
 
 
 def main():
@@ -3237,8 +3467,12 @@ def main():
     card = card_line()
     phase_env(card)
     gen = load("daqp_test_gen", "tests/gen.py")
-    d = gen.generate_test_qp_batch(B, N, M_ROWS, 0, N_ACT, KAPPA, rng=SEED,
-                                   dtype=np.float32)
+    # config 2 in f64, then as bench.py casts it (dtype=np.float32)
+    d64 = gen.generate_test_qp_batch(B, N, M_ROWS, 0, N_ACT, KAPPA, rng=SEED)
+    d = {k: v.astype(np.float32) if v.dtype == np.float64 else v
+         for k, v in d64.items()}
+    d64_head = {k: v[:FLAT_ROUTE] for k, v in d64.items()}
+    del d64
     keys = ('H', 'f', 'A', 'bupper', 'blower', 'sense')
     full = [torch.as_tensor(d[k], device=dev) for k in keys]
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)
@@ -3279,6 +3513,7 @@ def main():
     run("soft", phase_soft, full, d, st, card)
     run("sw", phase_sw, full, d, sw_np, st, card)
     run("backstop", phase_backstop, full, d, sw_np, st, card)
+    head = [a[:FLAT_LANES].clone() for a in full]
     del full
     run("single", phase_single, gen, card)
 
@@ -3309,6 +3544,8 @@ def main():
     d5 = config5()
     run("miqp", phase_miqp, d5, st, card)
     run("meta", phase_meta, d_lp, d_avi, d4b, d5, card)
+    run("flat", phase_flat, head, d['x'][:FLAT_LANES].astype(np.float64),
+        d64_head, gen, d3, d5, st, card)
 
     failed = [name for name in PHASES if name in res and not res[name][0]]
     if only is not None:
@@ -3320,6 +3557,7 @@ def main():
                                     "hiqp", "avi", "backstop", "miqp")}
     paths.update(res["lp"][1])
     paths.update(res["stages"][1])
+    paths.update(res["flat"][1])
 
     def entry(name, source, replaces, fields):
         by_path = {p: v[name] for p, v in paths.items()}

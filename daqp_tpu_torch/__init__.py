@@ -2,11 +2,13 @@
 
 The cold batch path of ``daqp_tpu`` (transform, slot active-set solver
 for hard batches, dense-mask solver for batches with soft rows or
-SOFT_WEIGHTS slack data, stream entry, the f64 backstop), the warm MPC
-horizon (``mpc``), the semidefinite proximal batch, the batched
-hierarchical least-squares walk, batched affine variational inequalities,
-batched LPs (the adaptive-eps proximal LP tier) and batched MIQP branch
-and bound in node waves, with their TPU kernels rewritten for Hopper in
+SOFT_WEIGHTS slack data, stream entry, the f64 backstop), the flat tier
+(``ldp_flat``: any shape, in the caller's dtype) behind the quick
+start's ``solve_batch``, the warm MPC horizons (``mpc``), the
+semidefinite proximal batch, the batched hierarchical least-squares
+walk, batched affine variational inequalities, batched LPs (the
+adaptive-eps proximal LP tier) and batched MIQP branch and bound in node
+waves, with their TPU kernels rewritten for Hopper in
 CUDA C++ (``ops/csrc``); and the single-instance solvers with their
 public API (``solve``, ``quadprog``, ``linprog``, ``avi``, ``Model``,
 ``minrep``, ``isfeasible``): dense QPs, LPs, AVIs, hierarchies and MIQP
@@ -32,7 +34,7 @@ from .types import (  # noqa: E402
     PRICING_DANTZIG, PRICING_BLAND, Problem, Result, Settings, SoftWeights,
     default_settings_f32, as_settings)
 from .batch import (  # noqa: E402
-    BatchResult, solve_batch_kernel, solve_batch_kernel_stream,
+    BatchResult, solve_batch, solve_batch_kernel, solve_batch_kernel_stream,
     solve_batch_prox_kernel, solve_batch_hiqp_kernel, solve_batch_avi_kernel,
     solve_batch_lp_kernel, solve_batch_miqp_kernel, kkt_residuals,
     backstop_resolve, backstop_resolve_lp, backstop_resolve_avi,
@@ -41,4 +43,5 @@ from .api import solve, quadprog, linprog, avi  # noqa: E402
 from .model import Model  # noqa: E402
 from .geometry import minrep, isfeasible  # noqa: E402
 from .mpc import (  # noqa: E402
-    MPCStep, solve_mpc_scan_kernel, solve_mpc_scan_kernel_fused)
+    MPCStep, solve_mpc_scan, solve_mpc_scan_kernel,
+    solve_mpc_scan_kernel_fused)

@@ -8,7 +8,14 @@ SOFT_WEIGHTS branches, :551-694), ``:699 solve_batch_prox_pallas_jit``,
 solve_batch_avi_pallas_jit``, ``:1999 solve_batch_hiqp_pallas_jit``,
 ``:2233 solve_batch_miqp_pallas_jit``, ``:2582 kkt_residuals``,
 ``:2637-2771`` (``backstop_resolve_lp``, ``_avi``, ``_hiqp``) and
-``:2772 backstop_resolve``.
+``:2772 backstop_resolve``; and of its flat and ordered tiers: ``:65
+_solve_one`` and ``:91 solve_batch_jit`` (the ordered tier, its lane
+body in ``solve_batch_jit``'s loop), ``:117 _solve_one_flat``
+(``_solve_flat``, batched), ``:175 _flat_batch_core`` and ``:222
+solve_batch_flat_jit`` (the flat tier, ``ldp_flat``; the chunks in
+``solve_batch_flat_jit``), ``:2566 solve_batch_miqp_jit`` and ``:2857
+solve_batch``.  The entry points keep the JAX names so that a reader
+finds the counterpart; nothing here is jitted.
 
 Every entry point runs where its inputs are: tensors keep their device
 (inputs on mixed devices raise) and other inputs (numpy arrays, lists) go
@@ -28,9 +35,16 @@ batched affine variational inequalities on B5 and K2, and
 B6 with ``fused=True``); ``solve_batch_miqp_kernel`` runs branch and
 bound in node waves on K1 and K2.  The backstops re-solve a batch's loud
 lanes in f64 through the single-instance API (``quadprog``, ``linprog``,
-``avi``, ``quadprog(break_points=...)``).  ``solve_batch_miqp_jit`` (the
-vmap of the single-instance branch and bound) belongs to the flat tier
-and raises NotImplementedError naming ROADMAP A13.  Left behind as TPU
+``avi``, ``quadprog(break_points=...)``).
+
+The flat tier (``solve_batch_flat_jit``) solves any shape in the caller's
+dtype on ``ldp_flat``'s slot table in torch ops; an f32 batch on the card
+is factored by K1 or B10 (``chol.factor_route``), any other batch by the
+library's Cholesky, as the JAX flat tier factors in XLA.
+``solve_batch`` sends what fits the kernels' blocks to the kernel stream
+and the rest to the flat tier, by ``batch_route``.  The ordered tier
+(``solve_batch_jit``) and ``solve_batch_miqp_jit`` run the
+single-instance solvers lane after lane.  Left behind as TPU
 workarounds: the 512-lane guard and its routing, the 128-lane padding,
 the n-padding of the AVI matrices, the MIQP tier's 31-bit words and
 one-hot bin-to-row einsum, and the in-core difficulty sort for tile
@@ -46,20 +60,24 @@ host sync, and ``deadline=None`` skips it.
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from . import transform
-from .ops import chol, dense, host_any, host_numpy, late, slot
+from . import bnb, core, ldp_flat, transform
+from . import ldp as ldp_mod
+from .ops import (chol, dense, host_any, host_numpy, host_read, late, slot,
+                  smem)
 from .prox import auto_eta
 from .types import (ACTIVE, BINARY, IMMUTABLE, LOWER, SOFT, DAQP_INF,
                     EXIT_CYCLE, EXIT_INFEASIBLE, EXIT_ITERLIMIT, EXIT_NO_DOF,
                     EXIT_NONCONVEX,
                     EXIT_OPTIMAL, EXIT_REFACTOR, EXIT_RUNNING,
                     EXIT_SOFT_OPTIMAL, EXIT_TIMELIMIT, EXIT_UNBOUNDED,
-                    EXIT_UNSUPPORTED, PRICING_BLAND, Settings, SoftWeights)
+                    EXIT_UNSUPPORTED, PRICING_BLAND, Settings, SoftWeights,
+                    as_settings)
 
 
 class BatchResult(NamedTuple):
@@ -272,6 +290,180 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
         unsort = torch.argsort(order)
         out = BatchResult(*(x[unsort] for x in out))
     return out
+
+
+LANE_CHUNK = 2048   # lanes a flat chunk: its steps are host-bound (PERF.md §6)
+
+
+def factor_batch(H, st: Settings):
+    """``transform.factorize_hessian`` of a batch, as the flat and ordered
+    tiers and the flat horizon factor: the dense lanes of an f32 batch on
+    the card through ``chol.batched_rinv_regularized`` (K1 or
+    B10 by n), any other batch through the library's Cholesky, as the JAX
+    flat tier factors (``daqp_tpu/transform.py:57``)."""
+    dense_fn = chol.batched_rinv_regularized \
+        if H.is_cuda and H.dtype == torch.float32 else None
+    return transform.factorize_hessian(H, st, dense=dense_fn)
+
+
+def _solve_flat(H, f, A, bupper, blower, sense, sw, ms: int, st: Settings,
+                K: int, is_late: bool = False) -> BatchResult:
+    """A chunk of lanes on the flat tier (``_solve_one_flat``, batched):
+    the transform, SOFT_WEIGHTS data normalized by the row scaling, the
+    equality / warm activation, then the pre-status in the JAX order
+    (transform error, failed activation, unconstrained shortcut, and with
+    ``is_late`` TIMELIMIT for a chunk that starts past its deadline),
+    ``flat_solve`` and the map back to x, lam, fval."""
+    ldpd = transform.build_ldp(f, A, bupper, blower, sense, ms, st,
+                               fact=factor_batch(H, st))
+    sw_n = None if sw is None else transform.normalize_soft_weights(sw, ldpd)
+    s = ldp_flat.flat_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.sense,
+                           ldpd.scaling, K=K, sw=sw_n)
+    s = ldp_flat.flat_activate(s, st)
+    unc_ok, _ = transform.check_unconstrained(
+        ldpd._replace(sense=s.sense), st)
+    pre = torch.where(ldpd.error < 0, ldpd.error, torch.where(
+        s.status != EXIT_RUNNING, s.status,
+        torch.where(unc_ok, EXIT_OPTIMAL, EXIT_RUNNING)))
+    if is_late:
+        pre = timed_out(pre, pre == EXIT_RUNNING)
+    s = ldp_flat.flat_solve(s._replace(status=pre.to(torch.int32)), st)
+    return BatchResult(
+        x=transform.ldp_to_qp_solution(ldpd, s.u),
+        lam=ldp_flat.flat_extract_duals(s),
+        fval=0.5 * (s.fval - (ldpd.v * ldpd.v).sum(1)),
+        exitflag=s.status, iterations=s.iterations,
+        soft_slack=s.soft_slack)
+
+
+def _lanes(x, sl):
+    return None if x is None else type(x)(*(v[sl] for v in x))
+
+
+def solve_batch_flat_jit(H, f, A, bupper, blower, sense, st: Settings,
+                         ms: int = 0, K: Optional[int] = None,
+                         lane_chunk: int = LANE_CHUNK, sw=None,
+                         deadline=None, device=None) -> BatchResult:
+    """Batched strictly convex QP solve on the flat tier (``ldp_flat``),
+    in the inputs' dtype, in chunks of ``lane_chunk`` lanes: a chunk's
+    rounds last as long as its slowest lane, and a lane's result depends
+    on that lane alone.  Not jitted: the name is the JAX package's.
+
+    For batches with SOFT rows pass K = n + max_ns + 1 (the reference's
+    per-instance allocation, api.c:288-305; ``solve_batch`` computes it);
+    the default K = n + 1 turns a soft working set past n + 1 into a
+    pending add and CYCLE, never a silent overwrite.  ``sw``: a
+    ``SoftWeights`` of (B, m) fields in raw user units (SOFT_WEIGHTS,
+    auxiliary.c:199-274).  ``deadline`` (absolute ``time.perf_counter()``
+    seconds) is read from the host's clock as each chunk starts: a chunk
+    starting past it returns TIMELIMIT on its lanes."""
+    H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
+                                              sense, device)
+    sw = _sw_tensors(sw, H)
+    B, n = H.shape[0], H.shape[-1]
+    K = n + 1 if K is None else K
+    parts = []
+    for c0 in range(0, B, lane_chunk):
+        sl = slice(c0, c0 + lane_chunk)
+        parts.append(_solve_flat(H[sl], f[sl], A[sl], bupper[sl],
+                                 blower[sl], sense[sl], _lanes(sw, sl), ms,
+                                 st, K, late(deadline)))
+    return BatchResult(*(torch.cat(p) for p in zip(*parts)))
+
+
+def solve_batch_jit(H, f, A, bupper, blower, sense, st: Settings,
+                    ms: int = 0, K: Optional[int] = None,
+                    repair_rounds: int = 2, device=None) -> BatchResult:
+    """Batched strictly convex QP solve on the ordered tier: the batch
+    factored at once (as the flat tier), then lane after lane the
+    single-instance state (``ldp``), activated, its loop in batch mode and
+    ``repair_rounds`` rounds of ``ldp.batch_post_pass``
+    (``ldp_solve_batched_lane``), the port's form of the JAX package's
+    vmap of ``_solve_one``.  K: as ``solve_batch_flat_jit``."""
+    H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
+                                              sense, device)
+    B, n = H.shape[0], A.shape[-1]
+    K = n + 1 if K is None else K
+    ldpd_b = transform.build_ldp(f, A, bupper, blower, sense, ms, st,
+                                 fact=factor_batch(H, st))
+    outs = []
+    for b in range(B):
+        ldpd = core.lane(_lanes(ldpd_b, slice(b, b + 1)))
+        _, state, _, _ = core.start(ldpd, st, K)
+        state = ldp_mod.ldp_solve_batched_lane(state, st,
+                                               rounds=repair_rounds)
+        outs.append(core.extract(ldpd, state))
+    dev = H.device
+    return BatchResult(
+        x=torch.stack([o.x for o in outs]),
+        lam=torch.stack([o.lam for o in outs]),
+        fval=torch.stack([o.fval for o in outs]),
+        exitflag=torch.tensor([o.exitflag for o in outs], dtype=torch.int32,
+                              device=dev),
+        iterations=torch.tensor([o.iterations for o in outs],
+                                dtype=torch.int32, device=dev),
+        soft_slack=torch.stack([o.soft_slack for o in outs]))
+
+
+def batch_route(dtype, n: int, m: int, has_soft: bool, has_sw: bool,
+                limit: int) -> str:
+    """Where ``solve_batch`` sends a batch, decided from its type and
+    shapes before anything is launched on a card whose blocks may opt in
+    to ``limit`` bytes of shared memory: "kernel" (the stream: K1, then
+    K2, or B7 / B7-sw with soft rows or SOFT_WEIGHTS data) for an f32
+    batch that K1 factors (``chol.factor_route``) and whose LDP block
+    fits (``smem.slot_floats`` at K = n + 1, ``smem.dense_floats``);
+    "flat" for the rest: f64 batches and shapes past a block."""
+    if dtype != torch.float32 or chol.factor_route(n, limit) != "k1":
+        return "flat"
+    floats = smem.dense_floats(m, n, has_sw) if has_soft or has_sw \
+        else smem.slot_floats(m, n, n + 1)
+    return "kernel" if smem.F32 * floats <= limit else "flat"
+
+
+def solve_batch(H, f, A, bupper, blower, sense=None, ms: int = 0,
+                settings=None, soft_weights=None,
+                device=None) -> BatchResult:
+    """The batched entry of the quick start (``daqp_tpu.solve_batch``):
+    dense strictly convex QPs with a leading batch dimension.
+
+    ``settings``: a ``Settings``, a dict of overrides or None (the
+    defaults for H's dtype); its ``time_limit`` > 0 becomes a deadline.
+    ``soft_weights``: SOFT_WEIGHTS data, a ``SoftWeights`` of (B, m)
+    fields or a dict of them (missing keys: d 0, rho ``rho_soft``).
+    ``batch_route`` picks the tier: an f32 batch that fits the kernels'
+    blocks runs the kernel stream, anything else the flat tier with K =
+    n + max_ns + 1 (the reference allocates n + ns + 1 per instance,
+    api.c:288-305, and a soft working set may outgrow n + 1)."""
+    H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
+                                              sense, device)
+    B, n = H.shape[0], H.shape[-1]
+    m = bupper.shape[-1]
+    dtype = H.dtype
+    st = as_settings(settings, dtype)
+    deadline = time.perf_counter() + float(st.time_limit) \
+        if float(st.time_limit) > 0 else None
+    sw = None
+    if isinstance(soft_weights, dict):
+        zm = torch.zeros((B, m), dtype=dtype, device=H.device)
+        rm = torch.full((B, m), float(st.rho_soft), dtype=dtype,
+                        device=H.device)
+        sw = SoftWeights(*(torch.as_tensor(
+            soft_weights.get(k, dflt), device=H.device).to(dtype)
+            for k, dflt in zip(SoftWeights._fields, (zm, zm, rm, rm))))
+    elif soft_weights is not None:
+        sw = SoftWeights(*(x.to(dtype) for x in _sw_tensors(soft_weights,
+                                                             H)))
+    max_ns = int(host_read(((sense & SOFT) > 0).sum(1).amax())) \
+        if B and m else 0
+    route = batch_route(dtype, n, m, max_ns > 0, sw is not None,
+                        smem.limit(H.device))
+    if route == "kernel":
+        return solve_batch_kernel_stream(
+            H, f, A, bupper, blower, sense, st, ms=ms,
+            has_soft=max_ns > 0 or sw is not None, deadline=deadline, sw=sw)
+    return solve_batch_flat_jit(H, f, A, bupper, blower, sense, st, ms=ms,
+                                K=n + max_ns + 1, sw=sw, deadline=deadline)
 
 
 PSEG = 8            # proximal passes per B4 launch
@@ -1433,13 +1625,30 @@ def solve_batch_miqp_kernel(H, f, A, bupper, blower, sense, st: Settings,
                        soft_slack=torch.zeros(B, dtype=f32, device=dev))
 
 
-def solve_batch_miqp_jit(*args, **kw):
-    """The vmap of the single-instance branch and bound
-    (``daqp_tpu/batch.py:2566``) belongs to the flat tier."""
-    raise NotImplementedError(
-        "solve_batch_miqp_jit (the flat tier's vmapped branch and bound) "
-        "is ported in a later slice (ROADMAP A13); solve_batch_miqp_kernel "
-        "solves batched MIQPs")
+def solve_batch_miqp_jit(H, f, A, bupper, blower, sense, st: Settings,
+                         ms: int = 0, bin_ids: tuple = (), K=None,
+                         device=None) -> bnb.BnBOut:
+    """Batched MIQP: the single-instance branch and bound
+    (``bnb.bnb_core``) on each instance in turn, the instances sharing
+    their BINARY rows ``bin_ids`` (``daqp_tpu/batch.py:2566``, a vmap
+    there).  Returns a ``bnb.BnBOut`` with leading batch dimensions."""
+    H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
+                                              sense, device)
+    outs = [bnb.bnb_core(H[b], f[b], A[b], bupper[b], blower[b], sense[b],
+                         ms, st, bin_ids=tuple(bin_ids), K=K)
+            for b in range(H.shape[0])]
+
+    def ints(name):
+        return torch.tensor([getattr(o, name) for o in outs],
+                            dtype=torch.int32, device=H.device)
+
+    return bnb.BnBOut(
+        x=torch.stack([o.x for o in outs]),
+        lam=torch.stack([o.lam for o in outs]),
+        fval=torch.stack([o.fval for o in outs]),
+        exitflag=ints("exitflag"), iterations=ints("iterations"),
+        soft_slack=torch.stack([o.soft_slack for o in outs]),
+        nodes=ints("nodes"))
 
 
 def _np(x):

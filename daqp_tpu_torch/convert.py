@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .ldp import LDPState
+from .ldp_flat import FlatState
 from .ops.dense import DenseState
 from .ops.slot import SlotState
 from .transform import LDPData
@@ -147,6 +148,22 @@ def ldp_from_jax(ldpd, device="cpu") -> LDPData:
     return LDPData(**{
         name: torch.as_tensor(np.array(getattr(ldpd, name)), device=device)
         for name in LDPData._fields})
+
+
+def flat_state_from_jax(s, device="cpu") -> FlatState:
+    """A vmapped (batch-leading) JAX ``FlatState`` -> the port's (the
+    slot and pending row ids as int64)."""
+    fields = {}
+    for name in FlatState._fields:
+        v = getattr(s, name)
+        if name == "sw":
+            fields[name] = None if v is None else SoftWeights(
+                *(torch.as_tensor(np.array(x), device=device) for x in v))
+            continue
+        t = torch.as_tensor(np.array(v), device=device)
+        fields[name] = t.to(torch.int64) if name in ("sid", "pend_id") \
+            else t
+    return FlatState(**fields)
 
 
 # LDPState's control scalars: Python ints / bools here, 0-d arrays in JAX

@@ -5,8 +5,9 @@ init_state``, ``:160 add_constraint``, ``:241 remove_constraint``,
 ``:296 refactor``, ``:317-583`` (``compute_csp``, ``remove_blocking``,
 ``compute_primal_and_fval``, ``add_infeasible``, ``newton_refresh_E``,
 ``refine_active``), ``:596-748`` (``_optimal_path``, ``_cycle_guard``,
-``_nonsingular_step``, ``_singular_step``), ``:751 ldp_solve`` and
-``:853 activate_constraints``.
+``_nonsingular_step``, ``_singular_step``, each with its ``batch_mode``
+branch), ``:751 ldp_solve``, ``:803 batch_post_pass``, ``:842
+ldp_solve_batched_lane`` and ``:853 activate_constraints``.
 
 It solves min ||u||^2 s.t. dlower <= M u <= dupper by the dual
 active-set method (reference ``src/daqp.c:6-108``) on the explicit
@@ -22,8 +23,12 @@ it needs from the device at once through ``ops.host_read`` (counted in
 read decided it.  Every pricing rule and tie keeps the JAX module's
 order (``torch.argmin`` returns the first minimum, as ``jnp.argmin``).
 
-``batch_post_pass`` and ``ldp_solve_batched_lane`` (``:803-851``), which
-serve only the vmapped flat tier, are not here.
+``batch_mode`` (the JAX module's vmapped ordered tier) declares a lane
+optimal without the repair / refinement ladder and exits CYCLE where the
+guard trips; ``batch_post_pass`` applies that ladder once between solve
+rounds (``ldp_solve_batched_lane``).  ``batch.solve_batch_jit`` runs its
+lanes one after another on this host-driven state, the port's form of a
+vmap of a host-driven solver.
 """
 from __future__ import annotations
 
@@ -531,11 +536,15 @@ def _dual_bad(state: LDPState, st: Settings) -> torch.Tensor:
 
 
 def _optimal_path(state: LDPState, st: Settings, rep_big: bool,
-                  ref_big: bool, soft_hi: bool) -> LDPState:
+                  ref_big: bool, soft_hi: bool,
+                  batch_mode: bool = False) -> LDPState:
     """No violated row remains: repair, refine, or declare optimal
     (``src/daqp.c:28-63``).  ``rep_big`` / ``ref_big``: max diag(E)
     times refactor_tol / pivot_tol exceeds 1; ``soft_hi``: the soft
-    slack exceeds primal_tol (read with the pricing)."""
+    slack exceeds primal_tol (read with the pricing).  ``batch_mode``
+    declares optimal at once: ``batch_post_pass`` repairs and refines."""
+    if batch_mode:
+        return state._replace(status=_optimal_flag(soft_hi))
     k = state.n_active
     if k > 2 and state.tried_repair == 0 and rep_big:
         # LOWER / UPPER from the sign of lam (daqp.c:37-42), refactor
@@ -566,13 +575,15 @@ def _optimal_path(state: LDPState, st: Settings, rep_big: bool,
     return s._replace(status=_optimal_flag(soft_hi))
 
 
-def _cycle_guard(state: LDPState, st: Settings,
-                 no_progress: bool) -> LDPState:
+def _cycle_guard(state: LDPState, st: Settings, no_progress: bool,
+                 batch_mode: bool = False) -> LDPState:
     """Progress tracking with the one-shot refactorization repair
-    (``src/daqp.c:66-85``); ``no_progress`` was read with the pricing."""
+    (``src/daqp.c:66-85``); ``no_progress`` was read with the pricing.
+    In ``batch_mode`` a tripped guard exits CYCLE and ``batch_post_pass``
+    repairs."""
     cc = state.cycle_counter + 1 if no_progress else 0
     trip = no_progress and cc > st.cycle_tol
-    if trip and (state.tried_repair >= 2 or state.in_bnb):
+    if trip and (batch_mode or state.tried_repair >= 2 or state.in_bnb):
         return state._replace(status=EXIT_CYCLE)
     if trip:
         s = refactor(state, st)
@@ -582,7 +593,8 @@ def _cycle_guard(state: LDPState, st: Settings,
                           if no_progress else state.fval)
 
 
-def _nonsingular_step(state: LDPState, st: Settings) -> LDPState:
+def _nonsingular_step(state: LDPState, st: Settings,
+                      batch_mode: bool = False) -> LDPState:
     state = compute_csp(state)
     removed, state = remove_blocking(state, st)
     if removed:
@@ -603,8 +615,9 @@ def _nonsingular_step(state: LDPState, st: Settings) -> LDPState:
         return s._replace(status=EXIT_INFEASIBLE)
     if found:
         s = _add_priced(s, int(j), bool(isupper), st)
-        return _cycle_guard(s, st, bool(no_prog))
-    return _optimal_path(s, st, bool(rep_big), bool(ref_big), bool(soft_hi))
+        return _cycle_guard(s, st, bool(no_prog), batch_mode)
+    return _optimal_path(s, st, bool(rep_big), bool(ref_big), bool(soft_hi),
+                         batch_mode)
 
 
 def _singular_step(state: LDPState, st: Settings) -> LDPState:
@@ -624,12 +637,14 @@ def _singular_step(state: LDPState, st: Settings) -> LDPState:
 
 
 def ldp_solve(state: LDPState, st: Settings, reset: bool = True,
-              deadline: float = None) -> LDPState:
+              deadline: float = None, batch_mode: bool = False) -> LDPState:
     """The active-set loop to termination (``daqp_ldp``, daqp.c:6-108).
     ``reset=False`` resumes with the iteration count and status as they
-    are (warm restarts).  ``deadline`` (absolute ``time.perf_counter()``
-    seconds): the reference's wall-clock check every 32 iterations
-    (daqp.c:95-103); a lane still running past it exits TIMELIMIT."""
+    are (warm restarts and the batched rounds).  ``deadline`` (absolute
+    ``time.perf_counter()`` seconds): the reference's wall-clock check
+    every 32 iterations (daqp.c:95-103); a lane still running past it
+    exits TIMELIMIT.  ``batch_mode`` leaves the repair and refinement to
+    ``batch_post_pass``."""
     iter_limit = int(st.iter_limit)
     if reset:
         state = state._replace(status=EXIT_RUNNING, iterations=0)
@@ -637,13 +652,51 @@ def ldp_solve(state: LDPState, st: Settings, reset: bool = True,
         if state.sing:
             state = _singular_step(state, st)
         else:
-            state = _nonsingular_step(state, st)
+            state = _nonsingular_step(state, st, batch_mode)
         if state.iterations % 32 == 31 and state.status == EXIT_RUNNING \
                 and late(deadline):
             state = state._replace(status=EXIT_TIMELIMIT)
         state = state._replace(iterations=state.iterations + 1)
     if state.status == EXIT_RUNNING and state.iterations >= iter_limit:
         state = state._replace(status=EXIT_ITERLIMIT)
+    return state
+
+
+def batch_post_pass(state: LDPState, st: Settings) -> LDPState:
+    """One repair round of the batched ordered tier, the numerics the
+    single-instance loop applies inline (``src/daqp.c:28-85``): an optimal
+    lane with active rows gets E refreshed, one refinement step and a
+    re-price, re-opened if a row is still violated; a CYCLE lane not yet
+    repaired twice (and not in branch and bound) is refactored and
+    re-opened.  Followed by ``ldp_solve(..., reset=False)``."""
+    if state.status in (EXIT_OPTIMAL, EXIT_SOFT_OPTIMAL) \
+            and state.n_active > 0:
+        # E refreshed before refining (see _optimal_path)
+        s = newton_refresh_E(state, st)
+        s = compute_csp(s)
+        s = compute_primal_and_fval(s, st)
+        s = refine_active(s, st)
+        added, state = add_infeasible(s, st)
+        if added:
+            state = state._replace(status=EXIT_RUNNING)
+    if state.status == EXIT_CYCLE and state.tried_repair < 2 \
+            and not state.in_bnb:
+        state = refactor(state, st)
+        state = state._replace(status=EXIT_RUNNING,
+                               tried_repair=state.tried_repair + 1,
+                               cycle_counter=0,
+                               best_fval=torch.full_like(state.fval, -1.0))
+    return state
+
+
+def ldp_solve_batched_lane(state: LDPState, st: Settings,
+                           rounds: int = 2) -> LDPState:
+    """One lane of the batched ordered tier: the loop in ``batch_mode``,
+    then ``rounds`` times ``batch_post_pass`` and the loop again."""
+    state = ldp_solve(state, st, reset=False, batch_mode=True)
+    for _ in range(rounds):
+        state = batch_post_pass(state, st)
+        state = ldp_solve(state, st, reset=False, batch_mode=True)
     return state
 
 

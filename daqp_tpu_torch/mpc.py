@@ -2,13 +2,13 @@
 to step.
 
 Counterpart of ``daqp_tpu/mpc.py``: ``:29 MPCStep``, ``:38
-solve_mpc_scan_pallas`` and ``:138 solve_mpc_scan_pallas_fused``.  S
+solve_mpc_scan_pallas``, ``:138 solve_mpc_scan_pallas_fused`` and
+``:291 solve_mpc_scan`` (the flat tier's horizon, in the caller's dtype).  S
 scenario rollouts share (H, A); each is a horizon of T steps in which
 only f and the bounds change (the UPDATE_v | UPDATE_d contract,
 docs/docs/c.md:60-73).  The one shared H is factored once in plain torch
 (``transform.build_ldp``), as the JAX package does in XLA; the working set
-and inverse Gram ride warm from step to step.  The flat-tier
-``solve_mpc_scan`` (``mpc.py:291``) belongs to a later slice.
+and inverse Gram ride warm from step to step.
 """
 from __future__ import annotations
 
@@ -16,10 +16,10 @@ from typing import NamedTuple
 
 import torch
 
-from . import transform
-from .batch import resolve_device
+from . import ldp_flat, transform
+from .batch import factor_batch, resolve_device
 from .ops import host_any, slot
-from .types import IMMUTABLE, Settings
+from .types import EXIT_RUNNING, IMMUTABLE, Settings
 
 redone_segments = 0     # B3 segments redone on the per-step path
 
@@ -128,3 +128,62 @@ def solve_mpc_scan_kernel_fused(H, A, f_seq, bupper_seq, blower_seq,
         parts.append(seqs)
     us, fvals, iters, flags = (torch.cat(z, 1)[:, :T] for z in zip(*parts))
     return _result(ldpd0, v_st, us, fvals, iters, flags)
+
+
+def solve_mpc_scan(H, A, f_seq, bupper_seq, blower_seq, st: Settings,
+                   ms: int = 0, device=None) -> MPCStep:
+    """A horizon of QPs sharing (H, A) on the flat tier (``ldp_flat``), in
+    the inputs' dtype: one ``build_ldp`` at step 0 (H factored once, as
+    the flat tier factors), then per step t only v and d
+    (``transform.update_vd``, utils.c:14-135 with UPDATE_v | UPDATE_d),
+    the control state reset, one Newton polish E <- E (2I - G E) of the
+    warm inverse Gram kept where ||G E - I||_max < 1/2 (a 1-3 iteration
+    warm re-solve exits before ``flat_solve``'s own refresh runs), and
+    ``flat_solve`` from the previous step's slots.  Iterations are
+    reported as max(it, 1).
+
+    ``f_seq``: (T, n), ``bupper_seq`` / ``blower_seq``: (T, m), as the
+    JAX function; or (S, T, n) / (S, T, m) for S scenarios solved as one
+    batch (the JAX function vmapped), with results (S, T, ...)."""
+    dev = resolve_device((H, A, f_seq, bupper_seq, blower_seq), device)
+    H = torch.as_tensor(H, device=dev)
+    A, f_seq, bupper_seq, blower_seq = (
+        torch.as_tensor(x, device=dev).to(H.dtype)
+        for x in (A, f_seq, bupper_seq, blower_seq))
+    one = f_seq.dim() == 2
+    if one:
+        f_seq, bupper_seq, blower_seq = (x[None] for x in (f_seq, bupper_seq,
+                                                         blower_seq))
+    S, T, n = f_seq.shape
+    fact = tuple(x.expand((S,) + x.shape[1:])
+                 for x in factor_batch(H[None], st))
+    ldpd0 = transform.build_ldp(f_seq[:, 0], A.expand((S,) + A.shape),
+                                bupper_seq[:, 0], blower_seq[:, 0], None, ms,
+                                st, fact=fact)
+    s = ldp_flat.flat_init(ldpd0.M, ldpd0.dupper, ldpd0.dlower, ldpd0.sense,
+                           ldpd0.scaling, K=n + 1)
+    outs = []
+    for t in range(T):
+        ldpd = transform.update_vd(ldpd0, f_seq[:, t], bupper_seq[:, t],
+                                   blower_seq[:, t])
+        s = s._replace(dupper=ldpd.dupper, dlower=ldpd.dlower,
+                       status=torch.full_like(s.status, EXIT_RUNNING),
+                       iterations=torch.zeros_like(s.iterations),
+                       repaired=torch.zeros_like(s.repaired),
+                       cycle=torch.zeros_like(s.cycle),
+                       best_fval=torch.full_like(s.best_fval, -1.0))
+        G = ldp_flat.flat_gram(s, st)
+        um = s.used[:, :, None] & s.used[:, None, :]
+        Iu = torch.diag_embed(s.used.to(s.E.dtype))
+        P = torch.matmul(G, s.E)
+        E_new = torch.where(um, torch.matmul(s.E, 2 * Iu - P), 0.0)
+        basin = (P - Iu).abs().amax((1, 2)) < 0.5
+        s = ldp_flat.flat_solve(s._replace(E=torch.where(
+            basin[:, None, None], E_new, s.E)), st)
+        outs.append((transform.ldp_to_qp_solution(ldpd, s.u),
+                     0.5 * (s.fval - (ldpd.v * ldpd.v).sum(1)), s.status,
+                     torch.clamp(s.iterations, min=1)))
+    x, fval, flags, iters = (torch.stack(z, 1) for z in zip(*outs))
+    out = MPCStep(x=x, fval=fval, exitflag=flags.to(torch.int32),
+                  iterations=iters.to(torch.int32))
+    return MPCStep(*(v[0] for v in out)) if one else out

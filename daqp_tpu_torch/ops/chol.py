@@ -18,7 +18,9 @@ clamped to ``TINY``:
   batched_chol_rinv_blk`` (``_tile_chol_kernel_blk``, :319), panel-8;
   twin ``chol_rinv_blk_plain``, whose order no panel width changes (the
   kernel's panels are 32 wide);
-* ``batched_rinv_regularized`` (:779) on K1;
+* ``batched_rinv_regularized`` (:779), dispatched by n
+  (``factor_route``): K1 up to n = 256, B10 while its block fits, the
+  library's Cholesky beyond;
 * in torch ops, as the JAX package leaves them to XLA:
   ``batched_chol_rinv`` (:843), ``batched_invsqrt`` (:84) and
   ``batched_chol_rinv_mxu`` (:722, with ``_chol_small_inv``, :692).
@@ -350,8 +352,36 @@ def pivot_ok(Rinv: torch.Tensor, sqrt_zt: torch.Tensor) -> torch.Tensor:
     return finite & (piv.amin(1) > sqrt_zt * piv.amax(1))
 
 
-def _attempt(Hb: torch.Tensor, sqrt_zt: torch.Tensor):
-    Rinv = chol_rinv(Hb)
+def factor_route(n: int, limit: int) -> str:
+    """The factorization ``batched_rinv_regularized`` runs at width n on a
+    card whose blocks may opt in to ``limit`` bytes of shared memory:
+    "k1" (``chol_rinv``) up to ``WARP_MAX_N`` columns while its block of
+    one matrix fits, "b10" (``chol_rinv_blk``) while its block fits
+    (n <= 1581 on an H100), else "library" (``library_rinv``: the JAX
+    package factors in XLA outside any Pallas kernel,
+    ``daqp_tpu/transform.py:57``)."""
+    if n <= WARP_MAX_N and smem.F32 * smem.chol_warp_floats(n, 1) <= limit:
+        return "k1"
+    if smem.F32 * smem.chol_blk_floats(n) <= limit:
+        return "b10"
+    return "library"
+
+
+def library_rinv(H: torch.Tensor) -> torch.Tensor:
+    """Rinv by the library: ``cholesky_ex``, NaN on a lane whose
+    factorization fails (``pivot_ok`` rejects it), then a triangular solve
+    against I."""
+    n = H.shape[-1]
+    eye = torch.eye(n, dtype=H.dtype, device=H.device)
+    L, info = torch.linalg.cholesky_ex(H)
+    L = torch.where((info == 0)[:, None, None], L, torch.nan)
+    return torch.linalg.solve_triangular(L.transpose(1, 2),
+                                         eye.expand_as(H), upper=True)
+
+
+
+def _attempt(factor, Hb: torch.Tensor, sqrt_zt: torch.Tensor):
+    Rinv = factor(Hb)
     return Rinv, pivot_ok(Rinv, sqrt_zt)
 
 
@@ -363,9 +393,13 @@ def batched_rinv_regularized(H: torch.Tensor, st):
     ``ok`` False marks a nonconvex lane, ``reg_mask`` a lane that needed
     H + eps I (eps0 = max(eps_prox, sqrt(zero_tol) max|diag H|), doubled
     at most 16 times), ``eps_used`` its shift.  Retries factor only the
-    failing lanes; each lane's result depends on that lane alone."""
+    failing lanes; each lane's result depends on that lane alone.  The
+    factorization is ``factor_route``'s for n and the device, decided
+    before any launch."""
     B, n, _ = H.shape
     dtype, dev = H.dtype, H.device
+    factor = {"k1": chol_rinv, "b10": chol_rinv_blk,
+              "library": library_rinv}[factor_route(n, smem.limit(dev))]
     zero_tol = torch.tensor(st.zero_tol, dtype=dtype, device=dev)
     sqrt_zt = torch.sqrt(zero_tol)
     Hs = 0.5 * (H + H.transpose(1, 2))
@@ -375,14 +409,15 @@ def batched_rinv_regularized(H: torch.Tensor, st):
                                          device=dev), sqrt_zt * scale)
     else:
         eps = torch.full((B,), st.eps_prox, dtype=dtype, device=dev)
-    R, ok = _attempt(Hs.contiguous(), sqrt_zt)
+    R, ok = _attempt(factor, Hs.contiguous(), sqrt_zt)
     ok0 = ok.clone()
     eps_used = torch.zeros(B, dtype=dtype, device=dev)
     eye = torch.eye(n, dtype=dtype, device=dev)
     tries = 0
     while tries < 16 and host_any(~ok):
         idx = torch.nonzero(~ok).squeeze(1)
-        R1, ok1 = _attempt(Hs[idx] + eps[idx, None, None] * eye, sqrt_zt)
+        R1, ok1 = _attempt(factor, Hs[idx] + eps[idx, None, None] * eye,
+                           sqrt_zt)
         R[idx] = R1
         eps_used[idx] = torch.where(ok1, eps[idx], eps_used[idx])
         ok[idx] = ok1

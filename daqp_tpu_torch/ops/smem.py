@@ -92,10 +92,20 @@ def chol_blk_floats(n: int) -> int:
                nb * ldp + nb + (2 * stage if n > nb else 0))
 
 
+H100_OPTIN = 232448     # bytes one block may opt in to on an H100
+
+
 def available(dev) -> int:
     """Bytes of shared memory one block may opt in to on ``dev``."""
     return torch.cuda.get_device_properties(
         dev).shared_memory_per_block_optin
+
+
+def limit(dev) -> int:
+    """``available(dev)`` on a CUDA device; an H100's on the CPU, where the
+    twins stand in for the kernels an H100 would launch."""
+    dev = torch.device(dev)
+    return available(dev) if dev.type == "cuda" else H100_OPTIN
 
 
 def sms(dev) -> int:

@@ -35,7 +35,7 @@ class LDPData(NamedTuple):
     error: torch.Tensor      # (B,) int32: 0 ok, else an EXIT_* code
 
 
-def factorize_hessian(H: torch.Tensor, st: Settings):
+def factorize_hessian(H: torch.Tensor, st: Settings, dense=None):
     """(B, n, n) -> ``(Rinv, prox_mask, n_prox, eps_used, error)`` per
     lane with semi-proximal regularization (``daqp_update_Rinv``,
     utils.c:137-297):
@@ -46,7 +46,10 @@ def factorize_hessian(H: torch.Tensor, st: Settings):
       sqrt(zero_tol), H + eps I with eps = eps0, then doubled, at most 16
       attempts (full proximal shift).
 
-    eps0 = max(eps_prox, sqrt(zero_tol) max|diag H|)."""
+    eps0 = max(eps_prox, sqrt(zero_tol) max|diag H|).  ``dense``: a
+    function H -> ``(Rinv, ok, reg_mask, eps_used)`` with the same retry
+    semantics (``ops.chol.batched_rinv_regularized``) that factors the
+    dense lanes in place of the library's Cholesky."""
     B, n, _ = H.shape
     dtype, dev = H.dtype, H.device
     zero_tol = torch.tensor(st.zero_tol, dtype=dtype, device=dev)
@@ -69,6 +72,10 @@ def factorize_hessian(H: torch.Tensor, st: Settings):
                                                              zero_tol)))
     eps_diag = torch.where(dmask.any(1), eps0, 0.0)
 
+    if dense is not None:
+        R_dense, ok, reg, eps_used = dense(H, st)
+        return _merge_diag(is_diag, R_diag, dmask, eps_diag, d_bad,
+                           R_dense, ok, reg, eps_used)
     # dense path (utils.c:253-283): attempts at 0, eps0, 2 eps0, ...
     Hs = 0.5 * (H + H.transpose(1, 2))
 
@@ -97,7 +104,15 @@ def factorize_hessian(H: torch.Tensor, st: Settings):
     L_safe = torch.where(torch.isnan(L) | (L == 0), eye, L)
     R_dense = torch.linalg.solve_triangular(
         L_safe.transpose(1, 2), eye.expand(B, n, n), upper=True)
+    return _merge_diag(is_diag, R_diag, dmask, eps_diag, d_bad, R_dense, ok,
+                       reg, eps_used)
 
+
+def _merge_diag(is_diag, R_diag, dmask, eps_diag, d_bad, R_dense, ok, reg,
+                eps_used):
+    """The diagonal lanes' factor beside the dense lanes' one, in
+    ``factorize_hessian``'s output form."""
+    B, n = dmask.shape
     Rinv = torch.where(is_diag[:, None, None], R_diag, R_dense)
     prox_mask = torch.where(is_diag[:, None], dmask, reg[:, None].expand(B, n))
     n_prox = torch.where(is_diag, dmask.sum(1),
@@ -110,11 +125,12 @@ def factorize_hessian(H: torch.Tensor, st: Settings):
 
 def build_ldp(f, A, bupper, blower, sense, ms: int, st: Settings,
               Rinv: torch.Tensor = None, H: torch.Tensor = None,
-              soft_weights: torch.Tensor = None) -> LDPData:
+              soft_weights: torch.Tensor = None, fact=None) -> LDPData:
     """M = [Rinv[:ms]; A Rinv], v, the bounds check with auto-equality,
     row normalization with zero rows, and d = b * scaling + M v
     (``daqp_update_ldp``, utils.c:14-135).  Rinv is the given factor, or
-    ``factorize_hessian(H)`` when none is given.  With neither (LP mode,
+    ``fact`` (``factorize_hessian``'s output, when the caller has it), or
+    ``factorize_hessian(H)``.  With neither (LP mode,
     ``transform.py:162-166``) Rinv = I in A's type, every direction is
     proximal (``prox_mask`` all true, ``n_prox`` = n) and the proximal
     outer loop supplies v; ``f`` None gives v = 0.
@@ -124,8 +140,10 @@ def build_ldp(f, A, bupper, blower, sense, ms: int, st: Settings,
     sqrt(rho_soft / rho_i), kept in ``scaling`` (``transform.py:209-223``;
     slack bounds are ``SoftWeights``' business, not this one's)."""
     fact_err = None
-    lp_mode = Rinv is None and H is None
-    if lp_mode:
+    lp_mode = Rinv is None and H is None and fact is None
+    if fact is not None:
+        Rinv, prox_mask, n_prox, eps_used, fact_err = fact
+    elif lp_mode:
         B, _, n = A.shape
         Rinv = torch.eye(n, dtype=A.dtype, device=A.device).expand(B, n, n)
     elif Rinv is None:

@@ -127,3 +127,31 @@ def test_build_ldp_matches_jax():
                  'eps_used'):
         a, b = getattr(lp, name), getattr(lj, name)
         assert torch.allclose(a, b, rtol=1e-12, atol=1e-12), name
+
+
+def test_ordered_tier_matches_jax():
+    # solve_batch_jit, the ordered tier (batch-mode loop and two
+    # batch_post_pass rounds per lane), on test_batch.py's case in f64:
+    # the JAX package's flags and iterations, x and fval within 1e-8.
+    # JAX's side is the lane body its solve_batch_jit vmaps (_solve_one),
+    # jitted once and run lane by lane: the vmap changes no lane's
+    # arithmetic and takes 12 s more to trace on this CPU.
+    import functools
+    from daqp_tpu_torch import batch as pbatch, convert
+    B, ms = 16, 5
+    d = generate_test_qp_batch(B, 20, 50, ms, 12, 1e2, rng=99)
+    st = _as_settings(None, jnp.float64)
+    lane = jax.jit(functools.partial(batch_mod._solve_one, ms=ms, st=st,
+                                     K=21, repair_rounds=2))
+    rj = batch_mod.BatchResult(*(np.stack(v) for v in zip(*(
+        lane(*[jnp.asarray(d[k][b]) for k in KEYS]) for b in range(B)))))
+    rp = pbatch.solve_batch_jit(*[torch.as_tensor(d[k]) for k in KEYS],
+                                convert.settings_from_jax(st), ms=ms)
+    np.testing.assert_array_equal(rp.exitflag.numpy(),
+                                  np.asarray(rj.exitflag))
+    np.testing.assert_array_equal(rp.iterations.numpy(),
+                                  np.asarray(rj.iterations))
+    assert np.abs(rp.x.numpy() - np.asarray(rj.x)).max() <= 1e-8
+    assert np.abs(rp.fval.numpy() - np.asarray(rj.fval)).max() <= 1e-8
+    assert (rp.exitflag == 1).all()
+    assert np.linalg.norm(rp.x.numpy() - d['x'], axis=1).max() < 1e-6

@@ -62,3 +62,21 @@ def test_rinv_regularized_matches_jax():
     # its own scale (a shifted singular direction has |Rinv| ~ eps^-1/2)
     for b in np.nonzero(okj)[0]:
         assert np.abs(Rp[b] - Rj[b]).max() <= 1e-8 * np.abs(Rj[b]).max(), b
+
+
+def test_rinv_regularized_routes_past_k1():
+    # n = 300 is past K1's 256 columns: the dispatch takes B10 (its twin
+    # on CPU tensors), which factors it like the JAX package's XLA
+    # factorization (ops/chol.py:843 batched_chol_rinv) within 1e-10
+    from daqp_tpu_torch.ops import smem
+    n = 300
+    assert pchol.factor_route(50, smem.H100_OPTIN) == "k1"
+    assert pchol.factor_route(n, smem.H100_OPTIN) == "b10"
+    assert pchol.factor_route(1582, smem.H100_OPTIN) == "library"
+    st = _as_settings(None, jnp.float64)
+    H = _spd_batch(2, n, seed=300)
+    Rj = np.asarray(jax.jit(chol.batched_chol_rinv)(jnp.asarray(H)))
+    Rp, okp, regp, epsp = pchol.batched_rinv_regularized(
+        torch.as_tensor(H), convert.settings_from_jax(st))
+    assert okp.all() and not regp.any() and (epsp == 0).all()
+    assert np.abs(Rp.numpy() - Rj).max() <= 1e-10 * np.abs(Rj).max()

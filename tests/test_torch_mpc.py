@@ -166,3 +166,37 @@ def test_failed_segment_takes_batch_redo(monkeypatch):
     # the fused driver Newton-refreshes E between segments, the per-step
     # driver does not: f32 rounding apart, the iterates are the same
     assert (fused.x - step.x).abs().max() < 1e-5
+
+
+def test_flat_scan_matches_jax():
+    # solve_mpc_scan on the flat tier, test_mpc.py:24's drifting horizon
+    # in f64: the JAX package's flags and iterations per step, x within
+    # 1e-8; the warm steps cost 1-3 iterations
+    from daqp_tpu_torch import mpc as pmpc
+    rng = np.random.default_rng(307)
+    _, H, f, A, bu, bl, _ = generate_test_qp(12, 40, 0, 8, 1e2, rng)
+    T_h = 20
+    drift = 0.002 * np.arange(T_h)[:, None]
+    seq = (f[None, :] * (1.0 + drift[:, :1]),
+           np.repeat(bu[None, :], T_h, axis=0) + drift,
+           np.repeat(bl[None, :], T_h, axis=0) - drift)
+    st = _as_settings(None, jnp.float64)
+    oj = jmpc.solve_mpc_scan(jnp.asarray(H), jnp.asarray(A),
+                             *(jnp.asarray(v) for v in seq), st, ms=0)
+    op = pmpc.solve_mpc_scan(torch.as_tensor(H), torch.as_tensor(A),
+                             *(torch.as_tensor(v) for v in seq),
+                             convert.settings_from_jax(st), ms=0)
+    np.testing.assert_array_equal(op.exitflag.numpy(),
+                                  np.asarray(oj.exitflag))
+    np.testing.assert_array_equal(op.iterations.numpy(),
+                                  np.asarray(oj.iterations))
+    assert np.abs(op.x.numpy() - np.asarray(oj.x)).max() <= 1e-8
+    assert (op.exitflag == 1).all()
+    assert np.median(op.iterations.numpy()[1:]) <= 3
+    # scenarios as one batch: each scenario's horizon as alone
+    two = pmpc.solve_mpc_scan(torch.as_tensor(H), torch.as_tensor(A),
+                              *(torch.as_tensor(np.stack([v, v]))
+                                for v in seq),
+                              convert.settings_from_jax(st), ms=0)
+    assert two.x.shape == (2, T_h, 12)
+    assert (two.x[1] - op.x).abs().max().item() <= 1e-12

@@ -30,7 +30,8 @@ def test_import_leaves_jax_out():
             "daqp_tpu_torch.api, daqp_tpu_torch.core, daqp_tpu_torch.ldp, "
             "daqp_tpu_torch.model, daqp_tpu_torch.warmstart, "
             "daqp_tpu_torch.geometry, daqp_tpu_torch.hierarchical, "
-            "daqp_tpu_torch.avi_solver, daqp_tpu_torch.bnb; "
+            "daqp_tpu_torch.avi_solver, daqp_tpu_torch.bnb, "
+            "daqp_tpu_torch.ldp_flat; "
             "from daqp_tpu_torch.ops import _build; "
             "srcs = sorted(p.stem for p in _build._CSRC.glob('*.cu')); "
             "assert srcs == sorted(k[:-4] for k in _build._SIGNATURES), srcs; "
@@ -166,10 +167,19 @@ def test_numpy_inputs_solve_on_the_cpu_when_asked():
     f_seq = np.repeat(d['f'][:1, None], 2, axis=1).repeat(2, axis=0)
     bu = np.repeat(d['bupper'][:1, None], 2, axis=1).repeat(2, axis=0)
     bl = np.repeat(d['blower'][:1, None], 2, axis=1).repeat(2, axis=0)
-    for solve in (dt.solve_mpc_scan_kernel, dt.solve_mpc_scan_kernel_fused):
+    for solve in (dt.solve_mpc_scan_kernel, dt.solve_mpc_scan_kernel_fused,
+                  dt.solve_mpc_scan):
         r = solve(d['H'][0], d['A'][0], f_seq, bu, bl, st, device="cpu")
         assert (r.exitflag.numpy() == 1).all()
         assert np.abs(r.x.numpy() - d['x'][0]).max() < 1e-3
+    # the flat and ordered tiers and solve_batch, which routes
+    from daqp_tpu_torch import batch as pbatch
+    for r in (dt.solve_batch(*args, device="cpu"),
+              pbatch.solve_batch_flat_jit(*args, st, device="cpu"),
+              pbatch.solve_batch_jit(*args, st, device="cpu")):
+        assert r.x.device.type == "cpu"
+        assert (r.exitflag.numpy() == 1).all()
+        assert np.abs(r.x.numpy() - d['x']).max() < 1e-3
 
 
 def test_numpy_inputs_without_device_need_a_card():
@@ -190,6 +200,16 @@ def test_numpy_inputs_without_device_need_a_card():
         dt.solve_mpc_scan_kernel_fused(d['H'][0], d['A'][0],
                                        d['f'][:, None], d['bupper'][:, None],
                                        d['blower'][:, None], st)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dt.solve_mpc_scan(d['H'][0], d['A'][0], d['f'], d['bupper'],
+                          d['blower'], st)
+    from daqp_tpu_torch import batch as pbatch
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dt.solve_batch(*args)
+    for solve in (pbatch.solve_batch_flat_jit, pbatch.solve_batch_jit,
+                  pbatch.solve_batch_miqp_jit):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            solve(*args, st)
 
 
 @pytest.mark.parametrize("bp", [(0,), (0, 4), (0, 3, 3, 5)])
@@ -262,8 +282,19 @@ def test_unported_options_raise(kw):
 
 
 def test_flat_tier_miqp_names_its_item():
-    # the vmapped branch and bound of the flat tier is not ported: it
-    # raises and names its ROADMAP item; the wave tier solves
+    # the flat tier's batched branch and bound (ROADMAP A13) is ported:
+    # each lane as the single-instance MIQP solve of dt.quadprog
     from daqp_tpu_torch import batch as pbatch
-    with pytest.raises(NotImplementedError, match="A13"):
-        pbatch.solve_batch_miqp_jit()
+    from tests.test_bnb import _random_miqp
+    probs = [_random_miqp(6, 10, 0, 3, np.random.default_rng(s))
+             for s in (0, 1)]
+    args = [np.stack(v) for v in zip(*probs)]
+    st = dt.as_settings(None, torch.float64)
+    out = pbatch.solve_batch_miqp_jit(*args, st, bin_ids=(0, 1, 2),
+                                      device="cpu")
+    assert out.x.shape == (2, 6) and out.nodes.shape == (2,)
+    for b, p in enumerate(probs):
+        one = dt.quadprog(*p, dtype=torch.float64, device="cpu")
+        assert int(out.exitflag[b]) == one.exitflag
+        assert int(out.nodes[b]) == one.nodes
+        assert abs(float(out.fval[b]) - float(one.fval)) <= 1e-12
