@@ -81,7 +81,23 @@ before and read just after:
   1 beyond 1e-4, then ``backstop_resolve``: every lane within 1e-4;
   config 3's scenario 0 through ``solve_mpc_scan`` against the f64
   oracle, and config 5's first 8 MIQPs in f64 through
-  ``solve_batch_miqp_jit`` against the branch-and-bound oracle.
+  ``solve_batch_miqp_jit`` against the branch-and-bound oracle;
+* ``scale``: scale-out (``daqp_tpu_torch.parallel``) and the deploy-time
+  pieces: (a) an NCCL group of one in this process: config 2's first
+  2048 lanes through ``solve_batch_sharded`` (``tier="pallas"``: K1,
+  K2; ``"flat"``: K1) against the unsharded calls and cell 2's gate,
+  ``"prox"`` on config 4 (B4) under the f64 KKT certificate,
+  ``solve_batch_miqp_sharded`` on config 5 (K1, K2) under ``miqp``'s
+  gate, and ``solve_miqp_sharded`` on config 5's first MIQP in f64
+  against ``dt.quadprog``; (b) this script re-run as two ranks
+  (``--scale-worker``) on the one card in a gloo group: each solves its
+  half of config 2's first 512 lanes through ``tier="pallas"`` and its
+  half of that MIQP's tree (rank 0 checks the stats and the tree
+  against the unsharded calls; a worker failing or past 120 s fails the
+  phase); (c) ``dt.warmup`` of every tier at config 2's widths, then the
+  wall of the first config-2 stream call after it; (d) ``render_c`` of
+  config 1's first QP compiled with ``cc`` and solved, against
+  ``dt.quadprog`` in f64.
 
 The ``hiqp``, ``avi`` and ``lp`` phases end with their tier's backstop
 (``backstop_resolve_hiqp``, ``_avi``, ``_lp``): the batch's loud lanes
@@ -119,12 +135,16 @@ come the kernel table, the card's name and power limit, and as the last
 line ``{"ok": true, "device": ...}``.  Any failed check or error exits
 non-zero without that line; so does a machine without a CUDA device.
 """
+import ctypes
 import hashlib
 import importlib
 import importlib.util
 import json
+import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -133,8 +153,8 @@ import numpy as np
 import torch
 
 import daqp_tpu_torch as dt
-from daqp_tpu_torch import (batch as pbatch, ldp_flat, mpc as pmpc, ops,
-                            transform)
+from daqp_tpu_torch import (batch as pbatch, codegen, ldp_flat, mpc as pmpc,
+                            ops, transform)
 from daqp_tpu_torch.ops import _build, chol, dense, slot, smem
 
 ROOT = Path(__file__).resolve().parent
@@ -310,6 +330,9 @@ FLAT_GRID = ((100, 500, 50, 80, 64), (200, 1000, 100, 160, 16),
              (500, 2500, 250, 400, 8))
 GRID_SEED = 1000
 FLAT_MIQP = 8
+# scale: (b) runs two ranks on the card over gloo, each on half of config
+# 2's first SCALE_2PROC lanes, each allowed SCALE_WORKER_S seconds
+SCALE_2PROC, SCALE_WORKER_S = 512, 120
 
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -3449,9 +3472,293 @@ def phase_backstop(full, d, sw_np, st, card):
         and launches["slot_round"] >= 1, launches
 
 
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def stats_of(r):
+    """``ShardedStats`` as the unsharded result ``r`` gives them."""
+    it = r.iterations.long()
+    return (int(it.sum()), int((r.exitflag == 1).sum()), int(it.max()))
+
+
+def against_unsharded(r, stats, u, tol=ACC_TOL):
+    """A sharded result ``r`` (its ``stats``) against the unsharded ``u``:
+    (the same flags, every lane within ``tol``, stats equal, fields)."""
+    same = bool(torch.equal(r.exitflag, u.exitflag))
+    dx = float((r.x - u.x).double().norm(dim=1).max())
+    want = stats_of(u)
+    return same and dx <= tol and tuple(stats) == want, dict(
+        same_flags=same, max_dx_unsharded=dx, stats=list(stats),
+        unsharded_stats=list(want))
+
+
+def miqp5_f64(d5):
+    """Config 5's first MIQP in f64 (sense as is)."""
+    return [d5[k][0].astype(np.float64) if k != 'sense' else d5[k][0]
+            for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
+
+
+def tree_gate(out, one):
+    """The tree-sharded MIQP's (x, fval, status, nodes) against the
+    single solve ``one``: its flag, fval within META_MIQP_TOL (1 +
+    |fval|)."""
+    x, fval, status, nodes = out
+    ref = float(one.fval)
+    rel = abs(float(fval) - ref) / (1.0 + abs(ref))
+    ok = status == one.exitflag and rel <= META_MIQP_TOL \
+        and bool(torch.isfinite(x).all())
+    return ok, dict(status=status, single_status=one.exitflag,
+                    fval=float(fval), single_fval=ref, fval_rel_err=rel,
+                    nodes=nodes, single_nodes=one.nodes)
+
+
+def scale_worker(rank, port, path):
+    """One rank of ``scale`` (b): two processes in a gloo group on the
+    one card, each solving its half of the saved lanes through
+    ``tier="pallas"`` and its half of config 5's first MIQP's tree (D =
+    2); rank 0 holds the stats and the tree against the unsharded calls.
+    Prints one JSON line; exits 1 when a check fails."""
+    from daqp_tpu_torch.parallel import distributed, sharding
+    rank = int(rank)
+    data = np.load(path)
+    keys = ('H', 'f', 'A', 'bupper', 'blower', 'sense')
+    distributed.initialize("gloo", init_method=f"tcp://localhost:{port}",
+                           world_size=2, rank=rank)
+    try:
+        world = distributed.global_mesh("cuda:0")
+        st = dt.as_settings({"iter_limit": 1000}, torch.float32)
+        args = distributed.distribute_batch(world,
+                                            *(data[k] for k in keys))
+        k = args[0].shape[0]
+        t0 = time.perf_counter()
+        (r, stats), cnt, _, _, wall = flat_window(
+            lambda: sharding.solve_batch_sharded(*args, st, world,
+                                                 tier="pallas"))
+        ok, fields = flat_gate(r, data['x'][rank * k:(rank + 1) * k],
+                               ACC_TOL)
+        a5 = miqp5_f64(config5())
+        st64 = dt.as_settings(None, torch.float64)
+        tree = sharding.solve_miqp_sharded(*a5, 0, st64, world)
+        out = dict(rank=rank, lanes=k, launches=cnt, wall_s=wall,
+                   stats=list(stats), gate_ok=ok, **fields)
+        if rank == 0:
+            full = [torch.as_tensor(data[k], device=world.device)
+                    for k in keys]
+            u = pbatch.solve_batch_kernel_stream(*full, st)
+            want = stats_of(u)
+            one = dt.quadprog(*a5, ms=0, dtype=torch.float64,
+                              device="cuda")
+            tok, tfields = tree_gate(tree, one)
+            out.update(unsharded_stats=list(want), tree=tfields)
+            ok = ok and tuple(stats) == want and tok
+        out["seconds"] = time.perf_counter() - t0
+        print(json.dumps({"scale_worker": out}), flush=True)
+        return 0 if ok and cnt["chol_rinv"] >= 1 \
+            and cnt["slot_round"] >= 1 else 1
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def scale_two_processes(d, card):
+    """``scale`` (b): this script re-run twice as ``--scale-worker``
+    ranks on the one card over gloo; (passes, fields, windows)."""
+    keys = ('H', 'f', 'A', 'bupper', 'blower', 'sense', 'x')
+    outs, rcs, timed_out = [], [], False
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "scale.npz")
+        np.savez(path, **{k: d[k][:SCALE_2PROC] for k in keys})
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--scale-worker",
+             str(rank), str(port), path], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+        try:
+            for p in procs:
+                left = SCALE_WORKER_S - (time.perf_counter() - t0)
+                outs.append(p.communicate(timeout=max(left, 1.0))[0])
+                rcs.append(p.returncode)
+        except subprocess.TimeoutExpired:
+            timed_out = True
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+    found = [json.loads(line)["scale_worker"] for out in outs
+             for line in out.splitlines()
+             if line.startswith('{"scale_worker"')]
+    ok = not timed_out and rcs == [0, 0] and len(found) == 2
+    if not ok:
+        print("\n".join(out[-3000:] for out in outs), file=sys.stderr)
+    windows = {f"scale_gloo_rank{w['rank']}": w["launches"] for w in found}
+    return ok, dict(ranks=found, return_codes=rcs, timed_out=timed_out,
+                    wall_s=wall), windows
+
+
+def render_case(gen, card):
+    """``scale`` (d): config 1's first QP rendered as C, built with
+    ``cc -O2 -shared`` and solved, against ``dt.quadprog`` on the card
+    in f64."""
+    x_ref, H, f, A, bu, bl, sense = config1(gen)[0]
+    one = dt.quadprog(H, f, A, bu, bl, sense, ms=MS1, device="cuda",
+                      dtype=torch.float64)
+    with tempfile.TemporaryDirectory() as td:
+        t = time.perf_counter()
+        cpath = codegen.render_c(H, f, A, bu, bl, name="cfg1", dir=td,
+                                 sense=sense, ms=MS1)
+        so = os.path.join(td, "cfg1.so")
+        subprocess.run(["cc", "-O2", "-fPIC", "-shared", "-o", so, cpath,
+                        "-lm"], check=True)
+        build_s = time.perf_counter() - t
+        lib = ctypes.CDLL(so)
+        lib.cfg1_init()
+        xs = (ctypes.c_double * N1)()
+        fval, iters = ctypes.c_double(), ctypes.c_int()
+        flag = lib.cfg1_solve(xs, None, ctypes.byref(fval),
+                              ctypes.byref(iters))
+    x = np.array(xs[:])
+    dx = float(np.linalg.norm(x - one.x.cpu().numpy()))
+    df = abs(fval.value - float(one.fval))
+    ok = flag == one.exitflag == 1 and dx <= SINGLE_TOL64 \
+        and df <= SINGLE_TOL64
+    return ok, dict(flag=flag, single_flag=one.exitflag, max_dx=dx,
+                    fval_diff=df, c_iterations=iters.value,
+                    single_iterations=one.iterations,
+                    err_x_ref=float(np.linalg.norm(x - x_ref)),
+                    render_and_cc_s=build_s)
+
+
+def phase_scale(head, x_head, d, args4, d5, gen, st, card):
+    """Scale-out (``parallel``) and the deploy-time pieces, each solve its
+    own count window: (a) an NCCL group of one in this process: config
+    2's first FLAT_LANES lanes through ``solve_batch_sharded`` with
+    ``tier="pallas"`` (K1, K2) and ``"flat"`` (K1), each against the
+    unsharded call (the same flags, every lane within ACC_TOL, the stats
+    its sums and max) and cell 2's gate; ``"prox"`` on config 4 (B4) under
+    the f64 KKT certificate; ``solve_batch_miqp_sharded`` on config 5 (K1,
+    K2) under ``miqp``'s gate; ``solve_miqp_sharded`` on config 5's first
+    MIQP in f64 against ``dt.quadprog``'s flag and fval; (b) two processes
+    on the card in a gloo group (``scale_two_processes``); (c)
+    ``dt.warmup`` of every tier at config 2's widths, then the wall of
+    the first config-2 stream call after it; (d) ``render_c`` of config
+    1's first QP, compiled and solved (``render_case``)."""
+    from daqp_tpu_torch.parallel import distributed, sharding
+    t0 = time.perf_counter()
+    out, windows, ok = {}, {}, True
+
+    # (a) NCCL at world size 1
+    ta = time.perf_counter()
+    distributed.initialize("nccl", init_method=f"tcp://localhost:"
+                           f"{free_port()}", world_size=1, rank=0)
+    try:
+        world = distributed.global_mesh()
+        out["world"] = dict(rank=world.rank, size=world.size,
+                            backend=world.backend, device=str(world.device))
+        for tier, needs in (("pallas", ("chol_rinv", "slot_round")),
+                            ("flat", ("chol_rinv",))):
+            (r, stats), cnt, _, _, wall = flat_window(
+                lambda: sharding.solve_batch_sharded(*head, st, world,
+                                                     tier=tier))
+            u = pbatch.solve_batch_kernel_stream(*head, st) \
+                if tier == "pallas" else pbatch.solve_batch_flat_jit(*head, st)
+            good, fields = against_unsharded(r, stats, u)
+            gate, gfields = flat_gate(r, x_head, ACC_TOL)
+            out[f"a_{tier}"] = dict(lanes=FLAT_LANES, launches=cnt,
+                                    wall_s=wall, **fields, **gfields)
+            windows[f"scale_{tier}"] = cnt
+            ok = ok and good and gate and all(cnt[k] >= 1 for k in needs)
+
+        (r, stats), cnt, _, _, wall = flat_window(
+            lambda: sharding.solve_batch_sharded(*args4, st, world,
+                                                 tier="prox"))
+        flags = r.exitflag.cpu().numpy()
+        stat, viol = dt.kkt_residuals(*args4, r.x, r.lam)
+        opt = flags == 1
+        silent = int(np.sum(opt & ((stat > KKT_TOL) | (viol > KKT_TOL))))
+        out["a_prox"] = dict(B=B4, launches=cnt, wall_s=wall,
+                             stats=list(stats),
+                             optimal_rate=float(opt.mean()),
+                             silent_wrong=silent)
+        windows["scale_prox"] = cnt
+        ok = ok and opt.mean() >= PROX_OPT and silent == 0 \
+            and tuple(stats) == stats_of(r) and cnt["prox_segment"] >= 1
+
+        a5 = [torch.as_tensor(d5[k], device=world.device) for k in (
+            'H', 'f', 'A', 'bupper', 'blower', 'sense')]
+        (r, stats), cnt, _, _, wall = flat_window(
+            lambda: sharding.solve_batch_miqp_sharded(*a5, st, world))
+        flags = r.exitflag.cpu().numpy()
+        lanes = np.arange(0, B5, MIQP_STRIDE)
+        ref_flags, ref_fval = miqp_oracle(d5, lanes)
+        rel = np.abs(r.fval.cpu().numpy()[lanes].astype(np.float64)
+                     - ref_fval) / (1.0 + np.abs(ref_fval))
+        opt_ref = ref_flags == 1
+        flag_diffs = int(np.sum(flags[lanes] != ref_flags))
+        beyond = int(np.sum(opt_ref & (rel > MIQP_TOL)))
+        out["a_miqp"] = dict(B=B5, launches=cnt, wall_s=wall,
+                             stats=list(stats),
+                             optimal_rate=float(np.mean(flags == 1)),
+                             gated_lanes=int(lanes.size),
+                             flag_diffs=flag_diffs, fval_beyond=beyond,
+                             max_fval_rel_err=float(rel[opt_ref].max())
+                             if opt_ref.any() else None)
+        windows["scale_miqp"] = cnt
+        ok = ok and flag_diffs == 0 and beyond == 0 \
+            and np.mean(flags == 1) >= JAX_MIQP_OPT_RATE \
+            and tuple(stats) == stats_of(r) \
+            and cnt["chol_rinv"] >= 1 and cnt["slot_round"] >= 1
+
+        m5 = miqp5_f64(d5)
+        st64 = dt.as_settings(None, torch.float64)
+        tree, cnt, _, _, wall = flat_window(
+            lambda: sharding.solve_miqp_sharded(*m5, 0, st64, world))
+        one = dt.quadprog(*m5, ms=0, dtype=torch.float64, device="cuda")
+        good, fields = tree_gate(tree, one)
+        out["a_tree"] = dict(launches=cnt, wall_s=wall, **fields)
+        windows["scale_tree"] = cnt
+        ok = ok and good
+    finally:
+        torch.distributed.destroy_process_group()
+    out["a_seconds"] = time.perf_counter() - ta
+
+    # (b) two processes on the one card over gloo
+    good, out["b"], wins = scale_two_processes(d, card)
+    windows.update(wins)
+    ok = ok and good
+
+    # (c) the warm-up, then the first config-2 stream call after it
+    tiers = ("hard", "soft", "sw", "flat")
+    secs, cnt, _, _, wall = flat_window(
+        lambda: dt.warmup(N, M_ROWS, B_CHUNK, tiers=tiers))
+    a = [x[:B_CHUNK] for x in head]
+    r, _, _, _, first = flat_window(
+        lambda: dt.solve_batch_kernel_stream(*a, st))
+    gate, gfields = flat_gate(r, x_head[:B_CHUNK], ACC_TOL)
+    out["c"] = dict(warmup_s=wall, tiers_s=secs, launches=cnt,
+                    first_stream_wall_s=first, **gfields)
+    windows["scale_warmup"] = cnt
+    ok = ok and list(secs) == list(tiers) and gate \
+        and all(cnt[k] >= 1 for k in ("chol_rinv", "slot_round",
+                                      "dense_round"))
+
+    # (d) embedded C of config 1's first QP
+    good, out["d"] = render_case(gen, card)
+    ok = ok and good
+    print("scale: one card cannot show NCCL across cards (only a group of "
+          "one), cross-card timing, or the bound exchange's cost between "
+          "cards; the two ranks of (b) share the card and meet over gloo "
+          "on the host", flush=True)
+    emit("scale", t0, **out, card=card)
+    return ok, windows
+
+
 PHASES = ("k1", "k2", "slice", "k8", "k9", "k10", "stages", "limits", "k7",
           "soft", "sw", "backstop", "single", "k3", "mpc", "k4", "prox",
-          "hiqp", "k5", "avi", "k6", "lp", "miqp", "meta", "flat")
+          "hiqp", "k5", "avi", "k6", "lp", "miqp", "meta", "flat", "scale")
 
 
 def main():
@@ -3463,6 +3770,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--scale-worker" in sys.argv:   # a rank of scale (b), not a run
+        i = sys.argv.index("--scale-worker")
+        return scale_worker(*sys.argv[i + 1:i + 4])
     dev = torch.device("cuda")
     card = card_line()
     phase_env(card)
@@ -3546,6 +3856,8 @@ def main():
     run("meta", phase_meta, d_lp, d_avi, d4b, d5, card)
     run("flat", phase_flat, head, d['x'][:FLAT_LANES].astype(np.float64),
         d64_head, gen, d3, d5, st, card)
+    run("scale", phase_scale, head, d['x'][:FLAT_LANES].astype(np.float64),
+        d, args4, d5, gen, st, card)
 
     failed = [name for name in PHASES if name in res and not res[name][0]]
     if only is not None:
@@ -3558,6 +3870,7 @@ def main():
     paths.update(res["lp"][1])
     paths.update(res["stages"][1])
     paths.update(res["flat"][1])
+    paths.update(res["scale"][1])
 
     def entry(name, source, replaces, fields):
         by_path = {p: v[name] for p, v in paths.items()}

@@ -12,7 +12,10 @@ waves, with their TPU kernels rewritten for Hopper in
 CUDA C++ (``ops/csrc``); and the single-instance solvers with their
 public API (``solve``, ``quadprog``, ``linprog``, ``avi``, ``Model``,
 ``minrep``, ``isfeasible``): dense QPs, LPs, AVIs, hierarchies and MIQP
-branch and bound, with the f64 backstops of every batched tier.  Entry points run
+branch and bound, with the f64 backstops of every batched tier; the
+deploy-time pieces (``warmup``, ``codegen.render_c`` behind
+``Model.codegen``) and scale-out over ``torch.distributed``
+(``parallel``: batches split by rank, the tree-sharded MIQP).  Entry points run
 on the card unless asked for the CPU (CPU tensors or ``device="cpu"``),
 where each kernel's plain PyTorch twin runs.
 
@@ -45,3 +48,4 @@ from .geometry import minrep, isfeasible  # noqa: E402
 from .mpc import (  # noqa: E402
     MPCStep, solve_mpc_scan, solve_mpc_scan_kernel,
     solve_mpc_scan_kernel_fused)
+from .precompile import warmup  # noqa: E402

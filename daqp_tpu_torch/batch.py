@@ -48,8 +48,7 @@ single-instance solvers lane after lane.  Left behind as TPU
 workarounds: the 512-lane guard and its routing, the 128-lane padding,
 the n-padding of the AVI matrices, the MIQP tier's 31-bit words and
 one-hot bin-to-row einsum, and the in-core difficulty sort for tile
-occupancy (one block per QP has no tiles).  ``guess_cap`` belongs to a
-later slice and raises NotImplementedError naming ROADMAP A5.
+occupancy (one block per QP has no tiles).
 
 Every entry takes ``deadline``, an absolute ``time.perf_counter()``
 time: the host checks it between kernel rounds (``ops.slot.slot_solve``,
@@ -87,13 +86,6 @@ class BatchResult(NamedTuple):
     exitflag: torch.Tensor    # (B,) int32
     iterations: torch.Tensor  # (B,) int32
     soft_slack: torch.Tensor  # (B,)
-
-
-def _unported(guess_cap=None) -> None:
-    if guess_cap:
-        raise NotImplementedError(
-            "guess_cap (primal-init active-set guess) is ported in a later "
-            "slice (ROADMAP A5)")
 
 
 def timed_out(flag, run):
@@ -145,17 +137,39 @@ def _difficulty_nviol(f, A, bupper, blower, ms: int, Rinv):
     return ((vals > bupper) | (vals < blower)).sum(dim=-1)
 
 
+def _guess_activate(s: slot.SlotState, ldpd: transform.LDPData, immut,
+                    guess_cap: int, st: Settings) -> slot.SlotState:
+    """The primal-init active-set guess (``daqp_tpu/batch.py:621-677``,
+    the batched form of the reference's ``daqp_primal_init_active``,
+    api.c:555-592, at the unconstrained optimum u = 0): the top
+    ``guess_cap`` violated rows that are not immutable, ranked by
+    max(-dupper, dlower), activated at once through ``slot_activate``
+    (one batched Cholesky in place of ~guess_cap pricing / add steps).  A
+    wrong guess leaves through the ordinary blocking search; a lane whose
+    guessed set is dependent (``EXIT_REFACTOR``) keeps its cold start."""
+    viol = torch.maximum(-ldpd.dupper, ldpd.dlower)
+    elig = (viol > 0) & (immut <= 0)
+    order = torch.argsort(torch.where(elig, -viol, torch.inf), dim=-1,
+                          stable=True)
+    pick = elig & (torch.argsort(order, dim=-1) < guess_cap)
+    up = ldpd.dupper < 0
+    s_g = slot.slot_activate(s, pick & up, pick & ~up, st)
+    return slot.select_lanes(s_g.status != EXIT_REFACTOR, s_g, s)
+
+
 def _kernel_batch_core(H, f, A, bupper, blower, sense, st: Settings,
                        ms: int = 0, fact=None, has_soft: bool = False,
                        sw: Optional[SoftWeights] = None,
-                       deadline=None) -> BatchResult:
+                       deadline=None, guess_cap=None) -> BatchResult:
     """Factor (or take ``fact`` = (Rinv, ok, reg_mask, eps_used)), build
     the LDP, solve and map back to QP space: on the slot tier (K2), or
     with ``has_soft`` on the dense-mask tier (B7), where soft rows carry
     rho_soft on their Gram diagonal, or with ``sw`` (raw user units,
     implies ``has_soft``) per-row slack bounds and per-side weights (B7's
     SOFT_WEIGHTS variant).  Without ``has_soft`` a lane with soft rows
-    exits ``EXIT_UNSUPPORTED``."""
+    exits ``EXIT_UNSUPPORTED``.  ``guess_cap`` (hard batches, opt-in)
+    starts a batch with no sense-ACTIVE row from ``_guess_activate``; the
+    dense-mask tier ignores it, as the JAX package's does."""
     has_soft = has_soft or sw is not None
     B = H.shape[0]
     n = A.shape[-1]
@@ -197,6 +211,8 @@ def _kernel_batch_core(H, f, A, bupper, blower, sense, st: Settings,
                            immut, n_true=n, fbound=fb)
         if host_any(act_bits):
             s = slot.slot_activate(s, act_bits & ~lo_bits, lo_bits, st)
+        elif guess_cap:
+            s = _guess_activate(s, ldpd, immut, guess_cap, st)
         s = slot.slot_solve(s, st, n_true=n, deadline=deadline)
         lam = slot.slot_duals_dense(s)
         slack = torch.zeros(B, dtype=f32, device=H.device)
@@ -223,16 +239,17 @@ def solve_batch_kernel(H, f, A, bupper, blower, sense, st: Settings,
     ``sense``; with ``has_soft=False`` a lane carrying soft rows exits
     ``EXIT_UNSUPPORTED``.  ``sw``: a ``SoftWeights`` of (B, m) fields in
     raw user units, the SOFT_WEIGHTS slack semantics on B7's SOFT_WEIGHTS
-    variant (implies ``has_soft``)."""
+    variant (implies ``has_soft``).  ``guess_cap`` (opt-in, default off):
+    a hard batch with no sense-ACTIVE row starts from its top
+    ``guess_cap`` violated rows activated at once (``_guess_activate``)."""
     H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
                                               sense, device)
-    _unported(guess_cap)
     sw = _sw_tensors(sw, H)
     if has_soft is None:
         has_soft = sw is not None or host_any((sense & SOFT) > 0)
     return _kernel_batch_core(H, f, A, bupper, blower, sense, st, ms=ms,
                               has_soft=bool(has_soft), sw=sw,
-                              deadline=deadline)
+                              deadline=deadline, guess_cap=guess_cap)
 
 
 def _sw_tensors(sw, like) -> Optional[SoftWeights]:
@@ -261,8 +278,8 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
     ``chunk`` and the order only bound memory and shape the waves; outputs
     come back in input order.  ``sw`` (raw user units, implies
     ``has_soft``) follows the sort and the chunks.  ``deadline`` is
-    checked as each chunk's rounds start and between them."""
-    _unported(guess_cap)
+    checked as each chunk's rounds start and between them.  ``guess_cap``
+    as ``solve_batch_kernel``, chunk by chunk."""
     H, f, A, bupper, blower, sense = _tensors(H, f, A, bupper, blower,
                                               sense, device)
     sw = _sw_tensors(sw, H)
@@ -284,7 +301,7 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
             H[sl], f[sl], A[sl], bupper[sl], blower[sl], sense[sl], st,
             ms=ms, fact=tuple(x[sl] for x in fact), has_soft=has_soft,
             sw=None if sw is None else SoftWeights(*(x[sl] for x in sw)),
-            deadline=deadline))
+            deadline=deadline, guess_cap=guess_cap))
     out = BatchResult(*(torch.cat(p) for p in zip(*parts)))
     if order is not None:
         unsort = torch.argsort(order)

@@ -30,7 +30,7 @@ same.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -143,26 +143,58 @@ def _solve_node(state, st_node: Settings, deadline):
     return ldp_mod.ldp_solve(s, st_node, deadline=deadline)
 
 
-def bnb_solve(ldpd: transform.LDPData, bin_ids: tuple, st: Settings, K: int,
-              deadline: float = None):
-    """Branch and bound on a built LDP of one problem: (final state,
-    status, iterations, nodes)."""
-    dtype, dev = ldpd.M.dtype, ldpd.M.device
-    bins = torch.as_tensor(bin_ids, dtype=torch.int64, device=dev)
+class BnBCarry(NamedTuple):
+    """The tree between waves (``daqp_tpu/bnb.py``'s ``BnBCarry``): the
+    workspace, the node stack (top last), the saved working sets, the
+    fixed path, the equality count, the folded incumbent bound, the
+    incumbent's u, the node and iteration counts and the status."""
+    state: ldp_mod.LDPState
+    stack: List[_Node]
+    tree_ws: List[int]
+    fixed: List[tuple]
+    neq: int
+    bound: torch.Tensor       # () the dominance bound, subopt folded in
+    incumbent_u: Optional[torch.Tensor]
+    incumbent_found: bool
+    nodecount: int
+    itercount: int
+    status: int
+
+
+def bnb_init(ldpd: transform.LDPData, bin_ids: tuple, st: Settings,
+             K: int) -> BnBCarry:
+    """The root on the stack, the equalities (and sense-ACTIVE rows)
+    activated, the bound from ``st.fval_bound``."""
     state = ldp_mod.init_state(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.sense,
                                ldpd.scaling, K=K)._replace(in_bnb=True)
     act_flag, state = ldp_mod.activate_constraints(state, st)
-    neq = state.n_active
     eps_r = 1.0 / (1.0 + st.rel_subopt)
     bound = torch.tensor((st.fval_bound - st.abs_subopt) * eps_r,
-                         dtype=dtype, device=dev)
-    stack = [_Node(0, False, -1, 0, 0)]
-    tree_ws: List[int] = []
-    fixed = [(0, False)] * max(len(bin_ids), 1)
-    incumbent_u, found_any = None, False
-    nodes = iters = 0
-    status = act_flag if act_flag < 0 else EXIT_RUNNING
-    while stack and status == EXIT_RUNNING and iters < st.iter_limit:
+                         dtype=ldpd.M.dtype, device=ldpd.M.device)
+    return BnBCarry(
+        state=state, stack=[_Node(0, False, -1, 0, 0)], tree_ws=[],
+        fixed=[(0, False)] * max(len(bin_ids), 1), neq=state.n_active,
+        bound=bound, incumbent_u=None, incumbent_found=False, nodecount=0,
+        itercount=0, status=act_flag if act_flag < 0 else EXIT_RUNNING)
+
+
+def bnb_run(c: BnBCarry, bin_ids: tuple, st: Settings,
+            node_budget: Optional[int] = None,
+            deadline: float = None) -> BnBCarry:
+    """Process nodes from the stack until it empties, the solve errors,
+    the iteration limit is reached or ``node_budget`` nodes have been
+    processed (the resumable form behind the incumbent-bound exchange
+    between waves, ``parallel.sharding.solve_miqp_sharded``)."""
+    state, neq, bound = c.state, c.neq, c.bound
+    stack, tree_ws, fixed = list(c.stack), list(c.tree_ws), list(c.fixed)
+    incumbent_u, found_any = c.incumbent_u, c.incumbent_found
+    nodes, iters, status = c.nodecount, c.itercount, c.status
+    target = None if node_budget is None else nodes + node_budget
+    bins = torch.as_tensor(bin_ids, dtype=torch.int64,
+                           device=state.M.device)
+    eps_r = 1.0 / (1.0 + st.rel_subopt)
+    while stack and status == EXIT_RUNNING and iters < st.iter_limit \
+            and (target is None or nodes < target):
         node = stack.pop()
         nodes += 1
         depth = node.depth
@@ -221,16 +253,34 @@ def bnb_solve(ldpd: transform.LDPData, bin_ids: tuple, st: Settings, K: int,
         # the tree's own wall-clock check every 32 nodes (bnb.c:51-59)
         if nodes % 32 == 0 and status == EXIT_RUNNING and late(deadline):
             status = EXIT_TIMELIMIT
+    return c._replace(state=state, stack=stack, tree_ws=tree_ws,
+                      fixed=fixed, bound=bound, incumbent_u=incumbent_u,
+                      incumbent_found=found_any, nodecount=nodes,
+                      itercount=iters, status=status)
 
-    # bnb_finalize (bnb.c:77-89): fval from the folded bound
-    if found_any:
+
+def bnb_finalize(c: BnBCarry, st: Settings) -> BnBCarry:
+    """The incumbent's u in the state, its fval from the folded bound,
+    and the final status (bnb.c:77-89)."""
+    status, state = c.status, c.state
+    if c.incumbent_found:
+        eps_r = 1.0 / (1.0 + st.rel_subopt)
         status = status if status < EXIT_INFEASIBLE else EXIT_OPTIMAL
         state = state._replace(
-            u=incumbent_u,
-            fval=2.0 * bound / eps_r + 2.0 * st.abs_subopt)
+            u=c.incumbent_u,
+            fval=2.0 * c.bound / eps_r + 2.0 * st.abs_subopt)
     elif status == EXIT_RUNNING:
         status = EXIT_INFEASIBLE
-    return state, status, iters, nodes
+    return c._replace(state=state, status=status)
+
+
+def bnb_solve(ldpd: transform.LDPData, bin_ids: tuple, st: Settings, K: int,
+              deadline: float = None):
+    """Branch and bound on a built LDP of one problem: (final state,
+    status, iterations, nodes)."""
+    c = bnb_init(ldpd, bin_ids, st, K)
+    c = bnb_finalize(bnb_run(c, bin_ids, st, deadline=deadline), st)
+    return c.state, c.status, c.itercount, c.nodecount
 
 
 def bnb_core(H, f, A, bupper, blower, sense, ms: int, st: Settings,

@@ -29,6 +29,7 @@ from . import core
 from . import ldp as ldp_mod
 from . import transform
 from .api import _host, solve as api_solve
+from .codegen import render_c
 from .ops import host_read
 from .types import BINARY, EXIT_RUNNING, SOFT, Result, as_settings
 
@@ -240,10 +241,13 @@ class Model:
 
     # -- codegen ----------------------------------------------------------
     def codegen(self, name="daqp_embedded", dir="."):
-        """Embedded C code generation is not ported yet."""
-        raise NotImplementedError(
-            "Model.codegen (embedded C) is ported in a later slice "
-            "(ROADMAP A15)")
+        """Render the model's problem into standalone embedded C
+        (reference ``DAQPBase.codegen``, api.jl:393-404 ->
+        codegen/codegen.c) through ``codegen.render_c``.  Returns the
+        generated .c path."""
+        return render_c(self._H, self._f, self._A, self._bupper,
+                        self._blower, name=name, dir=dir, sense=self._sense,
+                        ms=self._ms, settings=self._settings)
 
     # -- settings ---------------------------------------------------------
     def settings(self, updates: Optional[dict] = None) -> dict:

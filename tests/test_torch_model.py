@@ -110,7 +110,7 @@ def test_model_update_A_reuses_factorization():
     assert np.linalg.norm(p["x"] - ref.x.numpy()) < 1e-8
 
 
-def test_model_settings_and_regularization():
+def test_model_settings_and_regularization(tmp_path):
     d = dt.Model()
     assert d.settings({"iter_limit": 123})["iter_limit"] == 123
     assert d.settings() == daqp_tpu.Model().settings({"iter_limit": 123})
@@ -118,8 +118,11 @@ def test_model_settings_and_regularization():
     x, H, f, A, bu, bl, sense = generate_test_qp(6, 12, 0, 3, 1e1, rng)
     d = dt.Model().setup(H, f, A, bu, bl, sense, **F64)
     assert d.proximal_regularization() == 0.0
-    with pytest.raises(NotImplementedError, match="A15"):
-        d.codegen()
+    # ported: Model.codegen renders the model's problem as embedded C
+    # (tests/test_torch_codegen.py compiles and solves it)
+    cpath = d.codegen(name="reg", dir=str(tmp_path))
+    assert open(cpath).read().startswith("\n/* --- embedded dual")
+    assert "#define reg_N     6" in open(cpath).read()
     # a semidefinite H takes api.solve's proximal path, as in JAX: the
     # port's own one-shot to the bit, the JAX one's flag, and its
     # objective to the outer loop's accuracy (its minimizers need not be

@@ -1,6 +1,7 @@
 """The PyTorch port's package surface (daqp_tpu_torch): no jax at import,
 settings equal to the JAX package's, no silent fallback from the CUDA
-path, soft batches solve, and the not-yet-ported options raise."""
+path, and the options ported after the first slice (soft rows,
+SOFT_WEIGHTS, deadline, guess_cap) work."""
 import os
 import subprocess
 import sys
@@ -31,7 +32,10 @@ def test_import_leaves_jax_out():
             "daqp_tpu_torch.model, daqp_tpu_torch.warmstart, "
             "daqp_tpu_torch.geometry, daqp_tpu_torch.hierarchical, "
             "daqp_tpu_torch.avi_solver, daqp_tpu_torch.bnb, "
-            "daqp_tpu_torch.ldp_flat; "
+            "daqp_tpu_torch.ldp_flat, daqp_tpu_torch.parallel, "
+            "daqp_tpu_torch.parallel.sharding, "
+            "daqp_tpu_torch.parallel.distributed, daqp_tpu_torch.codegen, "
+            "daqp_tpu_torch.precompile; "
             "from daqp_tpu_torch.ops import _build; "
             "srcs = sorted(p.stem for p in _build._CSRC.glob('*.cu')); "
             "assert srcs == sorted(k[:-4] for k in _build._SIGNATURES), srcs; "
@@ -275,10 +279,43 @@ def test_unported_options_raise(kw):
             assert (r.exitflag.numpy() == dt.EXIT_TIMELIMIT).all(), \
                 r.exitflag
         return
-    with pytest.raises(NotImplementedError):
-        dt.solve_batch_kernel_stream(*args, st=st, **kw)
-    with pytest.raises(NotImplementedError):
-        dt.solve_batch_kernel(*args, st=st, **kw)
+    # ported: the primal-init guess (opt-in) against the JAX package's
+    # stream with the same cap, in f64 data on a small hard batch
+    _guess_cap_matches_jax(kw["guess_cap"])
+
+
+def _guess_cap_matches_jax(cap):
+    """The stream with ``guess_cap`` against JAX's
+    ``solve_batch_pallas_stream_jit(guess_cap=cap, interpret=True)`` on
+    the same f64 batch: the same flags; each package's x within 1e-6 of
+    the f64 optimum (both solve in f32 and agree to 1.4e-6); iterations
+    cut as JAX's, lane for lane within one step, except on a lane whose
+    guessed set the port's activation rejects (its pivot gate is
+    stricter than the JAX package's Cholesky, ``slot._batched_gram_
+    inverse``): that lane keeps its cold start, its iterations the cold
+    solve's."""
+    from daqp_tpu import batch as jbatch
+    d = generate_test_qp_batch(32, 10, 30, 0, 8, 1e2, rng=47)
+    keys = ('H', 'f', 'A', 'bupper', 'blower', 'sense')
+    jst = _as_settings(None, jnp.float32)
+    rj = jbatch.solve_batch_pallas_stream_jit(
+        *(jnp.asarray(d[k]) for k in keys), st=jst, ms=0, chunk=32,
+        has_soft=False, interpret=True, guess_cap=cap)
+    args = [torch.as_tensor(d[k]) for k in keys]
+    st = dt.as_settings(None, torch.float32)
+    cold = dt.solve_batch_kernel_stream(*args, st=st, chunk=32)
+    rp = dt.solve_batch_kernel_stream(*args, st=st, chunk=32, guess_cap=cap)
+    assert torch.equal(dt.solve_batch_kernel(*args, st=st, guess_cap=cap).x,
+                       rp.x)
+    fj, fp = np.asarray(rj.exitflag), rp.exitflag.numpy()
+    assert (fj == fp).all() and (fp == 1).all(), (fj, fp)
+    for x in (np.asarray(rj.x), rp.x.numpy()):
+        assert np.abs(x - d['x']).max() < 1e-6
+    ij, ip, ic = (np.asarray(r.iterations) for r in (rj, rp, cold))
+    assert ip.sum() < ic.sum()
+    same = np.abs(ip - ij) <= 1
+    assert same.mean() >= 0.9, (ij, ip)
+    assert (ip[~same] == ic[~same]).all(), (ij, ip, ic)
 
 
 def test_flat_tier_miqp_names_its_item():
