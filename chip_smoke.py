@@ -97,7 +97,16 @@ before and read just after:
   phase); (c) ``dt.warmup`` of every tier at config 2's widths, then the
   wall of the first config-2 stream call after it; (d) ``render_c`` of
   config 1's first QP compiled with ``cc`` and solved, against
-  ``dt.quadprog`` in f64.
+  ``dt.quadprog`` in f64;
+* ``deploy``: the deploy surface: (a) ``codegen.export_aot(50, 100,
+  batch=2048)`` traced on the card, saved, and loaded and run on config
+  2's first 2048 lanes by this script re-run as ``--aot-worker`` (a fresh
+  process that only imports the package, which registers K1 and B10 as
+  ops; 120 s), at cell 2's gate with K1 counted in that process, its
+  flags, iterations and x held to this process's eager
+  ``solve_batch_flat_jit`` lane for lane; (b) ``export_aot`` of config
+  1's shape in f64 and (c) ``native.NativeModel`` (the C library), each
+  on config 1's first 16 QPs against ``dt.quadprog`` in f64.
 
 The ``hiqp``, ``avi`` and ``lp`` phases end with their tier's backstop
 (``backstop_resolve_hiqp``, ``_avi``, ``_lp``): the batch's loud lanes
@@ -333,6 +342,15 @@ FLAT_MIQP = 8
 # scale: (b) runs two ranks on the card over gloo, each on half of config
 # 2's first SCALE_2PROC lanes, each allowed SCALE_WORKER_S seconds
 SCALE_2PROC, SCALE_WORKER_S = 512, 120
+# deploy: (a) config 2's first FLAT_LANES lanes through the program that
+# codegen.export_aot traced, loaded and run in a fresh process
+# (--aot-worker) allowed AOT_WORKER_S seconds, against the eager flat call
+# (the same flags and iterations, ||dx||_inf <= AOT_DX (1 + ||x||_inf));
+# (b) the exported single solve and (c) the native C library on config
+# 1's first DEPLOY_QPS QPs in f64 against dt.quadprog (SINGLE_TOL64)
+AOT_WORKER_S, AOT_DX, DEPLOY_QPS = 120, 1e-6, 16
+# (d) B10 through its registered op in a loaded program
+DEPLOY_B10_N, DEPLOY_B10_LANES = 300, 8
 
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -3756,9 +3774,235 @@ def phase_scale(head, x_head, d, args4, d5, gen, st, card):
     return ok, windows
 
 
+def graph_nodes(gm):
+    """Nodes of an exported graph module, its loops' graphs included."""
+    return len(gm.graph.nodes) + sum(graph_nodes(sub)
+                                     for sub in gm.children()
+                                     if hasattr(sub, "graph"))
+
+
+def counted_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: (result,
+    the synchronizing CUDA calls it made, counted by their warnings)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return r, sum("synchronizing" in str(w.message) for w in seen)
+
+
+def aot_worker(path):
+    """``deploy`` (a)'s fresh process: ``import daqp_tpu_torch`` (which
+    registers K1 and B10 as ops), ``torch.export.load`` the program at
+    ``path`` (nothing is traced again), run it on the lanes saved beside
+    it, twice (the second wall is warm), and hold the first run to cell
+    2's gate; K1 must launch, counted by the op.  Writes the outputs to
+    ``path + ".out.npz"``, prints one JSON line, exits 1 when a check
+    fails."""
+    data = np.load(path + ".npz")
+    keys = ('H', 'f', 'A', 'bupper', 'blower', 'sense')
+    args = [torch.as_tensor(data[k], device="cuda") for k in keys]
+    t = time.perf_counter()
+    prog = torch.export.load(path).module()
+    load_s = time.perf_counter() - t
+    (out, syncs), cnt, _, _, wall = flat_window(
+        lambda: counted_syncs(lambda: prog(*args)))
+    _, _, _, _, warm = flat_window(lambda: prog(*args))
+    r = types.SimpleNamespace(x=out["x"], exitflag=out["exitflag"],
+                              iterations=out["iterations"])
+    ok, fields = flat_gate(r, data['x'], ACC_TOL)
+    np.savez(path + ".out.npz", **{k: v.cpu().numpy()
+                                   for k, v in out.items()})
+    print(json.dumps({"aot_worker": dict(
+        load_s=load_s, solve_wall_s=wall, warm_wall_s=warm,
+        rounds=int(out["rounds"]), syncs=syncs, launches=cnt, gate_ok=ok,
+        **fields)}), flush=True)
+    return 0 if ok and cnt["chol_rinv"] >= 1 else 1
+
+
+def aot_batch(head, x_head, st):
+    """``deploy`` (a): ``export_aot(N, M_ROWS, batch=FLAT_LANES)`` in f32
+    on the card, saved and run by ``--aot-worker`` in a fresh process,
+    its flags, iterations and x held to this process's eager
+    ``solve_batch_flat_jit`` lane for lane; (passes, fields, windows)."""
+    import io
+    keys = ('H', 'f', 'A', 'bupper', 'blower', 'sense')
+    blob, cnt_x, _, _, export_s = flat_window(
+        lambda: codegen.export_aot(N, M_ROWS, batch=FLAT_LANES, settings=st))
+    nodes = graph_nodes(torch.export.load(io.BytesIO(blob)).graph_module)
+    (eager, syncs), cnt_e, host, rounds, eager_s = flat_window(
+        lambda: counted_syncs(lambda: pbatch.solve_batch_flat_jit(*head,
+                                                                  st)))
+    found, rc, timed_out = None, None, False
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "flat.pt2")
+        with open(path, "wb") as fh:
+            fh.write(blob)
+        np.savez(path + ".npz", x=x_head,
+                 **{k: v.cpu().numpy() for k, v in zip(keys, head)})
+        t = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--aot-worker",
+             path], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            log = proc.communicate(timeout=AOT_WORKER_S)[0]
+            rc = proc.returncode
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            proc.kill()
+            log = proc.communicate()[0]
+        worker_s = time.perf_counter() - t
+        lines = [ln for ln in log.splitlines()
+                 if ln.startswith('{"aot_worker"')]
+        if lines and rc == 0:
+            found = json.loads(lines[-1])["aot_worker"]
+            got = dict(np.load(path + ".out.npz"))
+    if found is None:
+        print(log[-3000:], file=sys.stderr)
+        return False, dict(return_code=rc, timed_out=timed_out), {}
+    x = eager.x.cpu().numpy().astype(np.float64)
+    gx = got["x"].astype(np.float64)
+    dx = np.abs(gx - x).max(1) / (1.0 + np.abs(x).max(1))
+    ef, gf = eager.exitflag.cpu().numpy(), got["exitflag"]
+    ei, gi = eager.iterations.cpu().numpy(), got["iterations"]
+    differ = []
+    for b in np.flatnonzero((ef != gf) | (ei != gi) | ~(dx <= AOT_DX)):
+        why = [w for w, bad in (("flag", ef[b] != gf[b]),
+                                ("iterations", ei[b] != gi[b]),
+                                ("x", not dx[b] <= AOT_DX)) if bad]
+        differ.append(dict(lane=int(b), reason=why, flag=int(gf[b]),
+                           eager_flag=int(ef[b]), iterations=int(gi[b]),
+                           eager_iterations=int(ei[b]), dx=float(dx[b])))
+    for d_ in differ:
+        print(f"deploy (a) lane {d_['lane']} differs: {d_}", flush=True)
+    ok = not differ and found["rounds"] == rounds \
+        and all(v == 0 for v in cnt_x.values())
+    return ok, dict(
+        export_s=export_s, blob_bytes=len(blob), graph_nodes=nodes,
+        eager=dict(wall_s=eager_s, rounds=rounds, host_syncs=host,
+                   syncs=syncs, launches=cnt_e),
+        worker=found, worker_wall_s=worker_s, lanes_differ=len(differ),
+        max_dx_eager=float(dx.max())), dict(
+            deploy_export=cnt_x, deploy_eager=cnt_e,
+            deploy_aot_worker=found["launches"])
+
+
+def deploy_single(gen):
+    """``deploy`` (b) and (c) on config 1's first DEPLOY_QPS QPs in f64:
+    the program ``export_aot(N1, M1, MS1, dtype="float64")`` traced on the
+    card, loaded and run one QP a call, and ``native.NativeModel`` on
+    tensors on the card, each against ``dt.quadprog`` on the card: the
+    same flag, ||dx||_2 <= SINGLE_TOL64 (and |dfval| for the C library);
+    (passes, fields, windows)."""
+    import io
+    from daqp_tpu_torch import native
+    probs = config1(gen)[:DEPLOY_QPS]
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    blob = codegen.export_aot(N1, M1, MS1, dtype="float64")
+    export_s = time.perf_counter() - t
+    prog = torch.export.load(io.BytesIO(blob)).module()
+    ones = [dt.quadprog(H, f, A, bu, bl, se, ms=MS1, dtype=torch.float64,
+                        device="cuda") for _, H, f, A, bu, bl, se in probs]
+    cases = {"b": [], "c": []}
+
+    def run_b():
+        for _, H, f, A, bu, bl, se in probs:
+            out = prog(*(torch.as_tensor(v, device=dev)
+                         for v in (H, f, A, bu, bl)),
+                       torch.as_tensor(se, dtype=torch.int32, device=dev))
+            cases["b"].append((int(out["exitflag"]),
+                               out["x"].cpu().numpy(), float(out["fval"])))
+
+    def run_c():
+        for _, H, f, A, bu, bl, se in probs:
+            out = native.NativeModel(*(torch.as_tensor(v, device=dev)
+                                       for v in (H, f, A, bu, bl)), se,
+                                     ms=MS1).solve()
+            cases["c"].append((out["exitflag"], out["x"], out["fval"]))
+
+    _, cnt_b, _, _, wall_b = flat_window(run_b)
+    _, cnt_c, _, _, wall_c = flat_window(run_c)
+    out, ok = dict(b=dict(export_s=export_s, blob_bytes=len(blob),
+                          wall_s=wall_b, launches=cnt_b),
+                   c=dict(wall_s=wall_c, launches=cnt_c)), True
+    for part, fval_gate in (("b", False), ("c", True)):
+        flags = [c[0] for c in cases[part]]
+        dx = [float(np.linalg.norm(c[1] - o.x.cpu().numpy()))
+              for c, o in zip(cases[part], ones)]
+        df = [abs(c[2] - float(o.fval)) for c, o in zip(cases[part], ones)]
+        same = flags == [o.exitflag for o in ones]
+        good = same and max(dx) <= SINGLE_TOL64 and \
+            (not fval_gate or max(df) <= SINGLE_TOL64)
+        out[part].update(flags_equal=same, optimal=sum(f == 1 for f in flags),
+                         max_dx=max(dx), max_dfval=max(df))
+        ok = ok and good
+    return ok, out, dict(deploy_single=cnt_b, deploy_native=cnt_c)
+
+
+class _Factor(torch.nn.Module):
+    """The regularized factorization's graph form alone (``deploy``
+    (d))."""
+
+    def __init__(self, st):
+        super().__init__()
+        self.st = st
+
+    def forward(self, H):
+        return chol.batched_rinv_regularized(H, self.st, graph=True)
+
+
+def deploy_b10(st):
+    """``deploy`` (d): B10 in a loaded program: the factorization's graph
+    form at n = DEPLOY_B10_N (past K1's columns) traced, saved, loaded
+    and run on DEPLOY_B10_LANES matrices of spd_batch, one of them
+    shifted to need retries, against the eager loop bit for bit; B10
+    launched by the op, K1 not; (passes, fields, windows)."""
+    import io
+    dev = torch.device("cuda")
+    H = spd_batch(DEPLOY_B10_LANES, DEPLOY_B10_N, SEED, dev)
+    H[0] -= 1.5 * torch.linalg.eigvalsh(H[0].double())[0].float() \
+        * torch.eye(DEPLOY_B10_N, device=H.device)
+    ep = torch.export.export(_Factor(st), (H,), strict=False)
+    ep.example_inputs = None
+    buf = io.BytesIO()
+    torch.export.save(ep, buf)
+    prog = torch.export.load(io.BytesIO(buf.getvalue())).module()
+    got, cnt, _, _, wall = flat_window(lambda: prog(H))
+    want, cnt_e, _, _, _ = flat_window(
+        lambda: chol.batched_rinv_regularized(H, st))
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    ok = same and cnt["chol_blk"] >= 1 and cnt["chol_rinv"] == 0 \
+        and bool(want[2][0])
+    return ok, dict(n=DEPLOY_B10_N, lanes=DEPLOY_B10_LANES, equal=same,
+                    retried_lanes=int(want[2].sum()), wall_s=wall,
+                    launches=cnt, eager_launches=cnt_e), dict(
+                        deploy_b10=cnt)
+
+
+def phase_deploy(head, x_head, gen, st, card):
+    """The deploy surface: (a) ``aot_batch``, (b) and (c)
+    ``deploy_single``, (d) ``deploy_b10``; each part must pass."""
+    t0 = time.perf_counter()
+    ok_a, out_a, windows = aot_batch(head, x_head, st)
+    ok_bc, out_bc, win_bc = deploy_single(gen)
+    ok_d, out_d, win_d = deploy_b10(st)
+    windows.update(win_bc)
+    windows.update(win_d)
+    emit("deploy", t0, a=out_a, **out_bc, d=out_d,
+         passed=dict(a=ok_a, b_c=ok_bc, d=ok_d), card=card)
+    return ok_a and ok_bc and ok_d, windows
+
+
 PHASES = ("k1", "k2", "slice", "k8", "k9", "k10", "stages", "limits", "k7",
           "soft", "sw", "backstop", "single", "k3", "mpc", "k4", "prox",
-          "hiqp", "k5", "avi", "k6", "lp", "miqp", "meta", "flat", "scale")
+          "hiqp", "k5", "avi", "k6", "lp", "miqp", "meta", "flat", "scale",
+          "deploy")
 
 
 def main():
@@ -3773,6 +4017,8 @@ def main():
     if "--scale-worker" in sys.argv:   # a rank of scale (b), not a run
         i = sys.argv.index("--scale-worker")
         return scale_worker(*sys.argv[i + 1:i + 4])
+    if "--aot-worker" in sys.argv:     # deploy (a)'s process, not a run
+        return aot_worker(sys.argv[sys.argv.index("--aot-worker") + 1])
     dev = torch.device("cuda")
     card = card_line()
     phase_env(card)
@@ -3858,6 +4104,8 @@ def main():
         d64_head, gen, d3, d5, st, card)
     run("scale", phase_scale, head, d['x'][:FLAT_LANES].astype(np.float64),
         d, args4, d5, gen, st, card)
+    run("deploy", phase_deploy, head, d['x'][:FLAT_LANES].astype(np.float64),
+        gen, st, card)
 
     failed = [name for name in PHASES if name in res and not res[name][0]]
     if only is not None:
@@ -3871,6 +4119,7 @@ def main():
     paths.update(res["stages"][1])
     paths.update(res["flat"][1])
     paths.update(res["scale"][1])
+    paths.update(res["deploy"][1])
 
     def entry(name, source, replaces, fields):
         by_path = {p: v[name] for p, v in paths.items()}

@@ -312,31 +312,35 @@ def solve_batch_kernel_stream(H, f, A, bupper, blower, sense,
 LANE_CHUNK = 2048   # lanes a flat chunk: its steps are host-bound (PERF.md §6)
 
 
-def factor_batch(H, st: Settings):
+def factor_batch(H, st: Settings, graph: bool = False):
     """``transform.factorize_hessian`` of a batch, as the flat and ordered
     tiers and the flat horizon factor: the dense lanes of an f32 batch on
     the card through ``chol.batched_rinv_regularized`` (K1 or
     B10 by n), any other batch through the library's Cholesky, as the JAX
-    flat tier factors (``daqp_tpu/transform.py:57``)."""
-    dense_fn = chol.batched_rinv_regularized \
-        if H.is_cuda and H.dtype == torch.float32 else None
-    return transform.factorize_hessian(H, st, dense=dense_fn)
+    flat tier factors (``daqp_tpu/transform.py:57``).  ``graph``: the
+    retries' form with no host read (``torch.export``)."""
+    dense_fn = None
+    if H.is_cuda and H.dtype == torch.float32:
+        def dense_fn(Hd, st_):
+            return chol.batched_rinv_regularized(Hd, st_, graph=graph)
+    return transform.factorize_hessian(H, st, dense=dense_fn, graph=graph)
 
 
-def _solve_flat(H, f, A, bupper, blower, sense, sw, ms: int, st: Settings,
-                K: int, is_late: bool = False) -> BatchResult:
-    """A chunk of lanes on the flat tier (``_solve_one_flat``, batched):
-    the transform, SOFT_WEIGHTS data normalized by the row scaling, the
-    equality / warm activation, then the pre-status in the JAX order
-    (transform error, failed activation, unconstrained shortcut, and with
-    ``is_late`` TIMELIMIT for a chunk that starts past its deadline),
-    ``flat_solve`` and the map back to x, lam, fval."""
+def _flat_start(H, f, A, bupper, blower, sense, sw, ms: int, st: Settings,
+                K: int, is_late: bool = False, graph: bool = False):
+    """The flat tier up to ``flat_solve``: the transform, SOFT_WEIGHTS
+    data normalized by the row scaling, the equality / warm activation,
+    then the pre-status in the JAX order (transform error, failed
+    activation, unconstrained shortcut, and with ``is_late`` TIMELIMIT
+    for a chunk that starts past its deadline).  ``graph``: the host
+    loops' forms with no host read.  Returns (LDP data, state)."""
     ldpd = transform.build_ldp(f, A, bupper, blower, sense, ms, st,
-                               fact=factor_batch(H, st))
+                               fact=factor_batch(H, st, graph))
     sw_n = None if sw is None else transform.normalize_soft_weights(sw, ldpd)
     s = ldp_flat.flat_init(ldpd.M, ldpd.dupper, ldpd.dlower, ldpd.sense,
                            ldpd.scaling, K=K, sw=sw_n)
-    s = ldp_flat.flat_activate(s, st)
+    s = (ldp_flat.flat_activate_graph if graph
+         else ldp_flat.flat_activate)(s, st)
     unc_ok, _ = transform.check_unconstrained(
         ldpd._replace(sense=s.sense), st)
     pre = torch.where(ldpd.error < 0, ldpd.error, torch.where(
@@ -344,13 +348,40 @@ def _solve_flat(H, f, A, bupper, blower, sense, sw, ms: int, st: Settings,
         torch.where(unc_ok, EXIT_OPTIMAL, EXIT_RUNNING)))
     if is_late:
         pre = timed_out(pre, pre == EXIT_RUNNING)
-    s = ldp_flat.flat_solve(s._replace(status=pre.to(torch.int32)), st)
+    return ldpd, s._replace(status=pre.to(torch.int32))
+
+
+def _flat_result(ldpd: transform.LDPData,
+                 s: ldp_flat.FlatState) -> BatchResult:
+    """The map back to x, lam, fval."""
     return BatchResult(
         x=transform.ldp_to_qp_solution(ldpd, s.u),
         lam=ldp_flat.flat_extract_duals(s),
         fval=0.5 * (s.fval - (ldpd.v * ldpd.v).sum(1)),
         exitflag=s.status, iterations=s.iterations,
         soft_slack=s.soft_slack)
+
+
+def _solve_flat(H, f, A, bupper, blower, sense, sw, ms: int, st: Settings,
+                K: int, is_late: bool = False) -> BatchResult:
+    """A chunk of lanes on the flat tier (``_solve_one_flat``, batched):
+    ``_flat_start``, ``flat_solve`` and the map back to x, lam, fval."""
+    ldpd, s = _flat_start(H, f, A, bupper, blower, sense, sw, ms, st, K,
+                          is_late)
+    return _flat_result(ldpd, ldp_flat.flat_solve(s, st))
+
+
+def solve_flat_graph(H, f, A, bupper, blower, sense, ms: int, st: Settings,
+                     K: int):
+    """``_solve_flat`` (no SOFT_WEIGHTS, no deadline) with no host read,
+    the form ``torch.export`` traces (``codegen.export_aot``): the
+    retries, the activation and the round loop in their graph forms, so
+    each lane gets what ``_solve_flat`` gives it.  Returns (result, the
+    rounds run as a 0-d tensor)."""
+    ldpd, s = _flat_start(H, f, A, bupper, blower, sense, None, ms, st, K,
+                          graph=True)
+    s, r = ldp_flat.flat_solve_graph(s, st)
+    return _flat_result(ldpd, s), r
 
 
 def _lanes(x, sl):

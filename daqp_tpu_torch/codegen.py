@@ -8,8 +8,23 @@ active-set solver, with ``<name>_solve_miqp`` when rows are BINARY and
 ``<name>_solve_hier`` when ``break_points`` are given.  The C templates
 and the writing are the JAX module's, copied (they use numpy and text
 only); the LDP data is built by the port's own transform, in f64 on the
-CPU.  The JAX module's ``export_aot`` (serialized StableHLO of a jitted
-solver) has no counterpart here.
+CPU.
+
+``export_aot`` is the counterpart of the JAX module's AOT export
+(``daqp_tpu/codegen.py:857``, serialized StableHLO of a jitted solver):
+the flat tier for fixed dimensions traced by ``torch.export`` into one
+``ExportedProgram``, returned as the bytes of ``torch.export.save``.  The
+host loops run in their graph forms (``batch.solve_flat_graph``: the
+retries masked, the activation and the rounds as ``while_loop`` s), and
+K1 and B10 are the registered ops
+``daqp_tpu_torch::chol_rinv`` / ``::chol_rinv_blk``.  A program loads
+without re-tracing any Python::
+
+    import io, torch, daqp_tpu_torch          # registers the two ops
+    prog = torch.export.load(io.BytesIO(blob)).module()
+    out = prog(H, f, A, bupper, blower, sense)    # a dict of tensors
+
+on the device it was exported on.
 """
 from __future__ import annotations
 
@@ -815,3 +830,74 @@ def render_c(H, f, A, bupper, blower, name="daqp_embedded", dir=".",
     with open(os.path.join(dir, f"{name}.h"), "w") as fh:
         fh.write(hdr)
     return cpath
+
+
+class _FlatProgram(torch.nn.Module):
+    """The graph ``export_aot`` traces: the flat tier on static chunks of
+    ``batch.LANE_CHUNK`` lanes (``solve_batch_flat_jit``'s chunks), or on
+    one lane unsqueezed in and squeezed out (``single``)."""
+
+    def __init__(self, ms: int, st, K: int, single: bool):
+        super().__init__()
+        self.ms, self.st, self.K, self.single = ms, st, K, single
+
+    def forward(self, H, f, A, bupper, blower, sense):
+        from . import batch
+        args = (H, f, A, bupper, blower, sense)
+        if self.single:
+            args = tuple(x[None] for x in args)
+        parts, rounds = [], []
+        for c0 in range(0, args[0].shape[0], batch.LANE_CHUNK):
+            sl = slice(c0, c0 + batch.LANE_CHUNK)
+            r, k = batch.solve_flat_graph(*(x[sl] for x in args), self.ms,
+                                          self.st, self.K)
+            parts.append(r)
+            rounds.append(k)
+        out = {k: torch.cat(p) for k, p in zip(
+            batch.BatchResult._fields, zip(*parts))}
+        out = {k: out[k] for k in ("x", "lam", "fval", "exitflag",
+                                   "iterations")}
+        if self.single:
+            out = {k: v[0] for k, v in out.items()}
+        out["rounds"] = torch.stack(rounds).sum()
+        return out
+
+
+def export_aot(n, m, ms=0, batch=None, dtype="float32", settings=None,
+               path=None, device=None):
+    """AOT-export the solver for fixed dimensions as an ``ExportedProgram``
+    (``torch.export``): ``batch=B`` the flat tier of
+    ``solve_batch_flat_jit`` on (B, ...) inputs, ``batch=None`` the same
+    graph on one QP.  The inputs are (H, f, A, bupper, blower, sense) of
+    shapes (n, n), (n,), (m - ms, n), (m,), (m,), (m,) (each with a
+    leading B for a batch), in ``dtype`` ("float32" or "float64"), sense
+    int32; the output a dict of ``x``, ``lam``, ``fval``, ``exitflag``,
+    ``iterations`` and ``rounds`` (the flat rounds run, summed over
+    chunks).  ``settings`` are baked in as constants.  The program runs
+    on ``device`` (default the card), where it was exported.
+
+    Returns the bytes of ``torch.export.save`` (and writes them to
+    ``path`` if given)."""
+    import io
+
+    from .batch import resolve_device
+    dev = resolve_device((), device)
+    dt = torch.float32 if dtype in ("float32", torch.float32) \
+        else torch.float64
+    st = as_settings(settings, dt)
+    lead = () if batch is None else (batch,)
+
+    def z(*shape, t=dt):
+        return torch.zeros(lead + shape, dtype=t, device=dev)
+
+    args = (z(n, n), z(n), z(m - ms, n), z(m), z(m), z(m, t=torch.int32))
+    program = torch.export.export(
+        _FlatProgram(ms, st, n + 1, batch is None), args, strict=False)
+    program.example_inputs = None      # not saved: zeros of the full size
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    blob = buf.getvalue()
+    if path:
+        with open(path, "wb") as fh:
+            fh.write(blob)
+    return blob

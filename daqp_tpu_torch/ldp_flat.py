@@ -645,6 +645,82 @@ def flat_polish(s: FlatState, st: Settings) -> FlatState:
         fval=torch.where(ok, fval, s.fval))
 
 
+# the fields a round changes: the carries of the graph forms'
+# loops (flat_activate_graph, flat_solve_graph)
+_CARRIED = ("sense", "used", "sid", "lam", "Mw", "E", "lam_star", "pend",
+            "pend_id", "pend_lam", "pend_row", "pend_lower", "u", "fval",
+            "soft_slack", "iterations", "cycle", "best_fval", "repaired",
+            "status")
+
+
+def _state_loop(s: FlatState, cond, body, counter: torch.Tensor):
+    """A ``while_loop`` (the form ``torch.export`` traces) over the 0-d
+    ``counter`` and the ``_CARRIED`` fields of ``s``: ``cond(k, s)`` a
+    bool tensor, ``body(k, s)`` the next state; the counter steps by one.
+    Returns ``(k, s)``.  A counter on the host makes the test read
+    nothing from the card."""
+    from torch._higher_order_ops.while_loop import while_loop
+    fixed = {k: getattr(s, k) for k in FlatState._fields
+             if k not in _CARRIED}
+
+    def state(carry):
+        return FlatState(**fixed, **dict(zip(_CARRIED, carry)))
+
+    def step(k, *carry):
+        s1 = body(k, state(carry))
+        # a loop's outputs may not alias its inputs
+        return (k + 1,) + tuple(getattr(s1, f).clone() for f in _CARRIED)
+
+    k, *carry = while_loop(lambda k, *carry: cond(k, state(carry)), step,
+                           (counter,) + tuple(getattr(s, f)
+                                              for f in _CARRIED))
+    return k, state(carry)
+
+
+def _activate_row(s: FlatState, st: Settings, i) -> FlatState:
+    """Row i's turn of the activation (i an int, or a 0-d int64 tensor in
+    the graph form): the lanes that want it ACTIVE (and do not hold it)
+    add it; every other lane is left as it is by the masks."""
+    if isinstance(i, int):
+        idx = torch.full_like(s.pend_id, i)
+
+        def col(x):
+            return x[:, i]
+    else:
+        idx = i.expand_as(s.pend_id).clone()
+
+        def col(x):
+            return x.index_select(1, i.reshape(1)).squeeze(1)
+    sense_i = col(s.sense)
+    want = ((sense_i & ACTIVE) > 0) & (s.status == EXIT_RUNNING) \
+        & ~(s.used & (s.sid == i)).any(1)
+    is_lower = (sense_i & LOWER) > 0
+    one = torch.ones_like(s.pend_lam)
+    M_i = col(s.M)
+    s = _try_add(s, st, want, idx, torch.where(is_lower, -one, one), M_i,
+                 is_lower)
+    dep = s.pend          # parked: a linearly dependent row
+    # the null vector's coefficients M_i = sum_j ap_j Mw_j on used
+    # slots; consistency needs d_i = sum_j ap_j d_Wj
+    gp = torch.where(s.used, _mv(s.Mw, M_i), 0.0)
+    ap = _mv(s.E, gp)
+    bits = _slot_sense(s)
+    d_W = torch.where(s.used, _side(bits, _at_slot(s.dlower, s),
+                                    _at_slot(s.dupper, s)), 0.0)
+    d_i = torch.where(is_lower, col(s.dlower), col(s.dupper))
+    term = ap * d_W
+    resid = d_i - term.sum(1)
+    scale = 1.0 + d_i.abs() + term.abs().sum(1)
+    sense_now = col(s.sense)      # with the add's bits
+    is_imm = (sense_now & IMMUTABLE) > 0
+    incons = dep & is_imm & (resid.abs() > st.primal_tol * scale)
+    return s._replace(
+        pend=torch.zeros_like(s.pend),
+        sense=_put(s.sense, idx, sense_now & ~ACTIVE, dep),
+        status=torch.where(incons, EXIT_OVERDETERMINED_INITIAL,
+                           s.status).to(torch.int32))
+
+
 def flat_activate(s: FlatState, st: Settings) -> FlatState:
     """Activate the sense-ACTIVE rows in order (the warm / equality start,
     ``daqp_activate_constraints``, auxiliary.c:398-478).  A linearly
@@ -656,35 +732,20 @@ def flat_activate(s: FlatState, st: Settings) -> FlatState:
     module's loop body changes nothing."""
     (want_rows,) = host_numpy(((s.sense & ACTIVE) > 0).any(0))
     for i in want_rows.nonzero()[0].tolist():
-        idx = torch.full_like(s.pend_id, i)
-        sense_i = s.sense[:, i]
-        want = ((sense_i & ACTIVE) > 0) & (s.status == EXIT_RUNNING) \
-            & ~(s.used & (s.sid == i)).any(1)
-        is_lower = (sense_i & LOWER) > 0
-        one = torch.ones_like(s.pend_lam)
-        M_i = s.M[:, i]
-        s = _try_add(s, st, want, idx, torch.where(is_lower, -one, one), M_i,
-                     is_lower)
-        dep = s.pend          # parked: a linearly dependent row
-        # the null vector's coefficients M_i = sum_j ap_j Mw_j on used
-        # slots; consistency needs d_i = sum_j ap_j d_Wj
-        gp = torch.where(s.used, _mv(s.Mw, M_i), 0.0)
-        ap = _mv(s.E, gp)
-        bits = _slot_sense(s)
-        d_W = torch.where(s.used, _side(bits, _at_slot(s.dlower, s),
-                                        _at_slot(s.dupper, s)), 0.0)
-        d_i = torch.where(is_lower, s.dlower[:, i], s.dupper[:, i])
-        term = ap * d_W
-        resid = d_i - term.sum(1)
-        scale = 1.0 + d_i.abs() + term.abs().sum(1)
-        is_imm = (s.sense[:, i] & IMMUTABLE) > 0
-        incons = dep & is_imm & (resid.abs() > st.primal_tol * scale)
-        s = s._replace(
-            pend=torch.zeros_like(s.pend),
-            sense=_put(s.sense, idx, s.sense[:, i] & ~ACTIVE, dep),
-            status=torch.where(incons, EXIT_OVERDETERMINED_INITIAL,
-                               s.status).to(torch.int32))
+        s = _activate_row(s, st, i)
     return s
+
+
+def flat_activate_graph(s: FlatState, st: Settings) -> FlatState:
+    """``flat_activate`` without its host read, the form ``torch.export``
+    traces: a ``while_loop`` in which every row takes its turn, in order,
+    its counter on the host.  A row that no lane wants changes nothing
+    (every update of ``_activate_row`` is masked, and ``pend`` is clear
+    between rows), so a lane gets what the host loop gives it."""
+    m, dev = s.M.shape[1], s.M.device
+    return _state_loop(s, lambda i, _: i < m,
+                       lambda i, s1: _activate_row(s1, st, i.to(dev)),
+                       torch.zeros((), dtype=torch.int64))[1]
 
 
 def select(mask: torch.Tensor, a: FlatState, b: FlatState) -> FlatState:
@@ -694,6 +755,27 @@ def select(mask: torch.Tensor, a: FlatState, b: FlatState) -> FlatState:
         out.append(x if x is y else torch.where(
             mask.view((-1,) + (1,) * (x.dim() - 1)), x, y))
     return FlatState(*out, sw=a.sw)
+
+
+def _flat_round(s: FlatState, st: Settings, live, steps=None) -> FlatState:
+    """One round: ``INNER_STEPS`` masked steps (unrolled, or
+    ``steps(s)``), then the refresh and the polish on the lanes of
+    ``live``."""
+    if steps is None:
+        for _ in range(INNER_STEPS):
+            s = flat_step(s, st)
+    else:
+        s = steps(s)
+    s = select(live, flat_refresh(s, st), s)
+    return select(live, flat_polish(s, st), s)
+
+
+def _flat_exit(s: FlatState, limit: int) -> FlatState:
+    """A lane still RUNNING exits ITERLIMIT past the limit, else CYCLE."""
+    run = s.status == EXIT_RUNNING
+    return s._replace(status=torch.where(
+        run & (s.iterations >= limit), EXIT_ITERLIMIT,
+        torch.where(run, EXIT_CYCLE, s.status)).to(torch.int32))
 
 
 def flat_solve(s: FlatState, st: Settings) -> FlatState:
@@ -710,16 +792,39 @@ def flat_solve(s: FlatState, st: Settings) -> FlatState:
         live = (s.status == EXIT_RUNNING) & (s.iterations < limit)
         if not host_any(live):
             break
-        for _ in range(INNER_STEPS):
-            s = flat_step(s, st)
-        s = select(live, flat_refresh(s, st), s)
-        s = select(live, flat_polish(s, st), s)
+        s = _flat_round(s, st, live)
         r += 1
     rounds += r
-    run = s.status == EXIT_RUNNING
-    return s._replace(status=torch.where(
-        run & (s.iterations >= limit), EXIT_ITERLIMIT,
-        torch.where(run, EXIT_CYCLE, s.status)).to(torch.int32))
+    return _flat_exit(s, limit)
+
+
+def flat_solve_graph(s: FlatState, st: Settings):
+    """``flat_solve`` as a ``while_loop`` of rounds, the form
+    ``torch.export`` traces: it runs while ``r < MAX_ROUNDS`` and some
+    lane is live, and a round's ``INNER_STEPS`` steps are a nested
+    ``while_loop`` whose counter lives on the host, so the only reads are
+    the rounds' tests and a lane gets what the host loop gives it.
+    Returns ``(s, r)``, r the rounds run (a 0-d int64 tensor: a loaded
+    program never runs the Python counter ``rounds``).  SOFT_WEIGHTS data
+    (``s.sw``) is not carried."""
+    if s.sw is not None:
+        raise ValueError("flat_solve_graph: SOFT_WEIGHTS data is not "
+                         "supported")
+    limit = int(st.iter_limit)
+
+    def live_of(s1):
+        return (s1.status == EXIT_RUNNING) & (s1.iterations < limit)
+
+    def steps(s1):
+        return _state_loop(s1, lambda k, _: k < INNER_STEPS,
+                           lambda k, s2: flat_step(s2, st),
+                           torch.zeros((), dtype=torch.int64))[1]
+
+    r, s = _state_loop(
+        s, lambda r, s1: (r < MAX_ROUNDS) & live_of(s1).any(),
+        lambda r, s1: _flat_round(s1, st, live_of(s1), steps),
+        torch.zeros((), dtype=torch.int64, device=s.E.device))
+    return _flat_exit(s, limit), r
 
 
 def flat_extract_duals(s: FlatState) -> torch.Tensor:

@@ -257,17 +257,40 @@ def _warp_launch(fn: str, entry: str, H: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def chol_rinv(H: torch.Tensor) -> torch.Tensor:
-    """K1 wrapper: one warp per matrix (the body K1 shares with B9,
-    ``csrc/chol_warp.cuh``) on a CUDA tensor; the plain twin for a CPU
-    tensor."""
+@torch.library.custom_op("daqp_tpu_torch::chol_rinv", mutates_args=(),
+                         device_types="cpu")
+def _chol_rinv_op(H: torch.Tensor) -> torch.Tensor:
+    return chol_rinv_plain(H)
+
+
+@_chol_rinv_op.register_kernel("cuda")
+def _chol_rinv_cuda(H: torch.Tensor) -> torch.Tensor:
     global launches
-    if H.device.type == "cpu":
-        return chol_rinv_plain(H)
     out = _warp_launch("chol_rinv (K1)", "chol_rinv_f32", H)
     if H.shape[0]:
         launches += 1
     return out
+
+
+@_chol_rinv_op.register_fake
+def _chol_rinv_fake(H: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(H)
+
+
+def _op_device(fn: str, H: torch.Tensor) -> None:
+    """A registered op's device check before dispatch: its fake impl
+    would answer any other device (meta among them) without a launch."""
+    if H.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {H.device}")
+
+
+def chol_rinv(H: torch.Tensor) -> torch.Tensor:
+    """K1 wrapper, the registered op ``daqp_tpu_torch::chol_rinv``: one
+    warp per matrix (the body K1 shares with B9, ``csrc/chol_warp.cuh``)
+    on a CUDA tensor, counted in ``launches`` where it launches; the plain
+    twin for a CPU tensor."""
+    _op_device("chol_rinv (K1)", H)
+    return _chol_rinv_op(H)
 
 
 def lanes_tile(n: int, limit: int) -> int:
@@ -319,15 +342,31 @@ def chol_rinv_dense(H: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("daqp_tpu_torch::chol_rinv_blk", mutates_args=(),
+                         device_types="cpu")
+def _chol_rinv_blk_op(H: torch.Tensor) -> torch.Tensor:
+    return chol_rinv_blk_plain(H)
+
+
+@_chol_rinv_blk_op.register_fake
+def _chol_rinv_blk_fake(H: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(H)
+
+
 def chol_rinv_blk(H: torch.Tensor) -> torch.Tensor:
-    """B10 wrapper: one block per matrix (64 threads up to n = 64, 128 up
-    to 256, then 256), panels of 32 columns (the twin's order at any
-    width), the matrix in device memory, on a CUDA tensor; the kernel
-    writes Rinv in place of its working matrix.  The twin on a CPU
-    tensor."""
+    """B10 wrapper, the registered op ``daqp_tpu_torch::chol_rinv_blk``:
+    one block per matrix (64 threads up to n = 64, 128 up to 256, then
+    256), panels of 32 columns (the twin's order at any width), the
+    matrix in device memory, on a CUDA tensor, counted in
+    ``blk_launches`` where it launches; the kernel writes Rinv in place of
+    its working matrix.  The twin on a CPU tensor."""
+    _op_device("chol_rinv_blk (B10)", H)
+    return _chol_rinv_blk_op(H)
+
+
+@_chol_rinv_blk_op.register_kernel("cuda")
+def _chol_rinv_blk_cuda(H: torch.Tensor) -> torch.Tensor:
     global blk_launches
-    if H.device.type == "cpu":
-        return chol_rinv_blk_plain(H)
     _cuda_input("chol_rinv_blk", H)
     B, n, _ = H.shape
     smem.check("chol_rinv_blk (B10)", dict(n=n), smem.chol_blk_floats(n),
@@ -385,7 +424,7 @@ def _attempt(factor, Hb: torch.Tensor, sqrt_zt: torch.Tensor):
     return Rinv, pivot_ok(Rinv, sqrt_zt)
 
 
-def batched_rinv_regularized(H: torch.Tensor, st):
+def batched_rinv_regularized(H: torch.Tensor, st, graph: bool = False):
     """Per-lane factorization with the reference's full-shift
     retry-doubling regularization (utils.c:253-283).
 
@@ -393,9 +432,12 @@ def batched_rinv_regularized(H: torch.Tensor, st):
     ``ok`` False marks a nonconvex lane, ``reg_mask`` a lane that needed
     H + eps I (eps0 = max(eps_prox, sqrt(zero_tol) max|diag H|), doubled
     at most 16 times), ``eps_used`` its shift.  Retries factor only the
-    failing lanes; each lane's result depends on that lane alone.  The
-    factorization is ``factor_route``'s for n and the device, decided
-    before any launch."""
+    failing lanes, found by one host read a try; each lane's result
+    depends on that lane alone.  ``graph``: the form ``torch.export``
+    traces, with no host read: all 16 tries run on every lane, each
+    kept only on the lanes still failing, so a lane gets what the host
+    loop gives it.  The factorization is ``factor_route``'s for n and the
+    device, decided before any launch."""
     B, n, _ = H.shape
     dtype, dev = H.dtype, H.device
     factor = {"k1": chol_rinv, "b10": chol_rinv_blk,
@@ -413,6 +455,16 @@ def batched_rinv_regularized(H: torch.Tensor, st):
     ok0 = ok.clone()
     eps_used = torch.zeros(B, dtype=dtype, device=dev)
     eye = torch.eye(n, dtype=dtype, device=dev)
+    if graph:
+        for _ in range(16):
+            R1, ok1 = _attempt(factor, Hs + eps[:, None, None] * eye,
+                               sqrt_zt)
+            todo = ~ok
+            R = torch.where(todo[:, None, None], R1, R)
+            eps_used = torch.where(todo & ok1, eps, eps_used)
+            ok = ok | ok1
+            eps = eps * 2.0
+        return R, ok, (~ok0) & ok, eps_used
     tries = 0
     while tries < 16 and host_any(~ok):
         idx = torch.nonzero(~ok).squeeze(1)

@@ -35,7 +35,8 @@ class LDPData(NamedTuple):
     error: torch.Tensor      # (B,) int32: 0 ok, else an EXIT_* code
 
 
-def factorize_hessian(H: torch.Tensor, st: Settings, dense=None):
+def factorize_hessian(H: torch.Tensor, st: Settings, dense=None,
+                      graph: bool = False):
     """(B, n, n) -> ``(Rinv, prox_mask, n_prox, eps_used, error)`` per
     lane with semi-proximal regularization (``daqp_update_Rinv``,
     utils.c:137-297):
@@ -49,7 +50,10 @@ def factorize_hessian(H: torch.Tensor, st: Settings, dense=None):
     eps0 = max(eps_prox, sqrt(zero_tol) max|diag H|).  ``dense``: a
     function H -> ``(Rinv, ok, reg_mask, eps_used)`` with the same retry
     semantics (``ops.chol.batched_rinv_regularized``) that factors the
-    dense lanes in place of the library's Cholesky."""
+    dense lanes in place of the library's Cholesky.  ``graph``: the form
+    ``torch.export`` traces, with no host read: the library's retries run
+    all 16 tries, each kept only on the lanes still failing (the host
+    loop stops once none fails, after which a try changes nothing)."""
     B, n, _ = H.shape
     dtype, dev = H.dtype, H.device
     zero_tol = torch.tensor(st.zero_tol, dtype=dtype, device=dev)
@@ -93,7 +97,7 @@ def factorize_hessian(H: torch.Tensor, st: Settings, dense=None):
     eps = eps0.clone()
     todo = reg.clone()
     for _ in range(16):
-        if not bool(todo.any()):
+        if not graph and not bool(todo.any()):
             break
         L1, ok1 = attempt(eps)
         L = torch.where(todo[:, None, None], L1, L)

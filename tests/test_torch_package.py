@@ -24,7 +24,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_leaves_jax_out():
     # every module of the package, and every kernel source has its C
-    # entry bound (one extern "C" function per .cu file)
+    # entry bound (one extern "C" function per .cu file); an export
+    # (torch.export) imports no jax either
     code = ("import sys, daqp_tpu_torch, daqp_tpu_torch.mpc, "
             "daqp_tpu_torch.prox, daqp_tpu_torch.ops.dense, "
             "daqp_tpu_torch.ops.slot, daqp_tpu_torch.convert, "
@@ -35,8 +36,10 @@ def test_import_leaves_jax_out():
             "daqp_tpu_torch.ldp_flat, daqp_tpu_torch.parallel, "
             "daqp_tpu_torch.parallel.sharding, "
             "daqp_tpu_torch.parallel.distributed, daqp_tpu_torch.codegen, "
-            "daqp_tpu_torch.precompile; "
+            "daqp_tpu_torch.precompile, daqp_tpu_torch.native; "
             "from daqp_tpu_torch.ops import _build; "
+            "daqp_tpu_torch.codegen.export_aot(2, 3, dtype='float64', "
+            "device='cpu'); "
             "srcs = sorted(p.stem for p in _build._CSRC.glob('*.cu')); "
             "assert srcs == sorted(k[:-4] for k in _build._SIGNATURES), srcs; "
             "assert {'avi_segment', 'lp_segment'} <= set(srcs); "
