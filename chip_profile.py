@@ -117,7 +117,7 @@ UNIT_WORDS = 4          # chol_probe.cuh kUnitWords: cycles, SM, start, end
 # the kernels of the library, by the name of their __global__ function
 KERNELS = ("chol_rinv", "chol_lanes", "chol_dense", "chol_blk",
            "slot_round", "mpc_segment", "prox_segment", "avi_segment",
-           "lp_segment", "dense_round")
+           "lp_segment", "dense_round", "lp_segment_warp")
 
 
 def device_us(evt):
@@ -179,6 +179,7 @@ def ptxas(log, kernel):
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             out["registers"] = int(m.group(1))
+            cur = None          # the lines after it are other functions'
     return out
 
 
@@ -379,8 +380,9 @@ def probe_segment(case, source, entry, launch, name, B, card,
     wrapper's call, run once on the normal library and on the probe's
     (swapped in as the wrapper's library); prints the cycles per pass of
     each segment phase, of each step phase per step, the blocks'
-    spread, ptxas's registers and, for B3 / B4 (``kernel`` at ``shape``
-    (m, n, K)), resident blocks per SM, and the times."""
+    spread, ptxas's registers (B6: of both bodies) and, for B3 / B4
+    (``kernel`` at ``shape`` (m, n, K)), resident blocks per SM, and the
+    times."""
     lib, log, occ = probe_library(case, source, entry, kernel is not None)
     for fn in (lib.seg_probe_read, lib.seg_probe_reset):
         fn.restype = ctypes.c_int
@@ -433,6 +435,9 @@ def probe_segment(case, source, entry, launch, name, B, card,
         **block_fields(blocks, retries, B), **resident,
         "ptxas": ptxas(normal_log, kern),
         "ptxas_probe": ptxas(log, kern),
+        **({"ptxas_warp": ptxas(normal_log, kern + "_warp"),
+            "ptxas_probe_warp": ptxas(log, kern + "_warp")}
+           if kern == "lp_segment" else {}),
         "ms_probe": cs.cuda_ms(probed, 5),
         "ms_kernel": cs.cuda_ms(launch, cs.SEG_REPS),
         "card": card}), flush=True)

@@ -254,6 +254,10 @@ QUEUE_CYCLES = 100_000_000   # ~50 ms of spin at 1.98 GHz before every
 # configLP (bench_extra.py:253-262) and bench_lp's accuracy gate (:279):
 # flag 1, relative objective gap and feasibility violation below 1e-4
 B_LP, N_LP, M_LP, SEED_LP = 256, 10, 50, 17
+# B6's 128-thread body (K = n + 1 > smem.WARP_MAX_K), and B5 (that body
+# alone) at a second width: one cold segment each at these widths from
+# configAVI's and configLP's generators
+B_WIDE, N_AVI_WIDE, M_AVI_WIDE, N_LP_WIDE, M_LP_WIDE = 64, 40, 90, 40, 100
 LP_TOL = 1e-4
 # The JAX tier's census on these 256 lanes (solve_batch_lp_pallas_jit,
 # interpret mode on the CPU, x64 as the tests run it, iter_limit 3000;
@@ -2142,9 +2146,9 @@ def avi_segment_passes(s, carry, ops_, st, n):
     * bounds: the kernel's d = b_s + M Rinv'(G1 x + f), which it returns,
       within BOUNDS_TOL (1 + ||d||_inf) of the same in f64;
     * inner: K2 with the cold retry (``slot.pass_solve``) replays the
-      pass's solve from the kernel's own bounds: the same step code
-      (slot_step.cuh) on the same inputs, so the whole slot state must
-      come out bit for bit as the kernel's;
+      pass's solve from the kernel's own bounds: the same bits (B5 runs
+      K2's step, slot_step.cuh) on the same inputs, so the whole slot
+      state must come out bit for bit as the kernel's;
     * outer: ``slot.avi_pass_outer`` in f64 from the kernel's own (u,
       status, iterations) and the pass's f64 inputs: x and y within
       OUTER_TOL (1 + ||x||_inf), the counters, flags and freezes equal.
@@ -2229,7 +2233,59 @@ def avi_bound(s, carry, ops_, out, steps, passes, n):
                  + passes * (12 * n * n + 2 * m * n + prefix_flops(n, K)))
 
 
-def phase_k5(args, st):
+BLOCK_BODY = "block (128 threads)"
+
+
+def body(m, n, K, dev):
+    """The body B6 runs at m rows, n columns and K slots on ``dev`` (its C
+    entry's choice, mirrored by ``smem.warp_body``); B5 runs BLOCK_BODY
+    at every shape."""
+    return "warp" if smem.warp_body(m, n, K, smem.available(dev)) \
+        else BLOCK_BODY
+
+
+def chain_equal(chain, whole):
+    """Whether the one-pass launches of a segment ended where the one
+    launch did, bit for bit (the state, then every carry)."""
+    return chain is not None and all(
+        torch.equal(x, y) for x, y in zip(chain[1:], whole[1:])) \
+        and all(torch.equal(x, y) for x, y in zip(chain[0], whole[0]))
+
+
+def stack_lanes(probs, idx, dev):
+    """Batch-leading f32 tensors of the generator outputs ``idx`` of each
+    problem in ``probs``, then an all-zero int32 sense."""
+    out = [torch.as_tensor(np.stack([p[i] for p in probs]).astype(
+        np.float32), device=dev) for i in idx]
+    m = out[-1].shape[1]
+    return out + [torch.zeros((len(probs), m), dtype=torch.int32,
+                              device=dev)]
+
+
+def avi_wide_case(gen, st, dev):
+    """(a) at a second width: one cold segment of B_WIDE AVIs of
+    configAVI's generator at n = N_AVI_WIDE, m = M_AVI_WIDE (K > 32),
+    replayed pass by pass (``avi_segment_passes``), the one-pass launches
+    equal to the one launch: (passes, fields)."""
+    rng = np.random.default_rng(SEED_AVI)
+    probs = [gen.generate_test_avi_two_sided(N_AVI_WIDE, M_AVI_WIDE, rng)
+             for _ in range(B_WIDE)]
+    a = pbatch.avi_init(*stack_lanes(probs, (1, 2, 3, 4, 5), dev), st)
+    ops_ = pbatch.avi_segment_operands(a)
+    carry = pbatch.avi_carries(a)
+    whole = slot.run_avi_segment(a.s, *carry, *ops_, st, N_AVI_WIDE,
+                                 P=pbatch.PSEG, steps=pbatch.AVI_STEPS)
+    chain, c = avi_segment_passes(a.s, carry, ops_, st, N_AVI_WIDE)
+    equal = chain_equal(chain, whole)
+    K = a.s.E.shape[1]
+    ok = equal and c["inner_equal"] and c["bounds_rel"] <= BOUNDS_TOL \
+        and c["outer_flags_ok"] and c["outer_dx_rel"] <= OUTER_TOL
+    return ok, dict(B=B_WIDE, n=N_AVI_WIDE, m=M_AVI_WIDE, K=K,
+                    body=BLOCK_BODY,
+                    chain_equals_segment=equal, passes=c)
+
+
+def phase_k5(args, st, gen):
     """B5 against its twin, pass by pass and lane by lane.
 
     (a) Every B5 launch of one ``solve_batch_avi_kernel`` call (the cold
@@ -2257,7 +2313,10 @@ def phase_k5(args, st):
 
     (t) The main path's last B5 launch, its tail (the lanes still running
     after the others finished; (a) holds it pass by pass), is timed beside
-    the cold segment, with its live lanes and its bound."""
+    the cold segment, with its live lanes and its bound.
+
+    (w) (a) at n = 40 (``avi_wide_case``); B5 has one body, the
+    128-thread step (``BLOCK_BODY``)."""
     t0 = time.perf_counter()
     a = pbatch.avi_init(*args, st)
     ops_ = pbatch.avi_segment_operands(a)
@@ -2276,7 +2335,7 @@ def phase_k5(args, st):
 
     # (a) every segment of the main path, pass by pass
     segs = main_path_segments(args, st)
-    chain_equal, tot = True, dict(segments=len(segs), lane_passes=0,
+    chains_equal, tot = True, dict(segments=len(segs), lane_passes=0,
                                   bounds_rel=0.0, inner_equal=True,
                                   inner_parted=0, inner_du=0.0,
                                   outer_dx_rel=0.0,
@@ -2288,9 +2347,7 @@ def phase_k5(args, st):
         chain, c = avi_segment_passes(s_in, c_in, ops_, st, n)
         last = (s_in, c_in, whole, c["lane_passes"])
         if chain is not None:
-            chain_equal = chain_equal and all(
-                torch.equal(x, y) for x, y in zip(chain[1:], whole[1:])) \
-                and all(torch.equal(x, y) for x, y in zip(chain[0], whole[0]))
+            chains_equal = chains_equal and chain_equal(chain, whole)
         tot["lane_passes"] += c["lane_passes"]
         tot["bounds_rel"] = max(tot["bounds_rel"], c["bounds_rel"])
         tot["inner_equal"] = tot["inner_equal"] and c["inner_equal"]
@@ -2300,9 +2357,10 @@ def phase_k5(args, st):
         tot["outer_flags_ok"] = tot["outer_flags_ok"] and c["outer_flags_ok"]
         tot["at_limit"] += c["at_limit"]
         tot["reverted"] += c["reverted"]
-    passes_ok = chain_equal and tot["inner_equal"] \
+    passes_ok = chains_equal and tot["inner_equal"] \
         and tot["bounds_rel"] <= BOUNDS_TOL and tot["outer_flags_ok"] \
         and tot["outer_dx_rel"] <= OUTER_TOL
+    wide_ok, wide = avi_wide_case(gen, st, a.s.M.device)
 
     # (t) the main path's last launch, its tail: the lanes still running
     # after the others finished
@@ -2357,8 +2415,9 @@ def phase_k5(args, st):
     bnd = avi_bound(a.s, carry, ops_, ko, steps_done, passes, n)
     err1 = (k1[1] - p1[1]).abs().amax(1)[avi_flags_agree(k1, p1)]
     emit("k5", t0, B=B_AVI, P=pbatch.PSEG, n=n, m=M_AVI, K=K,
+         body=BLOCK_BODY,
          steps=pbatch.AVI_STEPS, main_path_passes=tot,
-         chain_equals_segment=chain_equal, bounds_tol=BOUNDS_TOL,
+         chain_equals_segment=chains_equal, bounds_tol=BOUNDS_TOL,
          outer_tol=OUTER_TOL,
          one_pass_agree_rate=avi_flags_agree(k1, p1).float().mean().item(),
          one_pass_dx_rel_max=gmax(gap1[all3].cpu().numpy()),
@@ -2380,8 +2439,8 @@ def phase_k5(args, st):
          tail=dict(live_lanes=tail_live, lane_passes=passes_t,
                    steps=tail_steps.sum().item(),
                    max_lane_steps=tail_steps.max().item(), ms=tail_ms,
-                   **tail_bnd))
-    ok = passes_ok and one_ok and rate >= agree_gate
+                   **tail_bnd), wide=wide)
+    ok = passes_ok and wide_ok and one_ok and rate >= agree_gate
     return ok, dict(max_abs_err=gmax(err1.cpu().numpy()), ms=ms,
                     plain_ms=plain_ms, library_ms=None,
                     bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
@@ -2552,8 +2611,9 @@ def lp_segment_passes(s, carry, data, st, n, eta, steps):
     * bounds: the kernel's d = b_s + M (f eps - x), which it returns,
       within BOUNDS_TOL (1 + ||d||_inf) of the same in f64;
     * inner: K2 with the cold retry (``slot.pass_solve``) replays the
-      pass's solve from the kernel's own bounds: the same step code
-      (slot_step.cuh) on the same inputs, so the state fields the
+      pass's solve from the kernel's own bounds: the same bits (the warp
+      step of slot_warp.cuh sums in the order of slot_step.cuh's) on the
+      same inputs, so the state fields the
       gradient step leaves alone (LP_INNER) must equal the kernel's bit
       for bit;
     * outer: the twin's second half (``slot.lp_pass_outer``, f32) from
@@ -2635,7 +2695,36 @@ def lp_segment_passes(s, carry, data, st, n, eta, steps):
     return (s, *c, frozen.to(carry[1].dtype)), cnt
 
 
-def phase_k6(args, st):
+def lp_wide_case(gen, st, dev):
+    """(a) on B6's 128-thread body: one cold segment of B_WIDE LPs of
+    configLP's generator at n = N_LP_WIDE, m = M_LP_WIDE (K > 32),
+    replayed pass by pass (``lp_segment_passes``), the one-pass launches
+    equal to the one launch: (passes, fields)."""
+    rng = np.random.default_rng(SEED_LP)
+    probs = [gen.generate_test_lp(N_LP_WIDE, M_LP_WIDE, 0, rng)
+             for _ in range(B_WIDE)]
+    p = pbatch.lp_init(*stack_lanes(probs, (1, 2, 3, 4), dev), st)
+    carry = pbatch.lp_carries(p)
+    s = p.s0._replace(status=torch.full_like(p.s0.status, dt.EXIT_OPTIMAL))
+    data = (p.f, p.bu_s, p.bl_s, p.bu_r, p.bl_r)
+    steps = pbatch.LP_SEG_STEPS
+    whole = slot.run_lp_segment(s, *carry, *data, st, N_LP_WIDE, p.eta,
+                                P=pbatch.LP_PSEG, steps=steps)
+    chain, cnt = lp_segment_passes(s, carry, data, st, N_LP_WIDE, p.eta,
+                                   steps)
+    equal = chain_equal(chain, whole)
+    rate = cnt["outer_agree"] / max(cnt["lane_passes"], 1)
+    K = s.E.shape[1]
+    ok = equal and cnt["inner_equal"] and cnt["bounds_rel"] <= BOUNDS_TOL \
+        and rate >= LP_OUTER_AGREE and cnt["x_rel"] <= OUTER_TOL \
+        and cnt["E_rel"] <= LP_E_TOL
+    return ok, dict(B=B_WIDE, n=N_LP_WIDE, m=M_LP_WIDE, K=K,
+                    body=body(M_LP_WIDE, N_LP_WIDE, K, dev),
+                    chain_equals_segment=equal, outer_agree_rate=rate,
+                    passes=cnt)
+
+
+def phase_k6(args, st, gen):
     """B6 against its twin over one cold configLP segment (LP_PSEG passes
     of LP_SEG_STEPS steps) from the state and carries the tier builds.
 
@@ -2656,7 +2745,10 @@ def phase_k6(args, st):
     (b) the segment end to end: the flags agree with the twin on at least
     1 - 2 (1 - the twin's agreement with its f64 run) of the lanes (at
     most K6_AGREE); the distances of kernel and twin to the f64 twin are
-    printed, not gated."""
+    printed, not gated;
+
+    (w) (a) on the 128-thread body (``lp_wide_case``): configLP's K = 11
+    runs the warp body (``body``)."""
     t0 = time.perf_counter()
     p = pbatch.lp_init(*args, st)
     carry = pbatch.lp_carries(p)
@@ -2676,11 +2768,10 @@ def phase_k6(args, st):
     # (a) pass by pass
     ko = kernel()
     chain, cnt = lp_segment_passes(s, carry, data, st, n, p.eta, steps)
-    chain_equal = chain is not None and all(
-        torch.equal(x, y) for x, y in zip(chain[1:], ko[1:])) \
-        and all(torch.equal(x, y) for x, y in zip(chain[0], ko[0]))
+    chains_equal = chain_equal(chain, ko)
     outer_rate = cnt["outer_agree"] / max(cnt["lane_passes"], 1)
-    passes_ok = chain_equal and cnt["inner_equal"] \
+    wide_ok, wide = lp_wide_case(gen, st, s.M.device)
+    passes_ok = chains_equal and cnt["inner_equal"] \
         and cnt["bounds_rel"] <= BOUNDS_TOL and outer_rate >= LP_OUTER_AGREE \
         and cnt["x_rel"] <= OUTER_TOL and cnt["E_rel"] <= LP_E_TOL
     # (b) end to end
@@ -2711,8 +2802,10 @@ def phase_k6(args, st):
                 steps_done * step_flops(M_LP, n, K)
                 + lane_passes * (6 * M_LP * n + 2 * K * n + 2 * K * K))
     err = (ko[1] - po[1]).abs().amax(1)[agree]
-    emit("k6", t0, B=B_LP, P=P, n=n, m=M_LP, K=K, steps=steps,
-         main_path_passes=cnt, chain_equals_segment=chain_equal,
+    emit("k6", t0, B=B_LP, P=P, n=n, m=M_LP, K=K,
+         body=body(M_LP, n, K, s.M.device),
+         steps=steps, main_path_passes=cnt,
+         chain_equals_segment=chains_equal,
          bounds_tol=BOUNDS_TOL, outer_agree_rate=outer_rate,
          outer_agree_gate=LP_OUTER_AGREE, outer_tol=OUTER_TOL,
          E_tol=LP_E_TOL, segment_agree_rate=rate, agree_gate=agree_gate,
@@ -2729,8 +2822,9 @@ def phase_k6(args, st):
          segment_kernel_vs_f64_quantiles=quant(ex_k[all3]),
          segment_twin_vs_f64_quantiles=quant(ex_p[all3]),
          steps_done=steps_done, max_lane_steps=ko[7].max().item(),
-         lane_passes=lane_passes, ms=ms, plain_ms=plain_ms, **bnd)
-    ok = passes_ok and rate >= agree_gate
+         lane_passes=lane_passes, ms=ms, plain_ms=plain_ms, **bnd,
+         wide=wide)
+    ok = passes_ok and wide_ok and rate >= agree_gate
     return ok, dict(max_abs_err=gmax(err.cpu().numpy()), ms=ms,
                     plain_ms=plain_ms, library_ms=None,
                     bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
@@ -4087,14 +4181,14 @@ def main():
 
     d_avi = config_avi(gen)
     args_avi = [torch.as_tensor(d_avi[k], device=dev) for k in keys]
-    run("k5", phase_k5, args_avi, st)
+    run("k5", phase_k5, args_avi, st, gen)
     run("avi", phase_avi, args_avi, d_avi, st, card)
 
     d_lp = config_lp(gen)
     args_lp = [torch.as_tensor(d_lp[k], device=dev)
                for k in ('f', 'A', 'bupper', 'blower', 'sense')]
     st_lp = dt.as_settings({"iter_limit": 3000}, torch.float32)
-    run("k6", phase_k6, args_lp, st_lp)
+    run("k6", phase_k6, args_lp, st_lp, gen)
     run("lp", phase_lp, args_lp, d_lp, st_lp, card)
 
     d5 = config5()

@@ -27,7 +27,13 @@
 // n x n matrix-vector products and M v (12 n^2 + 2 m n flops) to a warm
 // solve of a few slot steps.  The per-pass probe (segment.cuh,
 // chip_profile.py --probe k5) puts the step at 92-95% of a pass at
-// configAVI (the AVI cell's tail lane runs ~10 steps a pass).
+// configAVI (the AVI cell's tail lane runs ~10 steps a pass), and the
+// 128-thread step at 11.3k SM cycles there: a floor of barriers and
+// cross-warp reductions that does not shrink with the shape.  B5 still
+// runs that step at every shape.  On the warp step of slot_warp.cuh
+// (B6's body at K <= 32, the same bits) it took 9.6-10.1k cycles a step
+// and its segment 7% less time, but its one-live-lane tail launch once
+// ran 10% slower than this body (PERF.md, section 6), so it stays here.
 //
 // Design: one thread block of 128 per lane, the K2 layout (slot_carve)
 // followed by the lane's five n x n matrices (odd row stride) and the

@@ -1,7 +1,14 @@
-// The slot-space dual active-set step, shared by the kernels that run it:
-// K2 (slot_round.cu), B3 (mpc_segment.cu), B4 (prox_segment.cu), B5
-// (avi_segment.cu) and B6 (lp_segment.cu); dense_round.cu (B7) takes its
-// helpers.
+// The slot-space dual active-set step on a block of 128 threads, run by
+// K2 (slot_round.cu), B3 (mpc_segment.cu), B4 (prox_segment.cu) and B5
+// (avi_segment.cu) at every shape and by B6 (lp_segment.cu) where the
+// warp body does not run; dense_round.cu (B7) takes its helpers.  B6 at
+// K, n <= 32 runs the warp step of slot_warp.cuh, which computes this
+// step with the same bits: it keeps every sum below in the same tree (an
+// item's chains j = q mod 8, or j = hq mod 16 then slot_pair8, slot_tsum8;
+// each warp's partial butterflied, then combined as slot_reduce and
+// block_reduce do), since K2 replays B6's inner solves and must end on
+// the same slot state (chip_smoke.py k6 (a)).  A change to a sum here is
+// a change there.
 //
 // It is the step of daqp_tpu/ops/pallas_slot.py:256-612 (_solve_tile_live,
 // :188, which the TPU kernels _kernel_body, _mpc_kernel_body,
@@ -25,8 +32,12 @@
 //
 // What bounds it on an H100: latency.  A step is a chain of dependent
 // phases on ~48 KB of shared state (n = 50, m = 100, K = 51): ~30 kFLOP
-// at k = 40 used slots, a small share of the time the chain takes.  So
-// the design shortens each phase's chains and its barriers:
+// at k = 40 used slots, a small share of the time the chain takes.  The
+// probe (chip_profile.py --probe k2, k5, k6) measured 13.1k SM cycles a
+// step at config 2 and still 11.2-11.3k at configAVI (K = 21) and
+// configLP (K = 11): the barriers and reductions set a floor that does
+// not shrink with the shape, hence B6's warp step there.  The design
+// shortens each phase's chains and its barriers:
 // - Every matrix-vector product runs on groups of kSG = 8 lanes, each
 //   group 8 output items at once: lane q sums the inputs j = q (mod 8)
 //   in independent chains, and a transposing butterfly (7 shuffles, one

@@ -1261,7 +1261,7 @@ def run_lp_segment(s: SlotState, x, eps, stall, best, lane_run, lflag, tot,
                torch.int32 if k == "lflag" else f32)
               for k, v in lane.items()])
     smem.check("run_lp_segment (B6)", dict(m=m, n=n, K=K),
-               smem.lp_floats(m, n, K), dev)
+               smem.lp_floats(m, n, K, smem.available(dev)), dev)
     outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
     lane_out = {k: torch.empty_like(v) for k, v in lane.items()}
     failed = torch.empty((B,), dtype=f32, device=dev)

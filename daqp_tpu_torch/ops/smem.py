@@ -3,8 +3,10 @@ launch.
 
 The formulas mirror the kernels' allocators in ``csrc/``:
 ``slot_smem_floats`` (``slot_step.cuh``; K2 and B3 as they are, B4-B6 plus
-their own arrays), ``dense_smem_floats`` (``dense_round.cu``, B7), the
-packed triangles, a warp each, and the table of the block that K1 and B9
+their own arrays), B6's warp body up to ``WARP_MAX_K`` slots and columns
+(``slot_warp_smem_floats``, ``slot_warp.cuh``, plus its arrays, one lane
+a block), ``dense_smem_floats`` (``dense_round.cu``, B7), the packed
+triangles, a warp each, and the table of the block that K1 and B9
 share (``chol_warp.cuh warp_floats``), B8's packed triangles of a lane
 tile (``chol_lanes.cu Lanes::floats``) and B10's panel or phase-2 stages
 (``chol_blk.cu Blk::floats``).
@@ -18,6 +20,9 @@ import torch
 F32 = 4                 # bytes per float
 K_WARPS = 4             # slot_step.cuh: kThreads / 32
 RED_STRIDE = 6          # slot_step.cuh: kRedStride
+WARP_MAX_K = 32         # slot_warp.cuh: kWarpMaxK, B6's warp body
+WARP_POS = 6            # slot_warp.cuh: kPosArrays, per-position values
+H100_OPTIN = 232448     # bytes one block may opt in to on an H100
 DENSE_THREADS = 128     # dense_round.cu: kDenseThreads
 DENSE_WARPS = DENSE_THREADS // 32
 DENSE_RED = 6           # dense_round.cu: kDenseRed
@@ -36,6 +41,23 @@ def slot_floats(m: int, n: int, K: int) -> int:
             + 2 * K_WARPS * RED_STRIDE)
 
 
+def slot_warp_floats(m: int, n: int, K: int) -> int:
+    """The warp step's lane (``slot_warp_smem_floats``): the layout of
+    ``slot_floats`` without the reduction scratch, the used-slot list at
+    WARP_MAX_K entries, WARP_POS arrays of as many per-position values
+    and 4 floats to align them to 16 bytes."""
+    return (K * (K | 1) + K * (n | 1) + m * (n | 1) + 7 * m + 15 * K
+            + 4 * n + (1 + WARP_POS) * WARP_MAX_K + 4)
+
+
+def warp_body(m: int, n: int, K: int, limit: int = H100_OPTIN) -> bool:
+    """Whether B6 runs the warp body at m rows, n columns and K slots on a
+    card whose block may opt in to ``limit`` bytes (its C entry's choice),
+    else the 128-thread one."""
+    return (K <= WARP_MAX_K and n <= WARP_MAX_K
+            and F32 * (slot_warp_floats(m, n, K) + 5 * n + 4 * m) <= limit)
+
+
 def prox_floats(m: int, n: int, K: int) -> int:
     """B4 (``prox_segment.cu prox_smem_floats``)."""
     return slot_floats(m, n, K) + n * (n | 1) + 5 * n + 2 * m
@@ -46,9 +68,13 @@ def avi_floats(m: int, n: int, K: int) -> int:
     return slot_floats(m, n, K) + 5 * n * (n | 1) + 7 * n + 2 * m
 
 
-def lp_floats(m: int, n: int, K: int) -> int:
-    """B6 (``lp_segment.cu lp_smem_floats``)."""
-    return slot_floats(m, n, K) + 5 * n + 4 * m
+def lp_floats(m: int, n: int, K: int, limit: int = H100_OPTIN) -> int:
+    """B6's block: ``lp_warp_smem_floats`` where ``warp_body`` takes the
+    warp body, else ``lp_smem_floats`` (``lp_segment.cu``)."""
+    own = 5 * n + 4 * m
+    if warp_body(m, n, K, limit):
+        return slot_warp_floats(m, n, K) + own
+    return slot_floats(m, n, K) + own
 
 
 def dense_floats(m: int, n: int, has_sw: bool) -> int:
@@ -90,9 +116,6 @@ def chol_blk_floats(n: int) -> int:
     stage = blk_threads(n) * BLK_XLD + BLK_KT * ldp
     return max(n * ldp + nb + nb * ldp,
                nb * ldp + nb + (2 * stage if n > nb else 0))
-
-
-H100_OPTIN = 232448     # bytes one block may opt in to on an H100
 
 
 def available(dev) -> int:

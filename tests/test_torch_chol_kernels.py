@@ -117,7 +117,12 @@ def test_xla_formulations_match_jax(name, B, n, rtol):
 # 1581 (n = 1000 is twice BASELINE's largest), not 1582.  B5 (K = n + 1)
 # at n = 50 fits m = 645, not 646, and at m = 100 n = 81, not 82; B6 at
 # n = 50 fits m = 832, not 833, and at m = 100 n = 139, not 140; B4 at
-# n = 50 fits m = 817, not 818, and at m = 100 n = 117, not 118.
+# n = 50 fits m = 817, not 818, and at m = 100 n = 117, not 118.  B5 at
+# n = 20 (configAVI) fits m = 1817, not 1818, and at n = 31 m = 1258, not
+# 1259.  B6 runs its warp body up to K = 32 (n = 31; K = 33 takes the
+# 128-thread one) where that block fits, at n = 10 (configLP) up to m =
+# 2608 and at n = 31 up to m = 1311; past them the 128-thread body fits
+# m = 2609-2616 at n = 10, not 2617, and 1312-1314 at n = 31, not 1315.
 @pytest.mark.parametrize("kernel,floats,fits", [
     ("B4", smem.prox_floats(817, 50, 51), True),
     ("B4", smem.prox_floats(818, 50, 51), False),
@@ -131,6 +136,21 @@ def test_xla_formulations_match_jax(name, B, n, rtol):
     ("B6", smem.lp_floats(833, 50, 51), False),
     ("B6", smem.lp_floats(100, 139, 140), True),
     ("B6", smem.lp_floats(100, 140, 141), False),
+    ("B5", smem.avi_floats(1813, 20, 21), True),
+    ("B5", smem.avi_floats(1817, 20, 21), True),
+    ("B5", smem.avi_floats(1818, 20, 21), False),
+    ("B5", smem.avi_floats(1258, 31, 32), True),
+    ("B5", smem.avi_floats(1259, 31, 32), False),
+    ("B6", smem.lp_floats(100, 31, 32), True),
+    ("B6", smem.lp_floats(100, 32, 33), True),
+    ("B6", smem.lp_floats(2608, 10, 11), True),
+    ("B6", smem.lp_floats(2609, 10, 11), True),
+    ("B6", smem.lp_floats(2616, 10, 11), True),
+    ("B6", smem.lp_floats(2617, 10, 11), False),
+    ("B6", smem.lp_floats(1311, 31, 32), True),
+    ("B6", smem.lp_floats(1312, 31, 32), True),
+    ("B6", smem.lp_floats(1314, 31, 32), True),
+    ("B6", smem.lp_floats(1315, 31, 32), False),
     ("B8", smem.chol_lanes_floats(333, 1), True),
     ("B8", smem.chol_lanes_floats(334, 1), False),
     ("B8", smem.chol_lanes_floats(116, 8), True),
@@ -219,17 +239,67 @@ def test_slot_mirror_reads_kernel_constants():
     ("B6", "lp_segment.cu", "lp_smem_floats", smem.lp_floats)])
 def test_segment_mirrors_read_kernel_constants(kernel, source, fn, mirror):
     # ops/smem.py's prox_floats, avi_floats and lp_floats are the segment
-    # kernels' own allocators: the K2 layout (slot_floats,
-    # held against slot_step.cuh above) plus the kernel's arrays (kernel
-    # source text, no nvcc), at configAVI, configLP and config 2
-    src = (Path(pchol.__file__).parent / "csrc" / source).read_text()
-    body = re.search(rf"size_t {fn}\(int m, int n, int K\) \{{(.*?)\n\}}",
-                     src, re.S).group(1)
-    expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1",
-                  re.search(r"return (.*?);", body, re.S).group(1))
-    for m, n, K in [(50, 20, 21), (50, 10, 11), (100, 50, 51)]:
-        env = dict(m=m, n=n, K=K, slot_smem_floats=smem.slot_floats)
-        assert eval(f"({expr})", {}, env) == mirror(m, n, K)
+    # kernels' own allocators: the K2 layout (slot_floats, held against
+    # slot_step.cuh above) plus the kernel's arrays; for B6 up to kWarpMaxK
+    # slots and columns, where its block fits an H100's opt-in, the warp
+    # body's (slot_warp.cuh slot_warp_smem_floats plus the same arrays),
+    # the switch read from the C entry (kernel source text, no nvcc), at
+    # configAVI, configLP, config 2 and both sides of each bound
+    csrc = Path(pchol.__file__).parent / "csrc"
+    src = (csrc / source).read_text()
+    warp = (csrc / "slot_warp.cuh").read_text()
+
+    def formula(text, name):
+        body = re.search(
+            rf"size_t {name}\(int m, int n, int K\) \{{(.*?)\n\}}", text,
+            re.S).group(1)
+        decls = re.search(r"const int (.*?);", body)
+        expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1",
+                      re.search(r"return (.*?);", body, re.S).group(1))
+
+        def f(m, n, K, **env):
+            env = dict(env, m=m, n=n, K=K)
+            for d in decls.group(1).split(",") if decls else ():
+                name, value = d.split("=")
+                env[name.strip()] = eval(value, {}, env)
+            return eval(f"({expr})", {}, env)
+        return f
+
+    consts = _consts(warp)
+    max_k = consts["kWarpMaxK"]
+    assert (max_k, consts["kPosArrays"]) == (smem.WARP_MAX_K, smem.WARP_POS)
+    block = formula(src, fn)
+    warp_fn = fn.replace("_smem_floats", "_warp_smem_floats")
+    has_warp = f"size_t {warp_fn}(" in src
+    assert has_warp == (kernel == "B6")
+    if has_warp:
+        lane = formula(src, warp_fn)
+        slot_warp = formula(warp, "slot_warp_smem_floats")
+        entry = src[src.index('extern "C"'):]
+        assert re.search(rf"const size_t warp = {warp_fn}\(m, n, K\) \* "
+                         r"sizeof\(float\);", entry)
+        assert re.search(r"cudaDeviceGetAttribute\(&optin,\s*"
+                         r"cudaDevAttrMaxSharedMemoryPerBlockOptin,", entry)
+        assert re.search(r"if \(K <= kWarpMaxK && n <= kWarpMaxK && "
+                         r"warp <= static_cast<size_t>\(optin\)\)\s*"
+                         r"return \w+_launch\(\w+_segment_warp_kernel, B, "
+                         r"32, warp,", entry)
+    for m, n, K in [(50, 20, 21), (50, 10, 11), (100, 50, 51),
+                    (100, 31, 32), (100, 32, 33), (100, 33, 21), (14, 6, 8),
+                    (2608, 10, 11), (2609, 10, 11), (1311, 31, 32),
+                    (1312, 31, 32)]:
+        want = block(m, n, K, slot_smem_floats=smem.slot_floats)
+        body = False
+        if has_warp and K <= max_k and n <= max_k:
+            floats = lane(m, n, K, slot_warp_smem_floats=lambda *a:
+                          slot_warp(*a, **consts))
+            if 4 * floats <= H100_SMEM:
+                want, body = floats, True
+            assert smem.warp_body(m, n, K, 4 * floats)
+            assert not smem.warp_body(m, n, K, 4 * floats - 1)
+        if kernel == "B6":
+            assert smem.warp_body(m, n, K) == body
+        assert want == mirror(m, n, K)
 
 
 def _consts(src):
