@@ -79,6 +79,32 @@ default register usage level (the normal build sets level 0).
     python3 chip_profile.py --sass
 
 prints only that SASS line.
+
+    python3 chip_profile.py --tail 200
+
+repeats B5's tail launch (the last B5 launch of one configAVI solve, one
+live lane) 200 times in one process, in turns on the normal library and
+on an instrumented copy (``build/probe_k5``), each call timed alone by
+CUDA events, and prints the distributions of the times, of the live
+block's SM cycles and global-timer span and of their ratio, the SM clock
+the block ran at, so that a slow call shows whether it took more cycles
+or ran at a lower clock; every call's numbers go to
+``chiprun_out/tail_repeat.json``.
+
+    python3 chip_profile.py --k3-wide 7 11
+
+runs k3's case (B3 over the warm segment 1 of config 3's horizon, against
+its twin) at config 3's width and at a second one past it (config 3's
+generator at n = 80, m = 160, 64 rows active at the optimum, S = 64; the
+128-thread body, K = 81), for each data seed named (7 is config 3's),
+and runs the twin a second time in f64 on the same f32 warm state with
+the same settings, so that a disagreement of kernel and twin shows
+whether the kernel or f32 arithmetic moves the lanes: per case the
+rates at which kernel and f32 twin, kernel and f64 twin, and f32 and f64
+twin agree on every step's exit flag and on ``failed`` (k3's
+``flags_agree_rate``), and the f32 sides' largest distance from the f64
+twin's u on the lanes where all three agree and are optimal.  It also
+runs on the CPU (``--cpu``; the kernel's wrapper then runs its twin).
 """
 import ctypes
 import hashlib
@@ -110,6 +136,7 @@ SEG_PHASES = ("load", "prologue", "solve", "epilogue", "store", "stopped")
 PROBE_BLOCKS = 1024     # slot_step.cuh kProbeBlocks
 BLOCK_WORDS = 5         # segment.cuh kBlockWords: cycles, steps, SM, start,
                         # end (global timer, ns)
+TAIL_SPIN = 2_000_000   # cycles of spin before a call timed alone (~1 ms)
 # the factorization kernels' phases (chol_probe.cuh CHOL_PROBE_MARK)
 CHOL_PHASES = ("load", "phase1", "phase2", "store")
 CHOL_UNITS = 16384      # chol_probe.cuh kProbeUnits
@@ -117,7 +144,8 @@ UNIT_WORDS = 4          # chol_probe.cuh kUnitWords: cycles, SM, start, end
 # the kernels of the library, by the name of their __global__ function
 KERNELS = ("chol_rinv", "chol_lanes", "chol_dense", "chol_blk",
            "slot_round", "mpc_segment", "prox_segment", "avi_segment",
-           "lp_segment", "dense_round", "lp_segment_warp")
+           "lp_segment", "dense_round", "lp_segment_warp",
+           "avi_segment_warp")
 
 
 def device_us(evt):
@@ -285,16 +313,8 @@ def probe_round(lib, s, st, n_true, steps):
 
 
 def probe_k2(dev, card):
-    if "--cells" in sys.argv:
-        global CELLS
-        CELLS = set(sys.argv[sys.argv.index("--cells") + 1:])
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)
     gen = cs.load("daqp_test_gen", "tests/gen.py")
-    d5 = cs.config5()
-    args5 = [torch.as_tensor(d5[k], device=dev) for k in (
-        'H', 'f', 'A', 'bupper', 'blower', 'sense')]
-    profiled("config5", lambda: dt.solve_batch_miqp_kernel(*args5, st),
-             card)
     d = gen.generate_test_qp_batch(cs.B, cs.N, cs.M_ROWS, 0, cs.N_ACT,
                                    cs.KAPPA, rng=cs.SEED, dtype=np.float32)
     full = [torch.as_tensor(d[k], device=dev)
@@ -437,7 +457,7 @@ def probe_segment(case, source, entry, launch, name, B, card,
         "ptxas_probe": ptxas(log, kern),
         **({"ptxas_warp": ptxas(normal_log, kern + "_warp"),
             "ptxas_probe_warp": ptxas(log, kern + "_warp")}
-           if kern == "lp_segment" else {}),
+           if kern in ("avi_segment", "lp_segment") else {}),
         "ms_probe": cs.cuda_ms(probed, 5),
         "ms_kernel": cs.cuda_ms(launch, cs.SEG_REPS),
         "card": card}), flush=True)
@@ -445,16 +465,8 @@ def probe_segment(case, source, entry, launch, name, B, card,
 
 def probe_k3(dev, card):
     """B3 at k3's warm segment 1 of config 3, its one launch per call."""
-    if "--cells" in sys.argv:
-        global CELLS
-        CELLS = set(sys.argv[sys.argv.index("--cells") + 1:])
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)
     gen = cs.load("daqp_test_gen", "tests/gen.py")
-    d5 = cs.config5()
-    args5 = [torch.as_tensor(d5[k], device=dev) for k in (
-        'H', 'f', 'A', 'bupper', 'blower', 'sense')]
-    profiled("config5", lambda: dt.solve_batch_miqp_kernel(*args5, st),
-             card)
     d3 = cs.config3(gen)
     args = [torch.as_tensor(d3[k], device=dev)
             for k in ('H', 'A', 'f_seq', 'bu_seq', 'bl_seq')]
@@ -489,16 +501,8 @@ def probe_k4(dev, card):
 def probe_k5(dev, card):
     """B5 at k5's cold segment and at the last launch of one configAVI
     solve."""
-    if "--cells" in sys.argv:
-        global CELLS
-        CELLS = set(sys.argv[sys.argv.index("--cells") + 1:])
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)
     gen = cs.load("daqp_test_gen", "tests/gen.py")
-    d5 = cs.config5()
-    args5 = [torch.as_tensor(d5[k], device=dev) for k in (
-        'H', 'f', 'A', 'bupper', 'blower', 'sense')]
-    profiled("config5", lambda: dt.solve_batch_miqp_kernel(*args5, st),
-             card)
     d = cs.config_avi(gen)
     args = [torch.as_tensor(d[k], device=dev)
             for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
@@ -673,7 +677,148 @@ def probe_chol(case, dev, card):
                 "default_flags": default}, "card": card}), flush=True)
 
 
+def one_call_ms(fn):
+    """Device time of one call of ``fn`` in ms, bracketed by CUDA events
+    behind a short spin kernel (~1 ms), so that the host's enqueue does
+    not show."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(TAIL_SPIN)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def quantiles(v):
+    v = np.asarray(v, dtype=np.float64)
+    return dict(min=float(v.min()), p10=float(np.quantile(v, 0.1)),
+                median=float(np.median(v)), p90=float(np.quantile(v, 0.9)),
+                max=float(v.max()), mean=float(v.mean()))
+
+
+def tail_repeat(dev, card, reps):
+    """B5's tail launch (the last B5 launch of one configAVI solve: one
+    live lane) ``reps`` times in turns on the normal library (its event
+    time) and on the probe's (its event time, and the live block's SM
+    cycles and global-timer span, whose ratio is the SM clock it ran
+    at).  Prints the distributions and, for the calls slower than 1.05x
+    the median, each one's numbers; every call's go to
+    ``chiprun_out/tail_repeat.json``."""
+    st = dt.as_settings({"iter_limit": 1000}, torch.float32)
+    gen = cs.load("daqp_test_gen", "tests/gen.py")
+    d = cs.config_avi(gen)
+    args = [torch.as_tensor(d[k], device=dev)
+            for k in ('H', 'f', 'A', 'bupper', 'blower', 'sense')]
+    a = pbatch.avi_init(*args, st)
+    ops_ = pbatch.avi_segment_operands(a)
+    s, carry = cs.main_path_segments(args, st)[-1]
+    B = carry[0].shape[0]
+
+    def launch():
+        return slot.run_avi_segment(s, *carry, *ops_, st, cs.N_AVI,
+                                    P=pbatch.PSEG, steps=pbatch.AVI_STEPS)
+
+    lib, _, _ = probe_library("k5", "avi_segment.cu", "avi_segment_f32")
+    for fn in (lib.seg_probe_read, lib.seg_probe_reset):
+        fn.restype = ctypes.c_int
+    lib.seg_probe_read.argtypes = [ctypes.c_void_p]
+    probed = swapped(lib, launch)
+    launch()
+    probed()
+    nstep, nseg = len(PROBE_PHASES) + 1, len(SEG_PHASES) + 2
+    words = (ctypes.c_ulonglong * (nstep + nseg
+                                   + PROBE_BLOCKS * (BLOCK_WORDS + 1)))()
+    calls = []
+    for _ in range(reps):
+        ms = one_call_ms(launch)
+        _build.check(lib.seg_probe_reset(), "seg_probe_reset")
+        ms_probe = one_call_ms(probed)
+        _build.check(lib.seg_probe_read(ctypes.addressof(words)),
+                     "seg_probe_read")
+        w = np.asarray(words[nstep + nseg:nstep + nseg + B * BLOCK_WORDS],
+                       dtype=np.float64).reshape(B, BLOCK_WORDS)
+        live = int(np.argmax(w[:, 0]))
+        span = w[live, 4] - w[live, 3]
+        calls.append(dict(ms=ms, ms_probe=ms_probe, lane=live,
+                          cycles=w[live, 0], steps=w[live, 1],
+                          sm=int(w[live, 2]), span_us=span / 1e3,
+                          mhz=1e3 * w[live, 0] / span if span else None,
+                          launch_span_us=float(w[:, 4].max()
+                                               - w[:, 3].min()) / 1e3))
+    med = float(np.median([c["ms"] for c in calls]))
+    med_p = float(np.median([c["ms_probe"] for c in calls]))
+    OUT.mkdir(exist_ok=True)
+    (OUT / "tail_repeat.json").write_text(json.dumps(calls))
+    print(json.dumps({
+        "tail_repeat": reps, "B": B,
+        "live_lanes": int((carry[6] > 0).sum()),
+        "ms": quantiles([c["ms"] for c in calls]),
+        "ms_probe": quantiles([c["ms_probe"] for c in calls]),
+        "cycles": quantiles([c["cycles"] for c in calls]),
+        "span_us": quantiles([c["span_us"] for c in calls]),
+        "mhz": quantiles([c["mhz"] for c in calls]),
+        "steps": sorted({c["steps"] for c in calls}),
+        "sms": sorted({c["sm"] for c in calls}),
+        "slow": [dict(i=i, **c) for i, c in enumerate(calls)
+                 if c["ms"] > 1.05 * med or c["ms_probe"] > 1.05 * med_p],
+        "card": card}), flush=True)
+
+
+# k3's second width (--k3-wide): S, n, m and the rows active at the
+# optimum of config 3's generator
+K3_WIDE = (64, 80, 160, 64)
+
+
+def k3_wide(dev, card, seeds):
+    """k3's case at config 3's width and at K3_WIDE for each data seed,
+    kernel and f32 twin against the twin in f64 (module docstring)."""
+    st = dt.as_settings({"iter_limit": 1000}, torch.float32)
+    gen = cs.load("daqp_test_gen", "tests/gen.py")
+
+    def rate(a, b):
+        return ((a[4] == b[4]).all(1) & (a[5] == b[5])).float().mean().item()
+
+    for seed in seeds:
+        for S, n, m, nact in ((cs.S3, cs.N, cs.M_ROWS, 40), K3_WIDE):
+            d = cs.config3(gen, S, n, m, nact, seed)
+            args = [torch.as_tensor(d[k], device=dev)
+                    for k in ('H', 'A', 'f_seq', 'bu_seq', 'bl_seq')]
+            s1, duq, dlq = cs.mpc_warm_segment(args, st)
+            K = s1.E.shape[1]
+            kern = slot.run_mpc_segment(s1, duq, dlq, st, n, steps=cs.STEPS)
+            twin = slot.run_mpc_segment_plain(s1, duq, dlq, st, n,
+                                              steps=cs.STEPS)
+            s64 = type(s1)(*(v.double() if v.is_floating_point() else v
+                             for v in s1))
+            ref = slot.run_mpc_segment_plain(s64, duq.double(), dlq.double(),
+                                             st, n, steps=cs.STEPS)
+            all3 = ((kern[4] == ref[4]).all(1) & (twin[4] == ref[4]).all(1)
+                    & (ref[4] == dt.EXIT_OPTIMAL).all(1))
+
+            def du(x):
+                return cs.gmax((x[1].double() - ref[1]).abs().amax((1, 2))[
+                    all3].cpu().numpy())
+            print(json.dumps({
+                "k3_wide": seed, "S": S, "n": n, "m": m, "K": K,
+                "body": cs.BLOCK_BODY,
+                "kernel_vs_twin": rate(kern, twin),
+                "kernel_vs_f64": rate(kern, ref),
+                "twin_vs_f64": rate(twin, ref),
+                "all_three_optimal": int(all3.sum()),
+                "kernel_du_vs_f64": du(kern), "twin_du_vs_f64": du(twin),
+                "failed": [int((x[5] > 0).sum()) for x in (kern, twin, ref)],
+                "out_digest": cs.digest(*kern[0], *kern[1:]),
+                "card": card}), flush=True)
+
+
 def main():
+    if sys.argv[1:2] == ["--k3-wide"] and "--cpu" in sys.argv:
+        k3_wide(torch.device("cpu"), "cpu",
+                [int(v) for v in sys.argv[2:] if v != "--cpu"])
+        return 0
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -692,6 +837,14 @@ def main():
         return 0
     if sys.argv[1:] == ["--sass"]:
         print_sass(card)
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:2] == ["--k3-wide"]:
+        k3_wide(dev, card, [int(v) for v in sys.argv[2:]])
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:2] == ["--tail"]:
+        tail_repeat(dev, card, int(sys.argv[2]))
         print(card, flush=True)
         return 0
     if "--cells" in sys.argv:

@@ -254,9 +254,9 @@ QUEUE_CYCLES = 100_000_000   # ~50 ms of spin at 1.98 GHz before every
 # configLP (bench_extra.py:253-262) and bench_lp's accuracy gate (:279):
 # flag 1, relative objective gap and feasibility violation below 1e-4
 B_LP, N_LP, M_LP, SEED_LP = 256, 10, 50, 17
-# B6's 128-thread body (K = n + 1 > smem.WARP_MAX_K), and B5 (that body
-# alone) at a second width: one cold segment each at these widths from
-# configAVI's and configLP's generators
+# B5's and B6's 128-thread bodies (K = n + 1 > smem.WARP_MAX_K) at a
+# second width: one cold segment each at these widths from configAVI's
+# and configLP's generators
 B_WIDE, N_AVI_WIDE, M_AVI_WIDE, N_LP_WIDE, M_LP_WIDE = 64, 40, 90, 40, 100
 LP_TOL = 1e-4
 # The JAX tier's census on these 256 lanes (solve_batch_lp_pallas_jit,
@@ -959,13 +959,26 @@ def sweep(cases, *args):
     return run
 
 
-def k1_sweep(H, dev):
-    """k1's sweep: FACTOR_WIDTHS against the twin, then both launch
-    shapes at SHAPE_CASES."""
+def k1_sweep(H, dev, gen):
+    """k1's sweep: FACTOR_WIDTHS against the twin, both launch shapes at
+    SHAPE_CASES, then K1 on the Hessians of the flat grid's batches that
+    it factors (FLAT_GRID at n = 100 and 200, B = 64 and 16) against the
+    twin and timed in turns with the library, beside the bound."""
     ok_w, by_n = width_cases(chol.chol_rinv, chol.chol_rinv_plain,
                              FACTOR_WIDTHS, SEED, dev, False)
     ok_s, shapes = warp_shapes(H, SHAPE_CASES, SEED)
-    return ok_w and ok_s, dict(widths=by_n, shapes=shapes)
+    ok_g, grid = True, {}
+    for n, m, ms, nact, Bn in FLAT_GRID[:2]:
+        Hg = grid_batch(gen, n, m, ms, nact, Bn)[1][0]
+        good, f = factor_case(chol.chol_rinv, chol.chol_rinv_plain, Hg,
+                              twin_reps=1)
+        t = in_turns(lambda: library_rinv(Hg), lambda: chol.chol_rinv(Hg),
+                     20, rounds=3)
+        f["turns_ms"] = dict(library=t["first"], kernel=t["second"])
+        ok_g = ok_g and good
+        grid[f"{Bn}x{n}"] = f
+    return ok_w and ok_s and ok_g, dict(widths=by_n, shapes=shapes,
+                                        grid=grid)
 
 
 # B8 at the widths of configLP, 4b and AVI (32 lanes a block), at n = 32
@@ -1168,15 +1181,14 @@ def phase_stages(full, d, st, gen, card):
     return ok, windows
 
 
-def config3(gen):
-    """bench_extra.py:53-61: one QP drifting over S3 scenarios x T3."""
-    rng = np.random.default_rng(SEED3)
-    _, H, f, A, bu, bl, _ = gen.generate_test_qp(N, M_ROWS, 0, 40, KAPPA,
-                                                 rng)
+def config3(gen, S=S3, n=N, m=M_ROWS, nact=40, seed=SEED3):
+    """bench_extra.py:53-61: one QP drifting over S scenarios x T3 (config
+    3 at its defaults)."""
+    rng = np.random.default_rng(seed)
+    _, H, f, A, bu, bl, _ = gen.generate_test_qp(n, m, 0, nact, KAPPA, rng)
     H, f, A, bu, bl = (v.astype(np.float32) for v in (H, f, A, bu, bl))
-    drift_f = DRIFT3 * rng.standard_normal((S3, T3, N)).astype(np.float32)
-    drift_b = DRIFT3 * rng.standard_normal((S3, T3, M_ROWS)).astype(
-        np.float32)
+    drift_f = DRIFT3 * rng.standard_normal((S, T3, n)).astype(np.float32)
+    drift_b = DRIFT3 * rng.standard_normal((S, T3, m)).astype(np.float32)
     return dict(H=H, A=A, f_seq=np.cumsum(drift_f, axis=1) + f,
                 bu_seq=np.cumsum(np.abs(drift_b), axis=1) + bu,
                 bl_seq=bl - np.cumsum(np.abs(drift_b), axis=1))
@@ -1186,8 +1198,9 @@ def mpc_warm_segment(args, st):
     """The inputs of config 3's one B3 launch, its warm segment 1: the
     state after segment 0 on the per-step path and a Newton refresh, and
     the segment's bounds (duq, dlq)."""
+    n = args[0].shape[-1]
     _, _, du, dl, s0 = pmpc._horizon(*args, st, 0, None)
-    s1 = pmpc._steps_slot_solve(s0, du[:, :SEG3], dl[:, :SEG3], st, N,
+    s1 = pmpc._steps_slot_solve(s0, du[:, :SEG3], dl[:, :SEG3], st, n,
                                 STEPS)[0]
     return (slot.newton_refresh(s1), du[:, SEG3:2 * SEG3].contiguous(),
             dl[:, SEG3:2 * SEG3].contiguous())
@@ -1241,7 +1254,8 @@ def phase_k3(args, st):
                 + nbytes(uk, fvk, itk, stk, fk),
                 steps_done * step_flops(M_ROWS, N, K)
                 + live.sum().item() * prefix_flops(N, K))
-    emit("k3", t0, S=S3, P=SEG3, n=N, m=M_ROWS, K=K, steps=STEPS,
+    emit("k3", t0, S=S3, P=SEG3, n=N, m=M_ROWS, K=K, body=BLOCK_BODY,
+         steps=STEPS,
          flags_agree_rate=rate,
          working_set_agree_rate=agree.float().mean().item(),
          optimal_agreeing=int(opt.sum()), failed_kernel=int((fk > 0).sum()),
@@ -2236,11 +2250,12 @@ def avi_bound(s, carry, ops_, out, steps, passes, n):
 BLOCK_BODY = "block (128 threads)"
 
 
-def body(m, n, K, dev):
-    """The body B6 runs at m rows, n columns and K slots on ``dev`` (its C
-    entry's choice, mirrored by ``smem.warp_body``); B5 runs BLOCK_BODY
-    at every shape."""
-    return "warp" if smem.warp_body(m, n, K, smem.available(dev)) \
+def body(m, n, K, dev, own):
+    """The body that the kernel whose own arrays ``own`` counts
+    (``smem.avi_own``: B5, ``smem.lp_own``: B6) runs at m rows, n columns
+    and K slots on ``dev`` (its C entry's choice, mirrored by
+    ``smem.warp_body``)."""
+    return "warp" if smem.warp_body(m, n, K, own, smem.available(dev)) \
         else BLOCK_BODY
 
 
@@ -2281,7 +2296,7 @@ def avi_wide_case(gen, st, dev):
     ok = equal and c["inner_equal"] and c["bounds_rel"] <= BOUNDS_TOL \
         and c["outer_flags_ok"] and c["outer_dx_rel"] <= OUTER_TOL
     return ok, dict(B=B_WIDE, n=N_AVI_WIDE, m=M_AVI_WIDE, K=K,
-                    body=BLOCK_BODY,
+                    body=body(M_AVI_WIDE, N_AVI_WIDE, K, dev, smem.avi_own),
                     chain_equals_segment=equal, passes=c)
 
 
@@ -2315,8 +2330,9 @@ def phase_k5(args, st, gen):
     after the others finished; (a) holds it pass by pass), is timed beside
     the cold segment, with its live lanes and its bound.
 
-    (w) (a) at n = 40 (``avi_wide_case``); B5 has one body, the
-    128-thread step (``BLOCK_BODY``)."""
+    (w) (a) at n = 40 (``avi_wide_case``): K = 41 > smem.WARP_MAX_K, so
+    B5's 128-thread body, where configAVI (K = 21) runs its warp body;
+    both print ``body``."""
     t0 = time.perf_counter()
     a = pbatch.avi_init(*args, st)
     ops_ = pbatch.avi_segment_operands(a)
@@ -2415,7 +2431,7 @@ def phase_k5(args, st, gen):
     bnd = avi_bound(a.s, carry, ops_, ko, steps_done, passes, n)
     err1 = (k1[1] - p1[1]).abs().amax(1)[avi_flags_agree(k1, p1)]
     emit("k5", t0, B=B_AVI, P=pbatch.PSEG, n=n, m=M_AVI, K=K,
-         body=BLOCK_BODY,
+         body=body(M_AVI, n, K, a.s.M.device, smem.avi_own),
          steps=pbatch.AVI_STEPS, main_path_passes=tot,
          chain_equals_segment=chains_equal, bounds_tol=BOUNDS_TOL,
          outer_tol=OUTER_TOL,
@@ -2719,7 +2735,7 @@ def lp_wide_case(gen, st, dev):
         and rate >= LP_OUTER_AGREE and cnt["x_rel"] <= OUTER_TOL \
         and cnt["E_rel"] <= LP_E_TOL
     return ok, dict(B=B_WIDE, n=N_LP_WIDE, m=M_LP_WIDE, K=K,
-                    body=body(M_LP_WIDE, N_LP_WIDE, K, dev),
+                    body=body(M_LP_WIDE, N_LP_WIDE, K, dev, smem.lp_own),
                     chain_equals_segment=equal, outer_agree_rate=rate,
                     passes=cnt)
 
@@ -2803,7 +2819,7 @@ def phase_k6(args, st, gen):
                 + lane_passes * (6 * M_LP * n + 2 * K * n + 2 * K * K))
     err = (ko[1] - po[1]).abs().amax(1)[agree]
     emit("k6", t0, B=B_LP, P=P, n=n, m=M_LP, K=K,
-         body=body(M_LP, n, K, s.M.device),
+         body=body(M_LP, n, K, s.M.device, smem.lp_own),
          steps=steps, main_path_passes=cnt,
          chain_equals_segment=chains_equal,
          bounds_tol=BOUNDS_TOL, outer_agree_rate=outer_rate,
@@ -4134,7 +4150,7 @@ def main():
             res[name] = fn(*a)
 
     run("k1", phase_factor, "k1", chol.chol_rinv, chol.chol_rinv_plain,
-        full[0], lambda: k1_sweep(full[0], dev), True, B4)
+        full[0], lambda: k1_sweep(full[0], dev, gen), True, B4)
     lanes = first_chunk(full, st)
     run("k2", phase_k2, [a[:B_K2] for a in full], [a[lanes] for a in full],
         st)

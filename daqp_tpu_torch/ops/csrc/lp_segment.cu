@@ -37,7 +37,7 @@
 //
 // Design: two bodies, chosen by the C entry.  Up to K, n = 32 (configLP
 // has K = 11, n = 10), where its block fits, one warp runs an LP
-// (lp_segment_warp_kernel) on the warp step of slot_warp.cuh, ~8.9k SM
+// (lp_segment_warp_kernel) on the warp step of slot_warp.cuh, ~8.3k SM
 // cycles a step at configLP; elsewhere one thread block of 128 runs an
 // LP (lp_segment_kernel) on slot_step.cuh's step.  Both compute the same
 // bits: the warp step keeps every sum of the 128-thread step in its
@@ -643,24 +643,6 @@ lp_segment_warp_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
   SEG_PROBE_FLUSH
 }
 
-// One launch of `kernel` at `smem` bytes a block, opting in above 48 KB.
-template <class Kernel, class... Args>
-int lp_launch(Kernel kernel, int blocks, int threads, size_t smem,
-              void* stream, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) {
-      cudaGetLastError();              // clear it: no launch follows
-      return static_cast<int>(e);
-    }
-  }
-  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // The body by shape: the warp step up to kWarpMaxK slots and columns where
@@ -684,9 +666,9 @@ extern "C" int lp_segment_f32(const void* const* ptrs, int B, int m, int n,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (K <= kWarpMaxK && n <= kWarpMaxK && warp <= static_cast<size_t>(optin))
-    return lp_launch(lp_segment_warp_kernel, B, 32, warp, stream, P, m, n, K,
-                     n_true, steps, nP, tol, eta);
-  return lp_launch(lp_segment_kernel, B, kThreads,
-                   lp_smem_floats(m, n, K) * sizeof(float), stream, P, m, n,
-                   K, n_true, steps, nP, tol, eta);
+    return seg_launch(lp_segment_warp_kernel, B, 32, warp, stream, P, m, n,
+                      K, n_true, steps, nP, tol, eta);
+  return seg_launch(lp_segment_kernel, B, kThreads,
+                    lp_smem_floats(m, n, K) * sizeof(float), stream, P, m, n,
+                    K, n_true, steps, nP, tol, eta);
 }

@@ -25,10 +25,15 @@
 //
 // Design: one thread block per scenario lane, the K2 layout
 // (slot_carve) in dynamic shared memory; du / dl of the layout hold the
-// current step's bounds.  Loading the state by cp.async (segment.cuh, as
-// B4 does), prefetching the next step's bounds and 3 blocks an SM
-// instead of 4 were each measured against this body and did not win
-// clearly enough to land (PERF.md, section 6).
+// current step's bounds.  The step is slot_step.cuh's, 15.4k SM cycles a
+// step at config 3 (K = 51).  Measured against this body and not landed
+// (PERF.md, section 6): loading the state by cp.async (segment.cuh, as
+// B4 does), prefetching the next step's bounds, 3 blocks an SM instead
+// of 4; the warp step of slot_warp.cuh widened to two items a lane (K, n
+// <= 64, the same bits), 39.7k cycles a step, as one warp runs all of
+// config 3's products; and this step with its E update and the add's
+// bookkeeping reading before they write, 14.8k cycles, a change to the
+// step K2 and B4 share that is not this kernel's alone.
 #include "segment.cuh"
 
 namespace {

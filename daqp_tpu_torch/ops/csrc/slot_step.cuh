@@ -1,14 +1,14 @@
 // The slot-space dual active-set step on a block of 128 threads, run by
-// K2 (slot_round.cu), B3 (mpc_segment.cu), B4 (prox_segment.cu) and B5
-// (avi_segment.cu) at every shape and by B6 (lp_segment.cu) where the
-// warp body does not run; dense_round.cu (B7) takes its helpers.  B6 at
-// K, n <= 32 runs the warp step of slot_warp.cuh, which computes this
-// step with the same bits: it keeps every sum below in the same tree (an
-// item's chains j = q mod 8, or j = hq mod 16 then slot_pair8, slot_tsum8;
-// each warp's partial butterflied, then combined as slot_reduce and
-// block_reduce do), since K2 replays B6's inner solves and must end on
-// the same slot state (chip_smoke.py k6 (a)).  A change to a sum here is
-// a change there.
+// K2 (slot_round.cu), B3 (mpc_segment.cu) and B4 (prox_segment.cu) at
+// every shape and by B5 (avi_segment.cu) and B6 (lp_segment.cu) where
+// their warp bodies do not run; dense_round.cu (B7) takes its helpers.
+// B5 and B6 at K, n <= 32 run the warp step of slot_warp.cuh, which
+// computes this step with the same bits: it keeps every sum below in the
+// same tree (an item's chains j = q mod 8, or j = hq mod 16 then
+// slot_pair8, slot_tsum8; each warp's partial butterflied, then combined
+// as slot_reduce and block_reduce do), since K2 replays their inner
+// solves and must end on the same slot state (chip_smoke.py k5 (a), k6
+// (a)).  A change to a sum here is a change there.
 //
 // It is the step of daqp_tpu/ops/pallas_slot.py:256-612 (_solve_tile_live,
 // :188, which the TPU kernels _kernel_body, _mpc_kernel_body,
@@ -36,8 +36,8 @@
 // probe (chip_profile.py --probe k2, k5, k6) measured 13.1k SM cycles a
 // step at config 2 and still 11.2-11.3k at configAVI (K = 21) and
 // configLP (K = 11): the barriers and reductions set a floor that does
-// not shrink with the shape, hence B6's warp step there.  The design
-// shortens each phase's chains and its barriers:
+// not shrink with the shape, hence B5's and B6's warp step there.  The
+// design shortens each phase's chains and its barriers:
 // - Every matrix-vector product runs on groups of kSG = 8 lanes, each
 //   group 8 output items at once: lane q sums the inputs j = q (mod 8)
 //   in independent chains, and a transposing butterfly (7 shuffles, one

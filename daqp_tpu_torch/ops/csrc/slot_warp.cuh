@@ -1,14 +1,17 @@
 // The slot-space dual active-set step on one warp a lane, for K <= 32
-// slots and n <= 32 columns: the body of B6 (lp_segment.cu) at those
-// shapes where a lane's state fits one block.  Elsewhere, and in K2, B3,
-// B4 and B5 at every shape, the 128-thread step of slot_step.cuh runs (B5
-// on this step was faster in its cold segment but once slower in its
-// one-lane tail launch: PERF.md, section 6).
+// slots and n <= 32 columns: the body of B5 (avi_segment.cu) and B6
+// (lp_segment.cu) at those shapes where a lane's state fits one block.
+// Elsewhere, and in K2, B3 and B4 at every shape, the 128-thread step of
+// slot_step.cuh runs.  B3 at config 3 (n = 50, K = 51)
+// is past it: the same step with two items a lane (K, n <= 64) took 39.7k
+// SM cycles a step there against the 128-thread step's 15.4k, one warp
+// running 4 rows of 50-term products and two items' E update a lane
+// (PERF.md, section 6), so it was not kept.
 //
 // It computes slot_step.cuh's step (slot_steps; pallas_slot.py:256-612)
 // with the same bits.  K2 replays a segment's inner solves from the
 // kernel's own bounds, and the slot state must come out equal (chip_smoke's
-// k6 (a)): a lane decided at the f32 noise floor goes elsewhere
+// k5 (a), k6 (a)): a lane decided at the f32 noise floor goes elsewhere
 // under another sum order (one moved configLP's slowest lane from 186 to
 // 232 steps, PERF.md section 6).  The contract:
 // - every item's sum keeps its chains, in the 128-thread step's order
@@ -23,9 +26,14 @@
 //   warps' sums as (w0 + w1) + (w2 + w3) (slot_reduce) or ((w0 + w1) +
 //   w2) + w3 (block_reduce), a warp without items counting +0: the
 //   columns of u and the add's row sat in warp 2 (t ^ 64), the used
-//   list's items 0-15 in warp 0 and 16-31 in warp 1 (pair_item);
+//   list's items 0-15 in warp 0 and 16-31 in warp 1 (pair_item); a step
+//   past 32 (K = 33-64, two items a lane) puts the items 32-47
+//   as warp 2 held them and 48-63 as warp 3, the columns 32-63 as warp 3,
+//   each as 0-31 sit in warps 0-1 and 2, and adds (w0 + w1) + (w2 + w3);
 // - an argmin (lowest index on ties and on NaN, `better`) and a max do
-//   not depend on the order; the other expressions are slot_steps' own.
+//   not depend on the order; the other expressions are slot_steps' own,
+//   and a value read back from shared memory is the value written, so a
+//   sum may take it from the register that wrote it.
 // So one lane computes a whole item (one lane an item: a row of M, a
 // column of u, an item of the used list), its chains in registers, and
 // no product runs a shuffle; what a term needs of another item, that
@@ -39,9 +47,17 @@
 // nothing at n = 10-20.  Here a step has no block barrier (__syncwarp
 // where slot_steps has __syncthreads), the reductions stay in registers,
 // a phase's independent loads are issued before its products, and the
-// products run unrolled blocks of 8 terms with no branch a term: the
-// probe puts it at ~8.9k cycles a step at configLP.  The state stays in shared memory in slot_carve's layout, the reduction
-// scratch giving way to the list and the records (slot_warp_carve).
+// products run unrolled blocks of 8 terms with no branch a term.  A store
+// to shared memory holds back every load after it (the compiler cannot
+// tell the arrays apart), so the E update reads each block of 8 columns,
+// their records and entries before it writes, and the bookkeeping, the W
+// update and the act rows read before they write; a_p = E g_p, a pass of
+// its own in slot_steps, rides in the E update's (the E update and
+// bookkeeping from 3.7k to 2.8k cycles at B5's tail).  The probe puts
+// the step at ~9.9k cycles at B5's tail, ~9.3k in its cold segment and
+// ~8.3k at configLP.  The state stays in shared memory in slot_carve's
+// layout, the reduction scratch giving way to the list and the records
+// (slot_warp_carve).
 #pragma once
 
 #include "segment.cuh"
@@ -581,7 +597,8 @@ __device__ __forceinline__ void slot_warp_steps(const Lane& L, Ctl& c,
     auto added = [&](int s) { return ok > 0.f && s == free_k; };
 
     // a pending entry's Gram column g_p = (W prow) o used on the new
-    // table, over the update's list (a lane an item)
+    // table, over the update's list (a lane an item), and its record for
+    // a_p = E g_p in the E update
     if (has_pn && l < kN) {
       const bool from_add = mk_pend > 0.f;
       const int s = slot_of(l);
@@ -598,34 +615,48 @@ __device__ __forceinline__ void slot_warp_steps(const Lane& L, Ctl& c,
       R2[l] = make_float2(sg, __int_as_float(s));
     }
 
-    // the add's slot, m-space and pending bookkeeping; the W update
+    // the add's slot, m-space and pending bookkeeping (each value read
+    // before any is written); the W update
     if (l == 0) {
-      if (kN > k) list[k] = free_k;
       if (ok > 0.f) {
-        used[free_k] = fminf(used[free_k] + ok, 1.f);
-        sid[free_k] = sid[free_k] + ok * (add_id + 1.f);
-        slo[free_k] = slo[free_k] + ok * add_lo;
-        dsl[free_k] = dsl[free_k] + ok * add_d;
-        lam[free_k] = lam[free_k] + ok * add_lam;
+        const float used_f = used[free_k], sid_f = sid[free_k];
+        const float slo_f = slo[free_k], dsl_f = dsl[free_k];
+        const float lam_f = lam[free_k];
+        used[free_k] = fminf(used_f + ok, 1.f);
+        sid[free_k] = sid_f + ok * (add_id + 1.f);
+        slo[free_k] = slo_f + ok * add_lo;
+        dsl[free_k] = dsl_f + ok * add_d;
+        lam[free_k] = lam_f + ok * add_lam;
       }
+      if (kN > k) list[k] = free_k;
     }
     __syncwarp();
     if (l < n) {
       const int j = l;
+      const float xj = add_row[j], uj = u_new[j];
       if (do_rm > 0.f) W[rm * ldn + j] = 0.f;
-      if (ok > 0.f) W[free_k * ldn + j] = add_row[j];
-      if (price > 0.f) u[j] = u_new[j];
-      if (mk_pend > 0.f) prow[j] = add_row[j];
+      if (ok > 0.f) W[free_k * ldn + j] = xj;
+      if (price > 0.f) u[j] = uj;
+      if (mk_pend > 0.f) prow[j] = xj;
     }
-    for (int i = l; i < m; i += 32) {
-      const float fi = static_cast<float>(i);
-      const float oh_rm = (fi == rm_id ? 1.f : 0.f) * do_rm;
-      float up = au[i] * (1.f - oh_rm * (1.f - rm_lo));
-      float lo = al[i] * (1.f - oh_rm * rm_lo);
-      const float add_oh = retry * (fi == pid ? 1.f : 0.f) +
-                           padd * (i == jr ? 1.f : 0.f);
-      au[i] = fminf(up + ok * add_oh * (1.f - add_lo), 1.f);
-      al[i] = fminf(lo + ok * add_oh * add_lo, 1.f);
+    {
+      // two rows a lane at once, both read before either is written
+      auto act = [&](int i, float up, float lo) {
+        const float fi = static_cast<float>(i);
+        const float oh_rm = (fi == rm_id ? 1.f : 0.f) * do_rm;
+        up = up * (1.f - oh_rm * (1.f - rm_lo));
+        lo = lo * (1.f - oh_rm * rm_lo);
+        const float add_oh = retry * (fi == pid ? 1.f : 0.f) +
+                             padd * (i == jr ? 1.f : 0.f);
+        au[i] = fminf(up + ok * add_oh * (1.f - add_lo), 1.f);
+        al[i] = fminf(lo + ok * add_oh * add_lo, 1.f);
+      };
+      for (int i = l; i < m; i += 64) {
+        const int i2 = i + 32 < m ? i + 32 : i;
+        const float up1 = au[i], lo1 = al[i], up2 = au[i2], lo2 = al[i2];
+        act(i, up1, lo1);
+        if (i + 32 < m) act(i2, up2, lo2);
+      }
     }
     // each column's e, w, d and keep, staged by its item's lane from its
     // own values (used and dsl after the removal's keep); the added free
@@ -648,44 +679,53 @@ __device__ __forceinline__ void slot_warp_steps(const Lane& L, Ctl& c,
       R4[pi] = make_float4(ej, wj, dj, 1.f - (j == rm ? 1.f : 0.f) * do_rm);
     }
     __syncwarp();
+    // E <- (E + c_del e e') o keep keep' + c_add w w' on the update's
+    // list, a lane a row: each block of 8 terms reads its columns, records
+    // and entries before it writes (a store would otherwise hold back the
+    // next term's loads); from the new values the next lam* and, with an
+    // entry pending, a_p = E g_p (the same values and order as a pass of
+    // its own over the new E)
     if (pi < kN) {
       const int i = list[pi];
       float* Ei = E + i * ldK;
       const float4 ri = R4[pi];
       const float ce = c_del * ri.x, ca = c_add * ri.y;
       const float ki = i == rm ? 1.f - do_rm : 1.f;
-      float S[2 * kSG] = {};
-      terms<2 * kSG>(kN, [&](int cc, int x, bool on) {
-        float* ep = Ei + list[cc];
-        const float4 r = R4[cc];
-        const float ej = r.x, wj = r.y, dj = r.z, kj = r.w;
-        const float v = (*ep + ce * ej) * ki * kj + ca * wj;
-        if (on) {
-          *ep = v;
-          S[x] += v * dj;
+      float S[2 * kSG] = {}, S2[2 * kSG] = {};
+#pragma unroll
+      for (int b = 0; b < kWarpMaxK; b += kSG) {
+        if (b < kN) {
+          int col[kSG];
+          float4 rc[kSG];
+          float gp[kSG], ev[kSG];
+#pragma unroll
+          for (int y = 0; y < kSG; ++y) {
+            col[y] = list[b + y];
+            rc[y] = R4[b + y];
+            gp[y] = has_pn ? R2[b + y].x : 0.f;
+          }
+#pragma unroll
+          for (int y = 0; y < kSG; ++y) ev[y] = Ei[col[y]];
+#pragma unroll
+          for (int y = 0; y < kSG; ++y) {
+            const int x = (b + y) % (2 * kSG);
+            const float ej = rc[y].x, wj = rc[y].y, dj = rc[y].z,
+                        kj = rc[y].w;
+            const float v = (ev[y] + ce * ej) * ki * kj + ca * wj;
+            if (b + y < kN) {
+              Ei[col[y]] = v;
+              S[x] += v * dj;
+              if (has_pn) S2[x] += v * gp[y];
+            }
+          }
         }
-      });
+      }
       if (!last) {
         lstar[i] = -tree16(S);
-        a_p[i] = 0.f;
+        a_p[i] = has_pn ? tree16(S2) : 0.f;
       }
     }
     __syncwarp();
-    // with an entry pending, a_p = E g_p from the new E
-    if (has_pn) {
-      if (pi < kN) {
-        const int i = list[pi];
-        const float* Ei = E + i * ldK;
-        float S[2 * kSG] = {};
-        terms<2 * kSG>(kN, [&](int cc, int x, bool on) {
-          const float2 r = R2[cc];
-          const float ej = Ei[__float_as_int(r.y)], gj = r.x;
-          if (on) S[x] += ej * gj;
-        });
-        a_p[i] = tree16(S);
-      }
-      __syncwarp();
-    }
     SLOT_PROBE_MARK(5)
     SLOT_PROBE_STEP
     kU = kN;
@@ -752,6 +792,24 @@ __device__ __forceinline__ void slot_warp_solve_retry(const Lane& L, Ctl& c,
     c.stt = kRunning;
   }
   __syncwarp();
+}
+
+// One launch of `kernel` at `smem` bytes a block, opting in above 48 KB.
+template <class Kernel, class... Args>
+int seg_launch(Kernel kernel, int blocks, int threads, size_t smem,
+               void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();              // clear it: no launch follows
+      return static_cast<int>(e);
+    }
+  }
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

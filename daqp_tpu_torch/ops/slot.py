@@ -1032,7 +1032,7 @@ def run_avi_segment(s: SlotState, x, y, xold, minres, ctr, tlim, lane_run,
                torch.int32 if k == "lflag" else f32)
               for k, v in lane.items()])
     smem.check("run_avi_segment (B5)", dict(m=m, n=n, K=K),
-               smem.avi_floats(m, n, K), dev)
+               smem.avi_floats(m, n, K, smem.available(dev)), dev)
     outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
     lane_out = {k: torch.empty_like(v) for k, v in lane.items()}
     failed = torch.empty((B,), dtype=f32, device=dev)

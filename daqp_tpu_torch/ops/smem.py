@@ -3,13 +3,14 @@ launch.
 
 The formulas mirror the kernels' allocators in ``csrc/``:
 ``slot_smem_floats`` (``slot_step.cuh``; K2 and B3 as they are, B4-B6 plus
-their own arrays), B6's warp body up to ``WARP_MAX_K`` slots and columns
-(``slot_warp_smem_floats``, ``slot_warp.cuh``, plus its arrays, one lane
-a block), ``dense_smem_floats`` (``dense_round.cu``, B7), the packed
-triangles, a warp each, and the table of the block that K1 and B9
-share (``chol_warp.cuh warp_floats``), B8's packed triangles of a lane
-tile (``chol_lanes.cu Lanes::floats``) and B10's panel or phase-2 stages
-(``chol_blk.cu Blk::floats``).
+their own arrays), the warp bodies of B5 and B6 up to ``WARP_MAX_K`` slots
+and columns (``slot_warp_smem_floats``, ``slot_warp.cuh``, plus the
+kernel's arrays, one lane a block; each C entry takes its warp body where
+that block fits the card's opt-in, ``warp_body``), ``dense_smem_floats``
+(``dense_round.cu``, B7), the packed triangles, a warp each, and the
+table of the block that K1 and B9 share (``chol_warp.cuh warp_floats``),
+B8's packed triangles of a lane tile (``chol_lanes.cu Lanes::floats``)
+and B10's panel or phase-2 stages (``chol_blk.cu Blk::floats``).
 A lane that needs more than the card lets one block opt in to raises
 ``ValueError`` before anything is enqueued.
 """
@@ -20,7 +21,7 @@ import torch
 F32 = 4                 # bytes per float
 K_WARPS = 4             # slot_step.cuh: kThreads / 32
 RED_STRIDE = 6          # slot_step.cuh: kRedStride
-WARP_MAX_K = 32         # slot_warp.cuh: kWarpMaxK, B6's warp body
+WARP_MAX_K = 32         # slot_warp.cuh: kWarpMaxK, B5's and B6's warp bodies
 WARP_POS = 6            # slot_warp.cuh: kPosArrays, per-position values
 H100_OPTIN = 232448     # bytes one block may opt in to on an H100
 DENSE_THREADS = 128     # dense_round.cu: kDenseThreads
@@ -50,12 +51,25 @@ def slot_warp_floats(m: int, n: int, K: int) -> int:
             + 4 * n + (1 + WARP_POS) * WARP_MAX_K + 4)
 
 
-def warp_body(m: int, n: int, K: int, limit: int = H100_OPTIN) -> bool:
-    """Whether B6 runs the warp body at m rows, n columns and K slots on a
-    card whose block may opt in to ``limit`` bytes (its C entry's choice),
-    else the 128-thread one."""
+def avi_own(m: int, n: int) -> int:
+    """B5's arrays after the step's layout: five n x n matrices, seven
+    n-vectors, the two bounds."""
+    return 5 * n * (n | 1) + 7 * n + 2 * m
+
+
+def lp_own(m: int, n: int) -> int:
+    """B6's arrays after the step's layout: five n-vectors, four bounds."""
+    return 5 * n + 4 * m
+
+
+def warp_body(m: int, n: int, K: int, own, limit: int = H100_OPTIN) -> bool:
+    """Whether the kernel whose arrays after the step's layout take
+    ``own(m, n)`` floats (``avi_own`` for B5, ``lp_own`` for B6) runs its
+    warp body at m rows, n columns and K slots on a card whose block may
+    opt in to ``limit`` bytes (its C entry's choice), else the 128-thread
+    one."""
     return (K <= WARP_MAX_K and n <= WARP_MAX_K
-            and F32 * (slot_warp_floats(m, n, K) + 5 * n + 4 * m) <= limit)
+            and F32 * (slot_warp_floats(m, n, K) + own(m, n)) <= limit)
 
 
 def prox_floats(m: int, n: int, K: int) -> int:
@@ -63,18 +77,26 @@ def prox_floats(m: int, n: int, K: int) -> int:
     return slot_floats(m, n, K) + n * (n | 1) + 5 * n + 2 * m
 
 
-def avi_floats(m: int, n: int, K: int) -> int:
-    """B5 (``avi_segment.cu avi_smem_floats``)."""
-    return slot_floats(m, n, K) + 5 * n * (n | 1) + 7 * n + 2 * m
+def segment_floats(own, m: int, n: int, K: int,
+                   limit: int = H100_OPTIN) -> int:
+    """The block of the kernel whose arrays take ``own(m, n)`` floats: its
+    warp body's where ``warp_body`` takes it, else its 128-thread body's
+    (``slot_floats`` plus its arrays)."""
+    if warp_body(m, n, K, own, limit):
+        return slot_warp_floats(m, n, K) + own(m, n)
+    return slot_floats(m, n, K) + own(m, n)
+
+
+def avi_floats(m: int, n: int, K: int, limit: int = H100_OPTIN) -> int:
+    """B5's block (``avi_segment.cu``): ``avi_warp_smem_floats`` where
+    ``warp_body`` takes the warp body, else ``avi_smem_floats``."""
+    return segment_floats(avi_own, m, n, K, limit)
 
 
 def lp_floats(m: int, n: int, K: int, limit: int = H100_OPTIN) -> int:
     """B6's block: ``lp_warp_smem_floats`` where ``warp_body`` takes the
     warp body, else ``lp_smem_floats`` (``lp_segment.cu``)."""
-    own = 5 * n + 4 * m
-    if warp_body(m, n, K, limit):
-        return slot_warp_floats(m, n, K) + own
-    return slot_floats(m, n, K) + own
+    return segment_floats(lp_own, m, n, K, limit)
 
 
 def dense_floats(m: int, n: int, has_sw: bool) -> int:

@@ -123,7 +123,17 @@ def test_xla_formulations_match_jax(name, B, n, rtol):
 # 128-thread one) where that block fits, at n = 10 (configLP) up to m =
 # 2608 and at n = 31 up to m = 1311; past them the 128-thread body fits
 # m = 2609-2616 at n = 10, not 2617, and 1312-1314 at n = 31, not 1315.
+# B5 runs its warp body at the same switch (K = 32, n = 31, its warp
+# body; K = 33 its 128-thread one), at n = 20 (configAVI) up to m = 1812
+# and at n = 31 up to 1255; past them its 128-thread body fits m =
+# 1813-1817 at n = 20 and 1256-1258 at n = 31.
 @pytest.mark.parametrize("kernel,floats,fits", [
+    ("B5", smem.avi_floats(50, 20, 21), True),
+    ("B5", smem.avi_floats(1812, 20, 21), True),
+    ("B5", smem.avi_floats(1255, 31, 32), True),
+    ("B5", smem.avi_floats(1256, 31, 32), True),
+    ("B5", smem.avi_floats(100, 31, 32), True),
+    ("B5", smem.avi_floats(100, 32, 33), True),
     ("B4", smem.prox_floats(817, 50, 51), True),
     ("B4", smem.prox_floats(818, 50, 51), False),
     ("B4", smem.prox_floats(100, 117, 118), True),
@@ -240,11 +250,11 @@ def test_slot_mirror_reads_kernel_constants():
 def test_segment_mirrors_read_kernel_constants(kernel, source, fn, mirror):
     # ops/smem.py's prox_floats, avi_floats and lp_floats are the segment
     # kernels' own allocators: the K2 layout (slot_floats, held against
-    # slot_step.cuh above) plus the kernel's arrays; for B6 up to kWarpMaxK
-    # slots and columns, where its block fits an H100's opt-in, the warp
-    # body's (slot_warp.cuh slot_warp_smem_floats plus the same arrays),
-    # the switch read from the C entry (kernel source text, no nvcc), at
-    # configAVI, configLP, config 2 and both sides of each bound
+    # slot_step.cuh above) plus the kernel's arrays; for B5 and B6 up to
+    # kWarpMaxK slots and columns, where the block fits an H100's opt-in,
+    # the warp body's (slot_warp.cuh slot_warp_smem_floats plus the same
+    # arrays), the switch read from each C entry (kernel source text, no
+    # nvcc), at configAVI, configLP, config 2 and both sides of each bound
     csrc = Path(pchol.__file__).parent / "csrc"
     src = (csrc / source).read_text()
     warp = (csrc / "slot_warp.cuh").read_text()
@@ -271,8 +281,9 @@ def test_segment_mirrors_read_kernel_constants(kernel, source, fn, mirror):
     block = formula(src, fn)
     warp_fn = fn.replace("_smem_floats", "_warp_smem_floats")
     has_warp = f"size_t {warp_fn}(" in src
-    assert has_warp == (kernel == "B6")
+    assert has_warp == (kernel in ("B5", "B6"))
     if has_warp:
+        own = {"B5": smem.avi_own, "B6": smem.lp_own}[kernel]
         lane = formula(src, warp_fn)
         slot_warp = formula(warp, "slot_warp_smem_floats")
         entry = src[src.index('extern "C"'):]
@@ -282,12 +293,16 @@ def test_segment_mirrors_read_kernel_constants(kernel, source, fn, mirror):
                          r"cudaDevAttrMaxSharedMemoryPerBlockOptin,", entry)
         assert re.search(r"if \(K <= kWarpMaxK && n <= kWarpMaxK && "
                          r"warp <= static_cast<size_t>\(optin\)\)\s*"
-                         r"return \w+_launch\(\w+_segment_warp_kernel, B, "
+                         r"return seg_launch\(\w+_segment_warp_kernel, B, "
                          r"32, warp,", entry)
+        assert re.search(rf"return seg_launch\({source[:-3]}_kernel, B, "
+                         rf"kThreads,\s*{fn}\(m, n, K\) \* sizeof\(float\)",
+                         entry)
     for m, n, K in [(50, 20, 21), (50, 10, 11), (100, 50, 51),
                     (100, 31, 32), (100, 32, 33), (100, 33, 21), (14, 6, 8),
                     (2608, 10, 11), (2609, 10, 11), (1311, 31, 32),
-                    (1312, 31, 32)]:
+                    (1312, 31, 32), (1812, 20, 21), (1813, 20, 21),
+                    (1255, 31, 32), (1256, 31, 32)]:
         want = block(m, n, K, slot_smem_floats=smem.slot_floats)
         body = False
         if has_warp and K <= max_k and n <= max_k:
@@ -295,10 +310,10 @@ def test_segment_mirrors_read_kernel_constants(kernel, source, fn, mirror):
                           slot_warp(*a, **consts))
             if 4 * floats <= H100_SMEM:
                 want, body = floats, True
-            assert smem.warp_body(m, n, K, 4 * floats)
-            assert not smem.warp_body(m, n, K, 4 * floats - 1)
-        if kernel == "B6":
-            assert smem.warp_body(m, n, K) == body
+            assert smem.warp_body(m, n, K, own, 4 * floats)
+            assert not smem.warp_body(m, n, K, own, 4 * floats - 1)
+        if has_warp:
+            assert smem.warp_body(m, n, K, own) == body
         assert want == mirror(m, n, K)
 
 
