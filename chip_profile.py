@@ -68,7 +68,8 @@ probe also prints the SASS size of every kernel of the normal library
 builds K1 (``chol_rinv.cu``) or B9 (``chol_dense.cu``) alone under
 ``build/probe_k1`` / ``build/probe_k9`` with ``-DCHOL_PROBE`` (the marks
 of ``chol_probe.cuh``), runs it through its wrapper on config 2's
-Hessians (K1 also on the first 256, config 4's retry shape) and prints
+Hessians (K1 also on the first 256, config 4's retry shape, and on the
+flat grid's n = 100 and 200 batches of 64 and 16) and prints
 the SM cycles per unit (the matrix's lead thread: a block or warp) of the
 load, phase 1, phase 2 and the store, the slowest unit against the mean,
 the units' spread over SMs and time, resident blocks per SM (a copy built
@@ -105,6 +106,9 @@ twin agree on every step's exit flag and on ``failed`` (k3's
 ``flags_agree_rate``), and the f32 sides' largest distance from the f64
 twin's u on the lanes where all three agree and are optimal.  It also
 runs on the CPU (``--cpu``; the kernel's wrapper then runs its twin).
+With ``--refresh`` every side runs one horizon step a launch, each after
+a Newton refresh of E (``slot.newton_refresh``), so that the f32 drift
+of E's rank-one updates over the segment is taken out of the comparison.
 """
 import ctypes
 import hashlib
@@ -214,7 +218,8 @@ def ptxas(log, kernel):
 def sass_sizes(so):
     """Per kernel of the shared library ``so`` (``cuobjdump -sass``): its
     SASS instructions and a hash of their text (addresses and encodings
-    left out), so that two builds compare."""
+    left out), so that two builds compare; K1's and B9's instances keyed
+    ``chol_rinv<G,P>``, the others' ``name``, ``name#2``, ... in order."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(cuobjdump), "-sass", str(so)],
                           capture_output=True, text=True, check=True).stdout
@@ -224,6 +229,10 @@ def sass_sizes(so):
         if m:
             cur = next((k for k in KERNELS if f"{k}_kernel" in m.group(1)),
                        m.group(1))
+            # K1's and B9's instances by their template <G, P>
+            gp = re.search(r"ILi(\d+)ELi(\d+)E", m.group(1))
+            if cur in ("chol_rinv", "chol_dense") and gp:
+                cur = f"{cur}<{gp.group(1)},{gp.group(2)}>"
             # a template's instantiations: name, name#2, ...
             base, i = cur, 1
             while cur in funcs:
@@ -590,8 +599,9 @@ def chol_shape(B, n, dev):
 
 
 def probe_chol(case, dev, card):
-    """K1 (``k1``: at B = 10240 and at config 4's retry shape B = 256) or
-    B9 (``k9``: at B = 10240) on config 2's Hessians, n = 50: SM cycles
+    """K1 (``k1``: at B = 10240 and at config 4's retry shape B = 256 of
+    config 2's Hessians, n = 50, and on the flat grid's batches at n = 100
+    and 200, B = 64 and 16) or B9 (``k9``: at B = 10240): SM cycles
     per unit (K1 block, B9 warp) of the load, phase 1, phase 2 and the
     store, the slowest unit, resident blocks per SM and waves, registers,
     spills and both times; for B9 also the normal kernel against one built
@@ -622,7 +632,12 @@ def probe_chol(case, dev, card):
     d = gen.generate_test_qp_batch(cs.B, cs.N, cs.M_ROWS, 0, cs.N_ACT,
                                    cs.KAPPA, rng=cs.SEED, dtype=np.float32)
     H = torch.as_tensor(d['H'], device=dev)
-    cases = [H] + ([H[:cs.B4].contiguous()] if case == "k1" else [])
+    cases = [H]
+    if case == "k1":
+        # config 4's retry shape, then the flat grid's batches that K1
+        # factors (n = 100, B = 64; n = 200, B = 16)
+        cases += [H[:cs.B4].contiguous()] + [
+            cs.grid_batch(gen, *g)[1][0] for g in cs.FLAT_GRID[:2]]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for Hc in cases:
         B, n = Hc.shape[0], Hc.shape[1]
@@ -772,11 +787,33 @@ def tail_repeat(dev, card, reps):
 K3_WIDE = (64, 80, 160, 64)
 
 
-def k3_wide(dev, card, seeds):
+def refreshed(fn):
+    """``fn`` (B3's wrapper or its twin) run one horizon step a launch,
+    each after a Newton refresh of E: the segment's outputs stacked as
+    one launch gives them, ``failed`` the lanes that ended any step in
+    trouble (a lane that failed runs its later steps too)."""
+    def run(s, duq, dlq, st, n, steps):
+        outs = []
+        for p in range(duq.shape[1]):
+            s, *o = fn(slot.newton_refresh(s), duq[:, p:p + 1].contiguous(),
+                       dlq[:, p:p + 1].contiguous(), st, n, steps=steps)
+            outs.append(o)
+        u, fv, it, stt, failed = zip(*outs)
+        return (s, torch.cat(u, 1), torch.cat(fv, 1), torch.cat(it, 1),
+                torch.cat(stt, 1), torch.stack(failed).amax(0))
+    return run
+
+
+def k3_wide(dev, card, seeds, refresh=False):
     """k3's case at config 3's width and at K3_WIDE for each data seed,
-    kernel and f32 twin against the twin in f64 (module docstring)."""
+    kernel and f32 twin against the twin in f64 (module docstring); with
+    ``refresh``, every side one horizon step a launch after a Newton
+    refresh of E."""
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)
     gen = cs.load("daqp_test_gen", "tests/gen.py")
+    kernel_fn, twin_fn = slot.run_mpc_segment, slot.run_mpc_segment_plain
+    if refresh:
+        kernel_fn, twin_fn = refreshed(kernel_fn), refreshed(twin_fn)
 
     def rate(a, b):
         return ((a[4] == b[4]).all(1) & (a[5] == b[5])).float().mean().item()
@@ -788,13 +825,12 @@ def k3_wide(dev, card, seeds):
                     for k in ('H', 'A', 'f_seq', 'bu_seq', 'bl_seq')]
             s1, duq, dlq = cs.mpc_warm_segment(args, st)
             K = s1.E.shape[1]
-            kern = slot.run_mpc_segment(s1, duq, dlq, st, n, steps=cs.STEPS)
-            twin = slot.run_mpc_segment_plain(s1, duq, dlq, st, n,
-                                              steps=cs.STEPS)
+            kern = kernel_fn(s1, duq, dlq, st, n, steps=cs.STEPS)
+            twin = twin_fn(s1, duq, dlq, st, n, steps=cs.STEPS)
             s64 = type(s1)(*(v.double() if v.is_floating_point() else v
                              for v in s1))
-            ref = slot.run_mpc_segment_plain(s64, duq.double(), dlq.double(),
-                                             st, n, steps=cs.STEPS)
+            ref = twin_fn(s64, duq.double(), dlq.double(), st, n,
+                          steps=cs.STEPS)
             all3 = ((kern[4] == ref[4]).all(1) & (twin[4] == ref[4]).all(1)
                     & (ref[4] == dt.EXIT_OPTIMAL).all(1))
 
@@ -802,7 +838,8 @@ def k3_wide(dev, card, seeds):
                 return cs.gmax((x[1].double() - ref[1]).abs().amax((1, 2))[
                     all3].cpu().numpy())
             print(json.dumps({
-                "k3_wide": seed, "S": S, "n": n, "m": m, "K": K,
+                "k3_wide": seed, "refresh": refresh, "S": S, "n": n,
+                "m": m, "K": K,
                 "body": cs.BLOCK_BODY,
                 "kernel_vs_twin": rate(kern, twin),
                 "kernel_vs_f64": rate(kern, ref),
@@ -815,9 +852,11 @@ def k3_wide(dev, card, seeds):
 
 
 def main():
+    if sys.argv[1:2] == ["--k3-wide"]:
+        seeds = [int(v) for v in sys.argv[2:] if not v.startswith("--")]
+        refresh = "--refresh" in sys.argv
     if sys.argv[1:2] == ["--k3-wide"] and "--cpu" in sys.argv:
-        k3_wide(torch.device("cpu"), "cpu",
-                [int(v) for v in sys.argv[2:] if v != "--cpu"])
+        k3_wide(torch.device("cpu"), "cpu", seeds, refresh)
         return 0
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -840,7 +879,7 @@ def main():
         print(card, flush=True)
         return 0
     if sys.argv[1:2] == ["--k3-wide"]:
-        k3_wide(dev, card, [int(v) for v in sys.argv[2:]])
+        k3_wide(dev, card, seeds, refresh)
         print(card, flush=True)
         return 0
     if sys.argv[1:2] == ["--tail"]:

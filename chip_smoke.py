@@ -77,7 +77,7 @@ before and read just after:
   2's gate (K1), its first 256 through ``solve_batch`` in f32 (the
   kernel route: K1, K2) and in f64 (the flat tier), the reference grid
   (``scripts/grid_accuracy.py``'s sizes, n = 100, 200, 500) as batches
-  through ``solve_batch`` (the flat route: K1, K1, B10), no lane flagged
+  through ``solve_batch`` (the flat route: K1, B10, B10), no lane flagged
   1 beyond 1e-4, then ``backstop_resolve``: every lane within 1e-4;
   config 3's scenario 0 through ``solve_mpc_scan`` against the f64
   oracle, and config 5's first 8 MIQPs in f64 through
@@ -886,44 +886,55 @@ def in_turns(first, second, reps, rounds=2):
     """Mean ms of ``reps`` calls of each function, timed in turns
     (first, second, second, first) ``rounds`` times: {"first": [...],
     "second": [...]}."""
-    out = {"first": [], "second": []}
+    return turns({"first": first, "second": second}, reps, rounds)
+
+
+def turns(fns, reps, rounds=2):
+    """Mean ms of ``reps`` calls of each function of ``fns`` (name:
+    function), timed in turns (the names in order, then reversed)
+    ``rounds`` times: {name: [...]}."""
+    out = {k: [] for k in fns}
     for _ in range(rounds):
-        for key in ("first", "second", "second", "first"):
-            fn = first if key == "first" else second
-            out[key].append(cuda_ms(fn, reps))
+        for key in [*fns, *reversed(fns)]:
+            out[key].append(cuda_ms(fns[key], reps))
+    return out
+
+
+def warp_launch(H, per_block, P, out=None):
+    """K1 through its C entry at (matrices a block, warps a matrix) on
+    ``H``, counted nowhere (chol.warp_shape's choice is bypassed)."""
+    out = torch.empty_like(H) if out is None else out
+    _build.check(_build.library().chol_rinv_f32(
+        H.data_ptr(), out.data_ptr(), H.shape[0], H.shape[1], per_block, P,
+        chol.TINY, torch.cuda.current_stream().cuda_stream), "chol_rinv_f32")
     return out
 
 
 def warp_shapes(H, cases, seed, reps=20):
-    """K1 at each (B, n) of ``cases`` in both launch shapes that
-    chol.warp_shape chooses between: one warp a matrix (chol.warp_tile
-    matrices a block) and chol.WARP_SMALL_P warps a matrix, a block each,
-    timed in turns through the C entry (these launches count nothing), on
-    the first B of the config-2 Hessians ``H`` at their n, else on A A' +
-    n I.  Both must give the same output bit for bit.  (passes,
-    {"BxN": fields})."""
-    lib = _build.library()
+    """K1 at each (B, n) of ``cases`` in the launch shapes chol.warp_shape
+    chooses between: one warp a matrix (chol.warp_tile matrices a block)
+    and each P of chol.WARP_P warps a matrix, a block each, all of them
+    bit for bit equal, the first timed in turns with the shape
+    warp_shape picks, through the C entry (these launches count
+    nothing), on the first B of the config-2 Hessians ``H`` at their n,
+    else on A A' + n I.  (passes, {"BxN": fields})."""
     limit, n_sm = smem.available(H.device), smem.sms(H.device)
     ok, out = True, {}
     for Bn, n in cases:
         Hb = H[:Bn].contiguous() if n == H.shape[1] \
             else spd_batch(Bn, n, seed + n, H.device)
         w = chol.warp_tile(Bn, n, limit, n_sm)
-
-        def launch(per_block, P, R):
-            _build.check(lib.chol_rinv_f32(
-                Hb.data_ptr(), R.data_ptr(), Bn, n, per_block, P, chol.TINY,
-                torch.cuda.current_stream().cuda_stream), "chol_rinv_f32")
-
-        R1, R4 = torch.empty_like(Hb), torch.empty_like(Hb)
-        t = in_turns(lambda: launch(w, 1, R1),
-                     lambda: launch(1, chol.WARP_SMALL_P, R4), reps)
-        same = torch.equal(R1, R4)
+        pick = chol.warp_shape(Bn, n, limit, n_sm)
+        R1, Rp = warp_launch(Hb, w, 1), torch.empty_like(Hb)
+        same = all(torch.equal(R1, warp_launch(Hb, 1, P))
+                   for P in chol.WARP_P)
+        t = in_turns(lambda: warp_launch(Hb, w, 1, R1),
+                     lambda: warp_launch(Hb, *pick, Rp), reps)
         ok = ok and same
         out[f"{Bn}x{n}"] = dict(per_block=w, warp_ms=t["first"],
-                                block_ms=t["second"], equal=same,
-                                picks=chol.warp_shape(Bn, n, limit, n_sm))
-        del Hb, R1, R4
+                                pick_ms=t["second"], equal=same,
+                                picks=pick)
+        del Hb, R1, Rp
     return ok, out
 
 
@@ -960,10 +971,11 @@ def sweep(cases, *args):
 
 
 def k1_sweep(H, dev, gen):
-    """k1's sweep: FACTOR_WIDTHS against the twin, both launch shapes at
-    SHAPE_CASES, then K1 on the Hessians of the flat grid's batches that
-    it factors (FLAT_GRID at n = 100 and 200, B = 64 and 16) against the
-    twin and timed in turns with the library, beside the bound."""
+    """k1's sweep: FACTOR_WIDTHS against the twin, the launch shapes at
+    SHAPE_CASES, then K1 on the Hessians of the flat grid's batches at n
+    = 100 and 200 (FLAT_GRID, B = 64 and 16) against the twin, bit for
+    bit the one-warp and the 4-warp shape, and timed in turns with the
+    library and B10, beside the bound."""
     ok_w, by_n = width_cases(chol.chol_rinv, chol.chol_rinv_plain,
                              FACTOR_WIDTHS, SEED, dev, False)
     ok_s, shapes = warp_shapes(H, SHAPE_CASES, SEED)
@@ -972,10 +984,18 @@ def k1_sweep(H, dev, gen):
         Hg = grid_batch(gen, n, m, ms, nact, Bn)[1][0]
         good, f = factor_case(chol.chol_rinv, chol.chol_rinv_plain, Hg,
                               twin_reps=1)
-        t = in_turns(lambda: library_rinv(Hg), lambda: chol.chol_rinv(Hg),
-                     20, rounds=3)
-        f["turns_ms"] = dict(library=t["first"], kernel=t["second"])
-        ok_g = ok_g and good
+        Rk = chol.chol_rinv(Hg)
+        w = chol.warp_tile(Bn, n, smem.available(Hg.device),
+                           smem.sms(Hg.device))
+        f["picks"] = chol.warp_shape(Bn, n, smem.available(Hg.device),
+                                     smem.sms(Hg.device))
+        f["equals_warp"] = torch.equal(Rk, warp_launch(Hg, w, 1))
+        f["equals_4_warps"] = torch.equal(Rk, warp_launch(Hg, 1, 4))
+        f["turns_ms"] = turns({"library": lambda: library_rinv(Hg),
+                               "kernel": lambda: chol.chol_rinv(Hg),
+                               "b10": lambda: chol.chol_rinv_blk(Hg)},
+                              20, rounds=3)
+        ok_g = ok_g and good and f["equals_warp"] and f["equals_4_warps"]
         grid[f"{Bn}x{n}"] = f
     return ok_w and ok_s and ok_g, dict(widths=by_n, shapes=shapes,
                                         grid=grid)
@@ -3318,7 +3338,7 @@ def phase_flat(head, x_head, d64_head, gen, d3, d5, st, card):
     FLAT_ROUTE lanes through ``solve_batch`` in f32 (the kernel route: K2,
     no flat round) and in f64 (the flat tier: no kernel, within F64_TOL);
     (c) the reference grid's sizes through ``solve_batch`` (the flat route:
-    K1 at n = 100 and 200, B10 at n = 500), no lane flagged 1 beyond
+    K1 at n = 100, B10 at n = 200 and 500), no lane flagged 1 beyond
     ACC_TOL, then ``backstop_resolve``: every lane flag 1 within ACC_TOL;
     B10 and the library timed on the n = 500 batch; (d) config 3's
     scenario 0 through ``solve_mpc_scan`` against the f64 oracle per step
@@ -3377,7 +3397,7 @@ def phase_flat(head, x_head, d64_head, gen, d3, d5, st, card):
 
     # (c) the reference grid as batches, past the kernels' blocks
     routes = {n: chol.factor_route(n, limit) for n in (
-        WARP_LIMIT, WARP_LIMIT + 1, B10_LIMIT, B10_LIMIT + 1)}
+        chol.WARP_ROUTE_N, chol.WARP_ROUTE_N + 1, B10_LIMIT, B10_LIMIT + 1)}
     ok = ok and list(routes.values()) == ["k1", "b10", "b10", "library"]
     out["factor_routes"] = routes
     for n, m, ms, nact, Bn in FLAT_GRID:

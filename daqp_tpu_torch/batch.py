@@ -459,10 +459,10 @@ def batch_route(dtype, n: int, m: int, has_soft: bool, has_sw: bool,
     shapes before anything is launched on a card whose blocks may opt in
     to ``limit`` bytes of shared memory: "kernel" (the stream: K1, then
     K2, or B7 / B7-sw with soft rows or SOFT_WEIGHTS data) for an f32
-    batch that K1 factors (``chol.factor_route``) and whose LDP block
-    fits (``smem.slot_floats`` at K = n + 1, ``smem.dense_floats``);
+    batch that K1 or B10 factors (``chol.factor_route``) and whose LDP
+    block fits (``smem.slot_floats`` at K = n + 1, ``smem.dense_floats``);
     "flat" for the rest: f64 batches and shapes past a block."""
-    if dtype != torch.float32 or chol.factor_route(n, limit) != "k1":
+    if dtype != torch.float32 or chol.factor_route(n, limit) == "library":
         return "flat"
     floats = smem.dense_floats(m, n, has_sw) if has_soft or has_sw \
         else smem.slot_floats(m, n, n + 1)

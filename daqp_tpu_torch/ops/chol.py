@@ -19,7 +19,7 @@ clamped to ``TINY``:
   twin ``chol_rinv_blk_plain``, whose order no panel width changes (the
   kernel's panels are 32 wide);
 * ``batched_rinv_regularized`` (:779), dispatched by n
-  (``factor_route``): K1 up to n = 256, B10 while its block fits, the
+  (``factor_route``): K1 up to n = 128, B10 while its block fits, the
   library's Cholesky beyond;
 * in torch ops, as the JAX package leaves them to XLA:
   ``batched_chol_rinv`` (:843), ``batched_invsqrt`` (:84) and
@@ -48,8 +48,9 @@ LANES_BUDGET = 48 * 1024            # B8's preferred bytes of shared memory
 WARP_TILES = (8, 4, 2, 1)           # K1's and B9's matrices (warps) a block
 WARP_BUDGET = 48 * 1024             # their preferred bytes of shared memory
 WARP_MAX_N = 256                    # chol_warp.cuh: 32 kMaxGroups columns
-WARP_SMALL_P = 4                    # chol_warp.cuh kSmallP
-WARP_SMALL_PER_SM = 10              # warp_shape's switch (matrices an SM)
+WARP_ROUTE_N = 128                  # factor_route's K1 columns, then B10
+WARP_P = (4, 8)                     # chol_warp.cuh kWarpsP: warps a matrix
+WARP_SMALL_PER_SM = 8               # warp_shape's switch (matrices an SM)
 # kernel launches of chol_rinv (K1), chol_rinv_lanes (B8), chol_rinv_dense
 # (B9) and chol_rinv_blk (B10); the caller resets them
 launches = 0
@@ -223,17 +224,20 @@ def warp_tile(B: int, n: int, limit: int, sms: int) -> int:
 def warp_shape(B: int, n: int, limit: int, sms: int) -> tuple[int, int]:
     """K1's and B9's (matrices a block, warps a matrix).  A batch of at
     most ``WARP_SMALL_PER_SM`` matrices an SM (config 4's retry batch of
-    256, the stages batches of 1024), or a width at which ``warp_tile``
-    puts one matrix in a block (n >= 99): one matrix a block, of
-    ``WARP_SMALL_P`` warps, which share each step.  A larger batch at a
-    smaller width: one warp a matrix, ``warp_tile`` matrices a block.
-    Both shapes give the same bits.  On an H100 (PERF.md §6) the
-    two cross between 10 and 12 matrices an SM at n = 50, and at one
-    matrix a block 4 warps are 1.4× (n = 100) to 2.1× (n = 200) faster."""
+    256, the flat grid's batches, the stages batches of 1024), or a width
+    at which ``warp_tile`` puts one matrix in a block (n >= 99): one
+    matrix a block (``chol_wide``), of the fewest warps of ``WARP_P``
+    that give each column group of 32 a warp (4 up to n = 128, then 8).
+    A larger batch at a smaller width: one warp a matrix, ``warp_tile``
+    matrices a block.  Every shape gives the same bits.  On an H100
+    (PERF.md §6) 4 warps beat 8, 16 and 32 at every B of 16-1024
+    up to n = 128, 8 beat them past it, and at n = 50 4 warps lead one
+    warp a matrix at B = 1024 (7.8 matrices an SM) and trail it at 1320
+    (10)."""
     w = warp_tile(B, n, limit, sms)
-    if B <= WARP_SMALL_PER_SM * sms or w == 1:
-        return 1, WARP_SMALL_P
-    return w, 1
+    if B > WARP_SMALL_PER_SM * sms and w > 1:
+        return w, 1
+    return 1, next((p for p in WARP_P if 32 * p >= n), WARP_P[-1])
 
 
 def _warp_launch(fn: str, entry: str, H: torch.Tensor) -> torch.Tensor:
@@ -247,8 +251,9 @@ def _warp_launch(fn: str, entry: str, H: torch.Tensor) -> torch.Tensor:
                          f"a warp's lanes hold")
     per_block, P = warp_shape(B, n, smem.available(H.device),
                               smem.sms(H.device))
-    smem.check(fn, dict(n=n, per_block=per_block),
-               smem.chol_warp_floats(n, per_block), H.device)
+    smem.check(fn, dict(n=n, per_block=per_block, P=P),
+               smem.chol_warp_floats(n, per_block) if P == 1
+               else smem.chol_wide_floats(n), H.device)
     out = torch.empty_like(H)
     if B > 0:
         _build.check(getattr(_build.library(), entry)(
@@ -394,12 +399,16 @@ def pivot_ok(Rinv: torch.Tensor, sqrt_zt: torch.Tensor) -> torch.Tensor:
 def factor_route(n: int, limit: int) -> str:
     """The factorization ``batched_rinv_regularized`` runs at width n on a
     card whose blocks may opt in to ``limit`` bytes of shared memory:
-    "k1" (``chol_rinv``) up to ``WARP_MAX_N`` columns while its block of
-    one matrix fits, "b10" (``chol_rinv_blk``) while its block fits
+    "k1" (``chol_rinv``) up to ``WARP_ROUTE_N`` columns while its block
+    of one matrix fits, "b10" (``chol_rinv_blk``) while its block fits
     (n <= 1581 on an H100), else "library" (``library_rinv``: the JAX
     package factors in XLA outside any Pallas kernel,
-    ``daqp_tpu/transform.py:57``)."""
-    if n <= WARP_MAX_N and smem.F32 * smem.chol_warp_floats(n, 1) <= limit:
+    ``daqp_tpu/transform.py:57``).  On an H100 (PERF.md §6, in turns at
+    B = 16-1024) K1 beats B10 and the library in every pairing
+    up to n = 128; past it B10 beats K1 in every pairing but at B = 64
+    (n = 150-200, within 0.2% either way between runs), B = 256 (n =
+    150-200) and n = 150, B = 1024, where K1 leads by 4-11%."""
+    if n <= WARP_ROUTE_N and smem.F32 * smem.chol_wide_floats(n) <= limit:
         return "k1"
     if smem.F32 * smem.chol_blk_floats(n) <= limit:
         return "b10"

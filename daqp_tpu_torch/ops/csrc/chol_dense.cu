@@ -21,7 +21,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 chol_dense_kernel(const float* __restrict__ H, float* __restrict__ Rinv,
                   int B, int n, float tiny) {
   extern __shared__ float smem[];
-  chol_warp<G, P>(H, Rinv, B, n, tiny, smem);
+  chol_body<G, P>(H, Rinv, B, n, tiny, smem);
 }
 
 // its instances, for launch_warp

@@ -12,8 +12,9 @@
 // X[k][c] left of the diagonal and inv = 1 / L[i][i] on it.  That order
 // is B9's too, and K1 runs the warp per matrix it shares with B9
 // (chol_warp.cuh: design and bound): config 2's 10240 matrices run a
-// warp each, 8 a block; config 4's retry batch of 256 runs 4 warps a
-// matrix, a block each, which shortens the matrix's chain of steps.
+// warp each, 8 a block; config 4's retry batch of 256 and the flat
+// grid's batches run one matrix a block of 4 or 8 warps (chol_wide),
+// which shortens each launch's chain of steps.
 #include "chol_warp.cuh"
 
 namespace {
@@ -23,7 +24,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 chol_rinv_kernel(const float* __restrict__ H, float* __restrict__ Rinv,
                  int B, int n, float tiny) {
   extern __shared__ float smem[];
-  chol_warp<G, P>(H, Rinv, B, n, tiny, smem);
+  chol_body<G, P>(H, Rinv, B, n, tiny, smem);
 }
 
 // its instances, for launch_warp

@@ -8,7 +8,8 @@ and columns (``slot_warp_smem_floats``, ``slot_warp.cuh``, plus the
 kernel's arrays, one lane a block; each C entry takes its warp body where
 that block fits the card's opt-in, ``warp_body``), ``dense_smem_floats``
 (``dense_round.cu``, B7), the packed triangles, a warp each, and the
-table of the block that K1 and B9 share (``chol_warp.cuh warp_floats``),
+table of the block that K1 and B9 share (``chol_warp.cuh warp_floats``)
+or their one matrix a block of several warps (``wide_floats``),
 B8's packed triangles of a lane tile (``chol_lanes.cu Lanes::floats``)
 and B10's panel or phase-2 stages (``chol_blk.cu Blk::floats``).
 A lane that needs more than the card lets one block opt in to raises
@@ -121,6 +122,14 @@ def chol_warp_floats(n: int, per_block: int) -> int:
     words."""
     t = n * (n + 1) // 2
     return per_block * t + (t + 1) // 2
+
+
+def chol_wide_floats(n: int) -> int:
+    """K1 and B9 at one matrix a block of several warps
+    (``wide_floats``): the packed triangle, 4 floats for the reads of
+    four rows past the last one, and 16 of the diagonal block's
+    scratch."""
+    return n * (n + 1) // 2 + 4 + 16
 
 
 def blk_threads(n: int) -> int:

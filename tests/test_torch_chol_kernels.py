@@ -172,6 +172,10 @@ def test_xla_formulations_match_jax(name, B, n, rtol):
     ("B10", smem.chol_blk_floats(1582), False),
     ("K1", smem.chol_warp_floats(256, 1), True),
     ("K1", smem.chol_warp_floats(53, 8), True),
+    ("K1", smem.chol_wide_floats(200), True),
+    ("K1", smem.chol_wide_floats(256), True),
+    ("K1", smem.chol_wide_floats(340), True),
+    ("K1", smem.chol_wide_floats(341), False),
     ("B9", smem.chol_warp_floats(73, 4), True),
     ("B9", smem.chol_warp_floats(98, 2), True),
     ("K2", smem.slot_floats(100, 50, 51), True),
@@ -351,24 +355,41 @@ def test_lanes_mirror_reads_kernel_constants():
 
 def test_warp_mirror_reads_kernel_constants():
     # smem.chol_warp_floats is chol_warp.cuh's warp_floats, the block of K1
-    # and B9; the wrappers' column limit is its kMaxGroups groups of 32,
-    # their matrices a block and a small batch's warps a matrix the ones
-    # its shape_ok takes; its kernel_for picks 1, 2, 4, 8 column groups up
-    # to n = 32, 64, 128, 256, and each kernel's C entry launches through
-    # it with that kernel's instances (kernel source text, no nvcc)
+    # and B9 at one warp a matrix, and smem.chol_wide_floats its
+    # wide_floats, their one matrix a block of P warps; the wrappers'
+    # column limit is its kMaxGroups groups of 32, their matrices a block
+    # and warps a matrix (chol.WARP_P, its kWarpsP) the ones its shape_ok
+    # takes and its kernel_for dispatches; kernel_for picks 1, 2, 4, 8
+    # column groups up to n = 32, 64, 128, 256, and each kernel's C entry
+    # launches through it with that kernel's instances (kernel source
+    # text, no nvcc)
     csrc = Path(pchol.__file__).parent / "csrc"
     src = (csrc / "chol_warp.cuh").read_text()
     c = _consts(src)
     assert 32 * c["kMaxGroups"] == pchol.WARP_MAX_N
     assert c["kMaxWarps"] == max(pchol.WARP_TILES)
-    assert c["kSmallP"] == pchol.WARP_SMALL_P
+    warps_p = re.search(r"constexpr int kWarpsP\[\] = \{(.*?)\};", src)
+    assert tuple(int(v) for v in warps_p.group(1).split(",")) == \
+        pchol.WARP_P
+    assert re.findall(r"P == (\d+)\s*\? kernel_for<K, \1>\(n\)", src) == \
+        ["1"] + [str(p) for p in pchol.WARP_P[:-1]]
+    assert re.search(r": kernel_for<K, (\d+)>\(n\);", src).group(1) == \
+        str(pchol.WARP_P[-1])
     assert re.findall(r"n <= (\d+)\s*\? K::template at<(\d+), P>\(\)", src) \
         == [("32", "1"), ("64", "2"), ("128", "4")]
     assert re.search(r": K::template at<(\d+), P>\(\);", src).group(1) == \
         str(c["kMaxGroups"])
     assert "n <= 32 * kMaxGroups && per_block >= 1 && per_block <= kMaxWarps" \
         in src
-    assert "(P == 1 || (P == kSmallP && per_block == 1))" in src
+    assert "(P == 1 || (wide && per_block == 1))" in src
+    assert "return P == 1 ? warp_floats(n, per_block) : wide_floats(n);" \
+        in src
+    wide = re.search(r"size_t wide_floats\(int n\) \{\s*return (.*?);", src,
+                     re.S).group(1)
+    for n in (1, 10, 12, 20, 50, 99, 100, 150, 200, 240, 256, 340):
+        assert eval(re.sub(r"static_cast<size_t>\((\w+)\)", r"\1", wide)
+                    .replace("/", "//"), {}, {"n": n}) == \
+            smem.chol_wide_floats(n)
     for kernel, name, entry in (("chol_rinv.cu", "chol_rinv_kernel", "K1"),
                                 ("chol_dense.cu", "chol_dense_kernel", "B9")):
         ksrc = (csrc / kernel).read_text()
@@ -465,16 +486,20 @@ def test_warp_tile_fits_and_gives_every_sm_a_block(B, n, warps):
             or -(-B // (2 * w)) < H100_SMS
 
 
-# A batch of at most 10 matrices an SM runs one matrix of 4 warps a
-# block (config 4's retry batch of 256, the stages batches of 1024,
-# limits' 64 at n = 256), and so does a width whose warp_tile is 1 (n >=
-# 99); a larger batch at a smaller width a warp a matrix, warp_tile
-# matrices a block.
+# A batch of at most 8 matrices an SM runs one matrix a block (config
+# 4's retry batch of 256, the flat grid's 64 at n = 100 and 16 at n = 200,
+# the stages batches of 1024, limits' 64 at n = 256), and so does a width
+# whose warp_tile is 1 (n >= 99), of 4 warps up to n = 128 and 8 past it
+# (a warp each column group of 32, at least 4); a larger batch at a
+# smaller width a warp a matrix, warp_tile matrices a block.
 @pytest.mark.parametrize("B,n,shape", [
-    (256, 50, (1, 4)), (1024, 50, (1, 4)), (1320, 50, (1, 4)),
-    (1321, 50, (8, 1)), (10240, 50, (8, 1)), (64, 256, (1, 4)),
+    (256, 50, (1, 4)), (1024, 50, (1, 4)), (1320, 50, (8, 1)),
+    (1321, 50, (8, 1)), (10240, 50, (8, 1)), (64, 256, (1, 8)),
+    (1056, 50, (1, 4)), (1057, 50, (8, 1)),
     (1024, 100, (1, 4)), (2048, 80, (2, 1)), (2048, 98, (2, 1)),
-    (2048, 99, (1, 4)), (1, 10, (1, 4))])
+    (2048, 99, (1, 4)), (1, 10, (1, 4)), (16, 200, (1, 8)),
+    (64, 100, (1, 4)), (16, 50, (1, 4)), (1024, 128, (1, 4)),
+    (1024, 129, (1, 8)), (2048, 129, (1, 8)), (256, 240, (1, 8))])
 def test_warp_shape_small_batch_shares_a_matrix(B, n, shape):
     assert pchol.warp_shape(B, n, H100_SMEM, H100_SMS) == shape
     w = pchol.warp_tile(B, n, H100_SMEM, H100_SMS)
@@ -482,6 +507,29 @@ def test_warp_shape_small_batch_shares_a_matrix(B, n, shape):
         assert shape[0] == w > 1
     else:
         assert B <= pchol.WARP_SMALL_PER_SM * H100_SMS or w == 1
+        assert shape[1] in pchol.WARP_P and (32 * shape[1] >= n or
+                                             shape[1] == pchol.WARP_P[-1])
+        assert shape[1] == pchol.WARP_P[0] or 32 * shape[1] // 2 < n
+
+
+# batched_rinv_regularized's factorization by width on an H100, set from
+# K1, B10 and the library timed in turns at B = 16-1024 (PERF.md §6):
+# K1 to n = 128, B10 while its block fits, then the library; the
+# kernel stream still takes an f32 batch that B10 factors where K2's
+# block fits (n = 129, m = 100), as it did on K1
+@pytest.mark.parametrize("n,route", [
+    (10, "k1"), (50, "k1"), (100, "k1"), (128, "k1"), (129, "b10"),
+    (150, "b10"), (200, "b10"), (256, "b10"), (257, "b10"), (1581, "b10"),
+    (1582, "library")])
+def test_factor_route_from_measurement(n, route):
+    assert pchol.factor_route(n, H100_SMEM) == route
+    assert n > pchol.WARP_ROUTE_N or route == "k1"
+    kernel = pbatch.batch_route(torch.float32, n, 100, False, False,
+                                H100_SMEM)
+    assert kernel == ("kernel" if 4 * smem.slot_floats(100, n, n + 1)
+                      <= H100_SMEM and route != "library" else "flat")
+    if n == 129:
+        assert kernel == "kernel"
 
 
 @pytest.mark.parametrize("wrapper,twin,count", [
