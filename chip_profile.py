@@ -54,9 +54,11 @@ against the mean (its lane, cycles, steps and retries), the blocks'
 spread on the global timer, the registers and spills ptxas gave the
 probed and the normal kernel, the normal kernel's resident blocks per
 SM (the occupancy calculator; B3 and B4) and waves, and the
-instrumented launch's time beside the normal kernel's.  ``k3`` probes
+instrumented launch's time beside the normal kernel's, and the slowest
+block's own SM cycles per step of each phase.  ``k3`` probes
 ``chip_smoke.py``'s k3 segment (config 3's one B3 launch, warm segment
-1); ``k4`` the cold config-4 segment of k4 and the last B4 launch of one
+1) on the horizon body and on the 128-thread body (the horizon body's
+probe build without its 4-blocks cap: under it the counters spill); ``k4`` the cold config-4 segment of k4 and the last B4 launch of one
 config-4 solve; ``k5`` the cold k5 segment (configAVI, B = 256) and the
 last B5 launch of one configAVI solve (its tail: the lanes still running
 after the others finished); ``k6`` k6's cold configLP segment.  Each
@@ -149,7 +151,7 @@ UNIT_WORDS = 4          # chol_probe.cuh kUnitWords: cycles, SM, start, end
 KERNELS = ("chol_rinv", "chol_lanes", "chol_dense", "chol_blk",
            "slot_round", "mpc_segment", "prox_segment", "avi_segment",
            "lp_segment", "dense_round", "lp_segment_warp",
-           "avi_segment_warp")
+           "avi_segment_warp", "mpc_segment_horizon")
 
 
 def device_us(evt):
@@ -276,20 +278,27 @@ def bind(lib, entry):
     getattr(lib, entry).restype = ctypes.c_int
 
 
+_probe_libs = {}
+
+
 def probe_library(case, source, entry, occupancy=False):
     """The kernel of ``source`` built alone with the cycle probe compiled
     in (``-DSLOT_PROBE``), bound by ctypes; also returns ptxas's -v output
     and, with ``occupancy``, a second library built in parallel from the
     same source without the probe's marks (``-DSEG_OCCUPANCY``), whose
     ``<kernel>_occupancy`` entry reads the normal kernel's resident blocks
-    per SM (else None)."""
+    per SM (else None).  Built once a process."""
+    if (case, occupancy) in _probe_libs:
+        return _probe_libs[case, occupancy]
     variants = {"probe": [*_build.NVCC_FLAGS, "-DSLOT_PROBE"]}
     if occupancy:
         variants["occupancy"] = [*_build.NVCC_FLAGS, "-DSEG_OCCUPANCY"]
     libs = build_alone(case, source, variants)
     lib, log = libs["probe"]
     bind(lib, entry)
-    return lib, log, libs["occupancy"][0] if occupancy else None
+    out = lib, log, libs["occupancy"][0] if occupancy else None
+    _probe_libs[case, occupancy] = out
+    return out
 
 
 def swapped(lib, fn):
@@ -360,10 +369,10 @@ def probe_k2(dev, card):
 
 def occupancy(lib, kernel, shape):
     """Resident blocks per SM of ``kernel`` (B3 or B4) at ``shape`` (m, n,
-    K), by the occupancy calculator, from ``probe_library``'s occupancy
-    library ``lib``."""
+    K; B3 also its body, as its C entry takes it), by the occupancy
+    calculator, from ``probe_library``'s occupancy library ``lib``."""
     fn = getattr(lib, f"{kernel}_occupancy")
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * len(shape) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
     _build.check(fn(*shape, ctypes.addressof(blocks)), f"{kernel}_occupancy")
@@ -403,15 +412,25 @@ def block_fields(blocks, retries, B):
         slowest_block_us=float(end[slow] - start[slow]) / 1e3)
 
 
+def seg_probe_words():
+    """The buffer of ``seg_probe_read`` (segment.cuh): the step's words,
+    the segment's, each block's, each block's retries, each block's step
+    words (cycles per phase, then its steps)."""
+    nstep, nseg = len(PROBE_PHASES) + 1, len(SEG_PHASES) + 2
+    return (ctypes.c_ulonglong * (nstep + nseg + PROBE_BLOCKS * (
+        BLOCK_WORDS + 1 + nstep)))()
+
+
 def probe_segment(case, source, entry, launch, name, B, card,
-                  kernel=None, shape=None):
+                  kernel=None, shape=None, body=None):
     """One instrumented launch of a segment kernel: ``launch`` is the
     wrapper's call, run once on the normal library and on the probe's
     (swapped in as the wrapper's library); prints the cycles per pass of
     each segment phase, of each step phase per step, the blocks'
-    spread, ptxas's registers (B6: of both bodies) and, for B3 / B4
-    (``kernel`` at ``shape`` (m, n, K)), resident blocks per SM, and the
-    times."""
+    spread, ptxas's registers (B5, B6: of both bodies; B3: of ``body``'s
+    kernel, ``mpc_segment_<body>`` past the 128-thread one) and, for B3 /
+    B4 (``kernel`` at ``shape`` (m, n, K[, body])), resident blocks per
+    SM, and the times."""
     lib, log, occ = probe_library(case, source, entry, kernel is not None)
     for fn in (lib.seg_probe_read, lib.seg_probe_reset):
         fn.restype = ctypes.c_int
@@ -424,14 +443,16 @@ def probe_segment(case, source, entry, launch, name, B, card,
     torch.cuda.synchronize()
     nstep = len(PROBE_PHASES) + 1
     nseg = len(SEG_PHASES) + 2
-    words = (ctypes.c_ulonglong * (nstep + nseg
-                                   + PROBE_BLOCKS * (BLOCK_WORDS + 1)))()
+    words = seg_probe_words()
     _build.check(lib.seg_probe_read(ctypes.addressof(words)),
                  "seg_probe_read")
     step, seg = list(words[:nstep]), list(words[nstep:nstep + nseg])
-    blocks = words[nstep + nseg:nstep + nseg + PROBE_BLOCKS * BLOCK_WORDS]
-    retries = words[nstep + nseg + PROBE_BLOCKS * BLOCK_WORDS:]
-    kern = source[:-3]
+    at = nstep + nseg + PROBE_BLOCKS * BLOCK_WORDS
+    blocks = words[nstep + nseg:at]
+    retries = words[at:at + PROBE_BLOCKS]
+    block_steps = np.asarray(words[at + PROBE_BLOCKS:], np.float64).reshape(
+        PROBE_BLOCKS, nstep)
+    kern = source[:-3] + (f"_{body}" if body not in (None, "block") else "")
     nlog = _build.BUILD_DIR / "nvcc.log"
     normal_log = nlog.read_text() if nlog.exists() else ""
     resident = {}
@@ -447,8 +468,15 @@ def probe_segment(case, source, entry, launch, name, B, card,
     pass_total = sum(per_pass.values())
     per_step = {ph: step[i] / max(steps, 1)
                 for i, ph in enumerate(PROBE_PHASES) if i > 0}
+    # the slowest block's own steps (the tail lane's, where one sets the
+    # launch)
+    bf = block_fields(blocks, retries, B)
+    tail = block_steps[bf["slowest"]["lane"]]
+    tail_step = {ph: tail[i] / max(tail[-1], 1)
+                 for i, ph in enumerate(PROBE_PHASES) if i > 0}
     print(json.dumps({
-        "probe": case, "case": name, "B": B, "blocks_ran": ran,
+        "probe": case, "case": name, **({"body": body} if body else {}),
+        "B": B, "blocks_ran": ran,
         "passes": passes, "steps": steps,
         "steps_per_pass": steps / max(passes, 1),
         "cycles_per_pass": per_pass, "cycles_per_pass_total": pass_total,
@@ -457,11 +485,13 @@ def probe_segment(case, source, entry, launch, name, B, card,
         "step_prefix_cycles_per_pass": step[0] / max(passes, 1),
         "step_cycles_per_step": per_step,
         "step_cycles_per_step_total": sum(per_step.values()),
+        "slowest_step_cycles_per_step": tail_step,
+        "slowest_step_cycles_per_step_total": sum(tail_step.values()),
         "load_cycles_per_block_ran": seg[0] / max(ran, 1),
         "store_cycles_per_block_ran": seg[4] / max(ran, 1),
         "cycles_stopped_total": seg[5],
         "cycles_per_stopped_block": seg[5] / max(B - ran, 1),
-        **block_fields(blocks, retries, B), **resident,
+        **bf, **resident,
         "ptxas": ptxas(normal_log, kern),
         "ptxas_probe": ptxas(log, kern),
         **({"ptxas_warp": ptxas(normal_log, kern + "_warp"),
@@ -473,18 +503,22 @@ def probe_segment(case, source, entry, launch, name, B, card,
 
 
 def probe_k3(dev, card):
-    """B3 at k3's warm segment 1 of config 3, its one launch per call."""
+    """B3 at k3's warm segment 1 of config 3, its one launch per call, on
+    the horizon body (config 3's) and on the 128-thread body."""
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)
     gen = cs.load("daqp_test_gen", "tests/gen.py")
     d3 = cs.config3(gen)
     args = [torch.as_tensor(d3[k], device=dev)
             for k in ('H', 'A', 'f_seq', 'bu_seq', 'bl_seq')]
     s1, duq, dlq = cs.mpc_warm_segment(args, st)
-    probe_segment("k3", "mpc_segment.cu", "mpc_segment_f32",
-                  lambda: slot.run_mpc_segment(s1, duq, dlq, st, cs.N,
-                                               steps=cs.STEPS),
-                  "warm segment 1", cs.S3, card, "mpc_segment",
-                  (cs.M_ROWS, cs.N, cs.N + 1))
+    for body in ("horizon", "block"):
+        probe_segment("k3", "mpc_segment.cu", "mpc_segment_f32",
+                      lambda: slot.run_mpc_segment(s1, duq, dlq, st, cs.N,
+                                                   steps=cs.STEPS,
+                                                   body=body),
+                      "warm segment 1", cs.S3, card, "mpc_segment",
+                      (cs.M_ROWS, cs.N, cs.N + 1, slot.MPC_BODIES[body]),
+                      body)
 
 
 def probe_k4(dev, card):
@@ -744,8 +778,7 @@ def tail_repeat(dev, card, reps):
     launch()
     probed()
     nstep, nseg = len(PROBE_PHASES) + 1, len(SEG_PHASES) + 2
-    words = (ctypes.c_ulonglong * (nstep + nseg
-                                   + PROBE_BLOCKS * (BLOCK_WORDS + 1)))()
+    words = seg_probe_words()
     calls = []
     for _ in range(reps):
         ms = one_call_ms(launch)

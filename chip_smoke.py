@@ -176,6 +176,10 @@ W_STEPS = 30          # twin steps before k2 case w scatters the slots
 STEPS = 192
 # config 3 (bench_extra.py:49-61) and config 4 (bench_extra.py:101-113)
 S3, T3, SEG3, SEED3, DRIFT3 = 512, 20, 10, 7, 0.02
+MARGIN_LANES = 64     # mpc: every step of these scenarios against f64
+# k3's edges of B3's horizon body, config 3's generator at (n, m, rows
+# active): its ceilings (K = n + 1 = 64, m = 128) and a small horizon
+K3_EDGES = ((63, 128, 40), (10, 20, 8))
 B4, RANK4, SEED4 = 256, 30, 11
 K1_RTOL = 1e-4        # max |dRinv| / max |Rinv|, kernel vs twin
 B8_LIMIT = 333        # the largest n whose one-lane B8 block fits an H100
@@ -1226,9 +1230,38 @@ def mpc_warm_segment(args, st):
             dl[:, SEG3:2 * SEG3].contiguous())
 
 
-def phase_k3(args, st):
+def k3_edges(gen, st):
+    """B3's horizon body against its 128-thread body, both from the one
+    library, at each shape of K3_EDGES: config 3's generator at S3 lanes,
+    its warm segment 1, bit for bit and timed in turns.  (ok, records)."""
+    out = []
+    for n, m, nact in K3_EDGES:
+        d = config3(gen, n=n, m=m, nact=nact)
+        a = [torch.as_tensor(d[k], device="cuda")
+             for k in ('H', 'A', 'f_seq', 'bu_seq', 'bl_seq')]
+        s1, duq, dlq = mpc_warm_segment(a, st)
+        fns = {b: (lambda b=b: slot.run_mpc_segment(
+            s1, duq, dlq, st, n, steps=STEPS, body=b))
+            for b in ("horizon", "block")}
+        dig = {}
+        for b, fn in fns.items():
+            o = fn()
+            dig[b] = digest(*o[0], *o[1:])
+        t = in_turns(fns["horizon"], fns["block"], SEG_REPS)
+        out.append(dict(n=n, m=m, K=s1.E.shape[1], digest=dig["horizon"],
+                        equals_block_body=dig["horizon"] == dig["block"],
+                        ms_horizon=t["first"], ms_block=t["second"]))
+        del a, s1, duq, dlq, fns
+    return all(e["equals_block_body"] for e in out), out
+
+
+def phase_k3(args, st, gen):
     """B3 against its twin over the second 10-step segment of all S3
-    lanes, from the warm state after segment 0 of the config-3 run.
+    lanes, from the warm state after segment 0 of the config-3 run; the
+    body config 3 takes (``smem.mpc_horizon``: the horizon body) bit for
+    bit the 128-thread body on the same segment, both from the one
+    library, and timed in turns with it; the same at K3_EDGES
+    (``k3_edges``).
 
     Per-step flags and ``failed`` must agree on K2_AGREE of the lanes.
     u is held against the exact f64 u on each side's own working set: in
@@ -1244,10 +1277,18 @@ def phase_k3(args, st):
     def kernel():
         return slot.run_mpc_segment(s1, duq, dlq, st, N, steps=STEPS)
 
+    def block():
+        return slot.run_mpc_segment(s1, duq, dlq, st, N, steps=STEPS,
+                                    body="block")
+
     def plain():
         return slot.run_mpc_segment_plain(s1, duq, dlq, st, N, steps=STEPS)
 
     sk, uk, fvk, itk, stk, fk = kernel()
+    sb = block()
+    out_digest = digest(*sk, uk, fvk, itk, stk, fk)
+    block_digest = digest(*sb[0], *sb[1:])
+    del sb
     sp, up, _, _, stp, fp = plain()
     flags_agree = (stk == stp).all(1) & (fk == fp)
     agree = flags_agree & (sk.act_up == sp.act_up).all(1) \
@@ -1262,6 +1303,8 @@ def phase_k3(args, st):
     u_ok = bool((ex_k <= 2.0 * ex_p + K2_DU * uscale.cpu().numpy()).all())
     ms = cuda_ms(kernel, SEG_REPS)
     plain_ms = cuda_ms(plain, 1)
+    vs_block = in_turns(kernel, block, SEG_REPS)
+    edges_ok, edges = k3_edges(gen, st)
     # steps a lane ran: every horizon step up to and including the one it
     # froze in (a frozen lane repeats its last record)
     trouble = (stk == dt.EXIT_RUNNING) | (stk == dt.EXIT_CYCLE) \
@@ -1274,19 +1317,46 @@ def phase_k3(args, st):
                 + nbytes(uk, fvk, itk, stk, fk),
                 steps_done * step_flops(M_ROWS, N, K)
                 + live.sum().item() * prefix_flops(N, K))
-    emit("k3", t0, S=S3, P=SEG3, n=N, m=M_ROWS, K=K, body=BLOCK_BODY,
-         steps=STEPS,
+    body = HORIZON_BODY if smem.mpc_horizon(M_ROWS, N, K) else BLOCK_BODY
+    emit("k3", t0, S=S3, P=SEG3, n=N, m=M_ROWS, K=K, body=body,
+         steps=STEPS, block_digest=block_digest,
+         equals_block_body=out_digest == block_digest,
+         ms_in_turns_with_block={"body": vs_block["first"],
+                                 "block": vs_block["second"]},
+         edges=edges,
          flags_agree_rate=rate,
          working_set_agree_rate=agree.float().mean().item(),
          optimal_agreeing=int(opt.sum()), failed_kernel=int((fk > 0).sum()),
          du_inf=du_max, du_rel=du_rel, kernel_vs_exact=gmax(ex_k),
          twin_vs_exact=gmax(ex_p), kernel_within_twin_drift=u_ok,
-         out_digest=digest(*sk, uk, fvk, itk, stk, fk),
+         out_digest=out_digest,
          steps_done=steps_done, ms=ms, plain_ms=plain_ms, **bnd)
-    ok = rate >= K2_AGREE and u_ok
+    ok = rate >= K2_AGREE and u_ok and out_digest == block_digest \
+        and edges_ok
     return ok, dict(max_abs_err=du_max, ms=ms, plain_ms=plain_ms,
                     library_ms=None, bound_ms=bnd["bound_ms"],
                     bound_by=bnd["bound_by"])
+
+
+def oracle_grid(oracle, d3, x, lanes, steps=None):
+    """||x[s, t] - x_ref||_2 and the f64 oracle's exit flag at each step
+    t of ``steps`` of each scenario s of ``lanes`` (arrays (lanes,
+    steps)), or with no ``steps`` at t = s mod T3 alone (arrays
+    (lanes,))."""
+    lanes = list(lanes)
+    ts = [[s % T3] for s in lanes] if steps is None \
+        else [list(steps)] * len(lanes)
+    err = np.zeros((len(lanes), len(ts[0]) if ts else 0))
+    flags = np.zeros(err.shape, np.int64)
+    for i, s in enumerate(lanes):
+        for j, t in enumerate(ts[i]):
+            ref = oracle.quadprog(*(v.astype(np.float64) for v in (
+                d3['H'], d3['f_seq'][s, t], d3['A'], d3['bu_seq'][s, t],
+                d3['bl_seq'][s, t])))
+            flags[i, j] = ref['exitflag']
+            err[i, j] = np.linalg.norm(x[s, t].astype(np.float64)
+                                       - ref['x'])
+    return (err, flags) if steps is not None else (err[:, 0], flags[:, 0])
 
 
 def phase_mpc(args, d3, st, card):
@@ -1308,16 +1378,16 @@ def phase_mpc(args, d3, st, card):
     flags = out.exitflag.cpu().numpy()
     iters = out.iterations.cpu().numpy()
     t_or = time.perf_counter()
-    err, ref_flags = [], []
-    for s in range(S3):
-        t = s % T3
-        ref = oracle.quadprog(*(v.astype(np.float64) for v in (
-            d3['H'], d3['f_seq'][s, t], d3['A'], d3['bu_seq'][s, t],
-            d3['bl_seq'][s, t])))
-        ref_flags.append(ref['exitflag'])
-        err.append(np.linalg.norm(x[s, t].astype(np.float64) - ref['x']))
+    # the margin: every step of the first MARGIN_LANES scenarios; the
+    # gate's pairs (s, s mod T3) past them
+    grid, grid_flags = oracle_grid(oracle, d3, x, range(MARGIN_LANES),
+                                   range(T3))
+    err, ref_flags = oracle_grid(oracle, d3, x, range(MARGIN_LANES, S3))
+    lanes = np.arange(MARGIN_LANES)
+    err = np.concatenate([grid[lanes, lanes % T3], err])
+    ref_flags = np.concatenate([grid_flags[lanes, lanes % T3], ref_flags])
+    one = flags[:MARGIN_LANES] == 1
     oracle_s = time.perf_counter() - t_or
-    err = np.asarray(err)
     fl = flags[np.arange(S3), np.arange(S3) % T3]
     acc = float(np.mean((fl == 1) & (err <= MPC_TOL)))
     silent = int(np.sum((fl == 1) & (err > MPC_TOL)))
@@ -1330,6 +1400,11 @@ def phase_mpc(args, d3, st, card):
          silent_wrong=silent, max_err_optimal=float(err[fl == 1].max())
          if (fl == 1).any() else None,
          oracle_optimal=int(np.sum(np.asarray(ref_flags) == 1)),
+         margin=dict(lanes=MARGIN_LANES, steps=T3,
+                     max_err_flag1=float(grid[one].max()) if one.any()
+                     else None, flag1_steps=int(one.sum()),
+                     flag1_past_gate=int((one & (grid > MPC_TOL)).sum()),
+                     flag1_past_1e3=int((one & (grid > 1e-3)).sum())),
          optimal_rate=float(np.mean(flags == 1)),
          mean_warm_iters=float(iters[:, 1:].mean()),
          qp_steps_per_s=3 * S3 * T3 / best, window_s=best,
@@ -2268,6 +2343,7 @@ def avi_bound(s, carry, ops_, out, steps, passes, n):
 
 
 BLOCK_BODY = "block (128 threads)"
+HORIZON_BODY = "horizon (128 threads; K, n <= 64, m <= 128)"
 
 
 def body(m, n, K, dev, own):
@@ -4206,7 +4282,7 @@ def main():
     d3 = config3(gen)
     args3 = [torch.as_tensor(d3[k], device=dev)
              for k in ('H', 'A', 'f_seq', 'bu_seq', 'bl_seq')]
-    run("k3", phase_k3, args3, st)
+    run("k3", phase_k3, args3, st, gen)
     run("mpc", phase_mpc, args3, d3, st, card)
 
     d4 = config4()

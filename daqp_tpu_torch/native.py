@@ -148,6 +148,9 @@ class NativeModel:
         setup = lib.daqp_tpu_setup_avi if avi else lib.daqp_tpu_setup
         self._lib = lib
         self.n, self.m = n, m
+        # the last bounds the model was given: an update of f alone
+        # passes them, so that the C call rebuilds d = b s + M v
+        self._bu, self._bl = bu.copy(), bl.copy()
         self._w = setup(n, m, ms, _dp(Hh), _dp(f), _dp(A), _dp(bu), _dp(bl),
                         _ip(se))
         if not self._w:
@@ -191,10 +194,22 @@ class NativeModel:
                     iterations=int(iters.value))
 
     def update(self, f=None, bupper=None, blower=None):
-        """The v / d-only MPC re-update (UPDATE_v | UPDATE_d)."""
+        """The v / d-only MPC re-update (UPDATE_v | UPDATE_d).  A bound
+        left out keeps its last value: the C call rebuilds d only from
+        the bounds it is given, so a new f (a new v) with no bounds would
+        leave d = b s + M v on the old v."""
         # the host arrays stay alive in locals across the C call
-        fh, buh, blh = _host(f), _host(bupper), _host(blower)
-        self._lib.daqp_tpu_update(self._w, _dp(fh), _dp(buh), _dp(blh))
+        fh = _host(f)
+        self._keep(bupper, blower)
+        self._lib.daqp_tpu_update(self._w, _dp(fh), _dp(self._bu),
+                                  _dp(self._bl))
+
+    def _keep(self, bupper, blower):
+        """Keep a copy of each bound given (the C library's own copy)."""
+        if bupper is not None:
+            self._bu = _host(bupper).copy()
+        if blower is not None:
+            self._bl = _host(blower).copy()
 
     def update_masked(self, H=None, f=None, A=None, bupper=None,
                       blower=None, sense=None, mask=None):
@@ -218,6 +233,8 @@ class NativeModel:
             _dp(blh), _ip(seh))
         if rc == -100:                       # DAQP_TPU_BADMASK
             raise ValueError("invalid update mask for this workspace")
+        if mask & self.UPDATE_d:            # the C side keeps them too
+            self._keep(buh, blh)
         return int(rc)
 
     def soft_slack(self):

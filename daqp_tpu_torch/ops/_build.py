@@ -48,9 +48,10 @@ _SIGNATURES = {
     "slot_round_f32": [_P, _I, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _F, _F, _I, _P],
     # (host array of 58 device pointers, S, m, n, K, n_true, steps, P,
-    #  the six tolerances, bland, stream)
+    #  the six tolerances, bland, body (-1 by shape, 0 the 128-thread
+    #  body, 1 the horizon body), stream)
     "mpc_segment_f32": [_P, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _F, _F, _F, _F, _F, _I, _P],
+                        _F, _F, _F, _F, _F, _F, _I, _I, _P],
     # (host array of 70 device pointers, B, m, n, K, n_true, steps, P,
     #  the six tolerances, bland, stream)
     "prox_segment_f32": [_P, _I, _I, _I, _I, _I, _I, _I,

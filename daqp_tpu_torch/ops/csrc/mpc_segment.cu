@@ -25,15 +25,23 @@
 //
 // Design: one thread block per scenario lane, the K2 layout
 // (slot_carve) in dynamic shared memory; du / dl of the layout hold the
-// current step's bounds.  The step is slot_step.cuh's, 15.4k SM cycles a
-// step at config 3 (K = 51).  Measured against this body and not landed
-// (PERF.md, section 6): loading the state by cp.async (segment.cuh, as
-// B4 does), prefetching the next step's bounds, 3 blocks an SM instead
-// of 4; the warp step of slot_warp.cuh widened to two items a lane (K, n
-// <= 64, the same bits), 39.7k cycles a step, as one warp runs all of
-// config 3's products; and this step with its E update and the add's
-// bookkeeping reading before they write, 14.8k cycles, a change to the
-// step K2 and B4 share that is not this kernel's alone.
+// current step's bounds.  Two bodies of the one segment (mpc_segment),
+// chosen by the C entry, the same bits: where K, n <= 64 and m <= 128
+// (config 3: K = 51, n = 50, m = 100) the horizon body runs
+// slot_step.cuh's step under HorizonStep: every loop one pass of turns
+// known at compile time, the list walks and column products unrolled,
+// and the E update reading each turn's column records and entries before
+// it writes them, ahead of the add's bookkeeping (in turns with the
+// parent, scripts/k1_shapes.py --b3: 1.90 ms against the 128-thread
+// body's 2.15 at config 3, H100 80GB HBM3 at 700 W; each lever alone in
+// PERF.md, section 6); elsewhere the 128-thread body runs the step at the
+// run-time shape (ShapeStep), its SASS as before the horizon body.
+// Measured against the 128-thread body and not landed: loading the state
+// by cp.async (segment.cuh, as B4 does), prefetching the next step's
+// bounds, 3 blocks an SM instead of 4; the warp step of slot_warp.cuh
+// widened to two items a lane, 39.7k cycles a step against 15.4k; a
+// 256-thread step (one config-3 lane silent past mpc's gate: another
+// sum order); reading 2 or 4 turns of the E update ahead (other bits).
 #include "segment.cuh"
 
 namespace {
@@ -55,9 +63,22 @@ struct Ptrs {
   const void* p[kNumPtrs];
 };
 
-__global__ void __launch_bounds__(kThreads)
-mpc_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
-                   int nP, Tol tol) {
+// The horizon body's ceilings (K, n <= 64, m <= 128: one pass of each
+// loop) and its step: both levers, the ceilings and loads-first.
+constexpr int kHorizonK = 64;
+constexpr int kHorizonN = 64;
+constexpr int kHorizonM = 128;
+using HorizonStep = StepCfg<kHorizonK, kHorizonN, kHorizonM, true>;
+
+// A lane's nP horizon steps on the step of Cfg, a lane a block.  The
+// pointer table by reference: the 128-thread body reads it in place, as
+// its kernel did before the horizon body (the same SASS); the horizon
+// body passes a copy, with which ptxas spills 12 B at 128 registers
+// against 192 B in place.
+template <class Cfg>
+__device__ __forceinline__ void mpc_segment(const Ptrs& P, int m, int n,
+                                            int K, int n_true, int steps,
+                                            int nP, Tol tol) {
   extern __shared__ float sm[];
   SEG_PROBE_INIT
   const int t = threadIdx.x;
@@ -112,7 +133,7 @@ mpc_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
       slot_refresh_dsl(L, m, K);
       ctl_reset(c);
       SEG_PROBE_MARK(1)
-      slot_solve_retry(L, c, m, n, K, n_true, steps, tol);
+      slot_solve_retry<Cfg>(L, c, m, n, K, n_true, steps, tol);
       SEG_PROBE_MARK(2)
       SEG_PROBE_STEPS(c.it)
       SEG_PROBE_PASS
@@ -164,6 +185,39 @@ mpc_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
   SEG_PROBE_FLUSH
 }
 
+__global__ void __launch_bounds__(kThreads)
+mpc_segment_kernel(Ptrs P, int m, int n, int K, int n_true, int steps,
+                   int nP, Tol tol) {
+  mpc_segment<ShapeStep>(P, m, n, K, n_true, steps, nP, tol);
+}
+
+// 4 blocks an SM, as the 128-thread body (128 registers): config 3's 512
+// lanes in one wave.  The probe's build lifts it: at 128 registers its
+// counters would spill 408 B that the normal build does not carry.
+#ifdef SLOT_PROBE
+constexpr int kHorizonBlocks = 1;
+#else
+constexpr int kHorizonBlocks = 4;
+#endif
+
+__global__ void __launch_bounds__(kThreads, kHorizonBlocks)
+mpc_segment_horizon_kernel(Ptrs P, int m, int n, int K, int n_true,
+                           int steps, int nP, Tol tol) {
+  const Ptrs table = P;
+  mpc_segment<HorizonStep>(table, m, n, K, n_true, steps, nP, tol);
+}
+
+// The body: -1 by shape (the horizon body within its ceilings, else the
+// 128-thread one; ops/smem.py mpc_horizon mirrors it), 0 the 128-thread
+// body, 1 the horizon body (an error past its ceilings).
+using MpcKernel = void (*)(Ptrs, int, int, int, int, int, int, Tol);
+__host__ inline MpcKernel mpc_body(int m, int n, int K, int body) {
+  const bool fits = K <= kHorizonK && n <= kHorizonN && m <= kHorizonM;
+  if (body < 0) body = fits ? 1 : 0;
+  if (body == 0) return mpc_segment_kernel;
+  return body == 1 && fits ? mpc_segment_horizon_kernel : nullptr;
+}
+
 }  // namespace
 
 extern "C" int mpc_segment_f32(const void* const* ptrs, int S, int m, int n,
@@ -171,40 +225,44 @@ extern "C" int mpc_segment_f32(const void* const* ptrs, int S, int m, int n,
                                float dual_tol, float primal_tol,
                                float pivot_tol, float sing_tol,
                                float progress_tol, float cycle_tol,
-                               int bland, void* stream) {
+                               int bland, int body, void* stream) {
   Ptrs P;
   for (int i = 0; i < kNumPtrs; ++i) P.p[i] = ptrs[i];
   const Tol tol{dual_tol, primal_tol, pivot_tol, sing_tol, progress_tol,
                 cycle_tol, bland};
+  const MpcKernel kernel = mpc_body(m, n, K, body);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = slot_smem_floats(m, n, K) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mpc_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) {
       cudaGetLastError();              // clear it: no launch follows
       return static_cast<int>(e);
     }
   }
-  mpc_segment_kernel<<<S, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<S, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       P, m, n, K, n_true, steps, nP, tol);
   return static_cast<int>(cudaGetLastError());
 }
 
 #ifdef SEG_OCCUPANCY
-// Resident blocks of B3 per SM at (m, n, K), by the occupancy calculator:
-// chip_profile.py --probe k3 builds it beside the probe, from this source
-// without the probe's marks (-DSEG_OCCUPANCY); the normal library has no
-// such entry.
-extern "C" int mpc_segment_occupancy(int m, int n, int K, int* blocks) {
+// Resident blocks of B3's body `body` (as mpc_segment_f32's) per SM at
+// (m, n, K), by the occupancy calculator: chip_profile.py --probe k3
+// builds it beside the probe, from this source without the probe's marks
+// (-DSEG_OCCUPANCY); the normal library has no such entry.
+extern "C" int mpc_segment_occupancy(int m, int n, int K, int body,
+                                     int* blocks) {
+  const MpcKernel kernel = mpc_body(m, n, K, body);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = slot_smem_floats(m, n, K) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      mpc_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, mpc_segment_kernel, kThreads, smem);
+        blocks, kernel, kThreads, smem);
   return static_cast<int>(e);
 }
 #endif

@@ -155,19 +155,25 @@ __device__ __forceinline__ void seg_rows_out(float* dst, const float* src,
 // The instrumented copy's probe: the step's words (slot_step.cuh: cycles
 // per phase, then the steps run), the segment's (kSegWords), the blocks'
 // (kProbeBlocks x kBlockWords), then each block's cold retries
-// (kProbeBlocks).
+// (kProbeBlocks), then each block's step words (kProbeBlocks x
+// (kProbePhases + 1)).
 extern "C" int seg_probe_reset() {
   const unsigned long long zs[kProbePhases + 1] = {};
   const unsigned long long zg[kSegWords] = {};
-  static const unsigned long long zb[kProbeBlocks * kBlockWords] = {};
+  // zeros enough for each of the per-block arrays
+  static const unsigned long long zb[kProbeBlocks * (kProbePhases + 1)] = {};
+  static_assert(kBlockWords <= kProbePhases + 1, "zeros");
   cudaError_t e = cudaMemcpyToSymbol(slot_probe_cycles, zs, sizeof(zs));
   if (e == cudaSuccess)
     e = cudaMemcpyToSymbol(seg_probe_cycles, zg, sizeof(zg));
   if (e == cudaSuccess)
-    e = cudaMemcpyToSymbol(seg_probe_block, zb, sizeof(zb));
+    e = cudaMemcpyToSymbol(seg_probe_block, zb, sizeof(seg_probe_block));
   if (e == cudaSuccess)
     e = cudaMemcpyToSymbol(slot_probe_retries, zb,
-                           kProbeBlocks * sizeof(*zb));
+                           sizeof(slot_probe_retries));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(slot_probe_block_phases, zb,
+                           sizeof(slot_probe_block_phases));
   return static_cast<int>(e);
 }
 
@@ -186,6 +192,10 @@ extern "C" int seg_probe_read(unsigned long long* host) {
   if (e == cudaSuccess)
     e = cudaMemcpyFromSymbol(host, slot_probe_retries,
                              kProbeBlocks * sizeof(*host));
+  host += kProbeBlocks;
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(host, slot_probe_block_phases,
+                             sizeof(slot_probe_block_phases));
   return static_cast<int>(e);
 }
 #endif

@@ -2,6 +2,10 @@
 // K2 (slot_round.cu), B3 (mpc_segment.cu) and B4 (prox_segment.cu) at
 // every shape and by B5 (avi_segment.cu) and B6 (lp_segment.cu) where
 // their warp bodies do not run; dense_round.cu (B7) takes its helpers.
+// It is written once over a StepCfg: each kernel but B3's horizon body
+// runs it at the run-time shape as it stood before StepCfg (the same
+// SASS); B3's horizon body (K, n <= 64, m <= 128) runs it with its loops
+// bounded at compile time and its E update reading before it writes.
 // B5 and B6 at K, n <= 32 run the warp step of slot_warp.cuh, which
 // computes this step with the same bits: it keeps every sum below in the
 // same tree (an item's chains j = q mod 8, or j = hq mod 16 then
@@ -109,6 +113,30 @@ struct Lane {
   int* list;                   // the used slots, in slot order
   int ldK, ldn;
 };
+
+// The step's settings, fixed at compile time.  MaxK, MaxN, MaxM: 0 runs
+// every loop to the run-time shape (K2, B4 and the 128-thread bodies of
+// B3, B5 and B6); else the slots, columns and rows the shape stays within
+// (B3's horizon body), so that each loop over them is one pass of turns
+// known at compile time, each turn taken where it falls in the shape, and
+// the list walks unroll.  LoadsFirst: the E update, the add's bookkeeping,
+// the W update and the act rows read their values before they store (a
+// store to shared memory holds back every later load: the compiler cannot
+// tell the arrays apart).  Neither changes a sum's order.  The step is
+// written for two settings: the run-time shape storing first (ShapeStep),
+// and ceilings with loads-first (B3's HorizonStep).
+template <int MaxK, int MaxN, int MaxM, bool LoadsFirst>
+struct StepCfg {
+  static constexpr int kK = MaxK, kN = MaxN, kM = MaxM;
+  static constexpr bool kFixed = MaxK > 0;
+  static constexpr bool kLoadsFirst = LoadsFirst;
+  static_assert(kFixed == kLoadsFirst, "loads-first only under ceilings");
+  // one pass: the slots fit the pairs of groups (64 items), the columns
+  // and rows the block's threads
+  static_assert(!kFixed || (MaxK <= 64 && MaxN > 0 && MaxN <= 128 &&
+                            MaxM > 0 && MaxM <= 128), "ceilings");
+};
+using ShapeStep = StepCfg<0, 0, 0, false>;
 
 // Mirrored by ops/smem.py slot_floats.
 __host__ __device__ inline size_t slot_smem_floats(int m, int n, int K) {
@@ -272,16 +300,38 @@ __device__ __forceinline__ float slot_tsum8(float (&v)[kSG], int q) {
   return v[0];
 }
 
+// f(i) for i = i0, i0 + Stride, ... below end (i0 < Stride), under a
+// ceiling Turns * Stride >= end: Turns turns unrolled, each taken where
+// i < end.
+template <int Turns, int Stride, class F>
+__device__ __forceinline__ void slot_turns(int i0, int end, F f) {
+#pragma unroll
+  for (int u = 0; u < Turns; ++u) {
+    const int i = i0 + u * Stride;
+    if (i < end) f(i);
+  }
+}
+
 // acc[p] += A[off[p] + j] x(j) over the columns j = j0, j0 + stride, ...
-// below n.
-template <class X>
+// below n; under a ceiling Cap >= n, Cap / stride turns unrolled.  (The
+// loop at the run-time n is written apart: the same code in a helper
+// compiles to other SASS.)
+template <int Cap = 0, int Stride = 0, class X>
 __device__ __forceinline__ void slot_rows8(float (&acc)[kSG], const float* A,
                                            const int (&off)[kSG], int n,
                                            int j0, int stride, X x) {
-  for (int j = j0; j < n; j += stride) {
-    const float xj = x(j);
+  if constexpr (Cap == 0) {
+    for (int j = j0; j < n; j += stride) {
+      const float xj = x(j);
 #pragma unroll
-    for (int p = 0; p < kSG; ++p) acc[p] += A[off[p] + j] * xj;
+      for (int p = 0; p < kSG; ++p) acc[p] += A[off[p] + j] * xj;
+    }
+  } else {
+    slot_turns<Cap / Stride, Stride>(j0, n, [&](int j) {
+      const float xj = x(j);
+#pragma unroll
+      for (int p = 0; p < kSG; ++p) acc[p] += A[off[p] + j] * xj;
+    });
   }
 }
 
@@ -344,12 +394,13 @@ __device__ __forceinline__ void slot_reduce(float (&s)[NS], float& mx,
 
 // The number of used slots; the last warp also writes them, in slot
 // order, to L.list.  Every warp calls it; the caller syncs before the
-// list is read.
+// list is read.  Cap: a ceiling on K, or 0.
+template <int Cap = 0>
 __device__ __forceinline__ int slot_list(const Lane& L, int K) {
   const int lane = threadIdx.x & 31;
   const bool write = (threadIdx.x >> 5) == kWarps - 1;
   int k = 0;
-  for (int base = 0; base < K; base += 32) {
+  for (int base = 0; base < (Cap ? Cap : K); base += 32) {
     const int s = base + lane;
     const bool on = s < K && L.used[s] > 0.f;
     const unsigned bal = __ballot_sync(kFull, on);
@@ -376,15 +427,23 @@ __device__ unsigned long long slot_probe_cycles[kProbePhases + 1];
     pr_t = pr_now;                           \
   }
 #define SLOT_PROBE_STEP ++pr_acc[kProbePhases];
-#define SLOT_PROBE_FLUSH                                            \
-  if (threadIdx.x == 0)                                             \
-    for (int ph = 0; ph <= kProbePhases; ++ph)                      \
-      atomicAdd(&slot_probe_cycles[ph],                             \
-                static_cast<unsigned long long>(pr_acc[ph]));
 // the segment kernels' probe (segment.cuh) also counts each block's
-// in-kernel cold retries, for its first kProbeBlocks blocks
+// in-kernel cold retries, and keeps each block's cycles per phase and
+// steps, for its first kProbeBlocks blocks
 constexpr int kProbeBlocks = 1024;
 __device__ unsigned long long slot_probe_retries[kProbeBlocks];
+__device__ unsigned long long
+    slot_probe_block_phases[kProbeBlocks * (kProbePhases + 1)];
+#define SLOT_PROBE_FLUSH                                            \
+  if (threadIdx.x == 0)                                             \
+    for (int ph = 0; ph <= kProbePhases; ++ph) {                    \
+      atomicAdd(&slot_probe_cycles[ph],                             \
+                static_cast<unsigned long long>(pr_acc[ph]));       \
+      if (blockIdx.x < kProbeBlocks)                                \
+        atomicAdd(&slot_probe_block_phases[blockIdx.x *             \
+                                           (kProbePhases + 1) + ph], \
+                  static_cast<unsigned long long>(pr_acc[ph]));     \
+    }
 #define SLOT_PROBE_RETRY                                            \
   if (threadIdx.x == 0 && blockIdx.x < kProbeBlocks)                \
     atomicAdd(&slot_probe_retries[blockIdx.x], 1ull);
@@ -401,7 +460,11 @@ __device__ unsigned long long slot_probe_retries[kProbeBlocks];
 // stored E and used (pallas_slot.py:614-617), so E may have changed since
 // the last step; leaves the shared state consistent (ends on a barrier).
 // A lane that is not RUNNING returns at once; a lane that turns terminal
-// stops, which equals the TPU kernel's masked no-op steps.
+// stops, which equals the TPU kernel's masked no-op steps.  Cfg: the
+// step's settings (StepCfg); under ceilings (K <= Cfg::kK, n <= Cfg::kN,
+// m <= Cfg::kM) each loop over the slots, rows or columns is one pass
+// and each list walk and column product unrolls (slot_turns).
+template <class Cfg = ShapeStep>
 __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
                                            const float* du, const float* dl,
                                            int m, int n, int K, int n_true,
@@ -462,40 +525,57 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
   // round-start prefix from the stored E: the list; lam* = a_p = 0 off
   // it; g_p = (W prow) o used; then lam* = -E (dsl o used), a_p = E g_p
   // on the list
-  int k = slot_list(L, K);
-  for (int s = t; s < K; s += kThreads)
-    if (!(used[s] > 0.f)) {
+  int k = slot_list<Cfg::kK>(L, K);
+  for (int s = t; s < (Cfg::kFixed ? t + kThreads : K); s += kThreads)
+    if ((!Cfg::kFixed || s < K) && !(used[s] > 0.f)) {
       lstar[s] = 0.f;
       a_p[s] = 0.f;
     }
-  for (int base = 0; base < K; base += kThreads) {
+  for (int base = 0; base < (Cfg::kFixed ? 1 : K); base += kThreads) {
     float acc[kSG] = {};
     if (pd > 0.f && base + g8 < K) {
       int off[kSG];
 #pragma unroll
       for (int p = 0; p < kSG; ++p) off[p] = min(base + g8 + p, K - 1) * ldn;
-      slot_rows8(acc, W, off, n, q, kSG, [&](int j) { return prow[j]; });
+      slot_rows8<Cfg::kN, kSG>(acc, W, off, n, q, kSG,
+                               [&](int j) { return prow[j]; });
     }
     const float sp = slot_tsum8(acc, q);
     const int s = base + t;
     if (s < K) g_p[s] = sp * used[s];
   }
   __syncthreads();
-  for (int base = 0; base < k; base += kPairItems) {
+  for (int base = 0; base < (Cfg::kFixed ? 1 : k); base += kPairItems) {
     const int p0 = base + r16;
     float s1[kSG] = {}, s2[kSG] = {};
     if (p0 < k) {
       int off[kSG];
 #pragma unroll
       for (int p = 0; p < kSG; ++p) off[p] = list[min(p0 + p, k - 1)] * ldK;
-      for (int cc = hq; cc < k; cc += 2 * kSG) {
-        const int j = list[cc];
-        const float dj = dsl[j] * used[j], gj = g_p[j];
+      // (each list walk of the step is written twice: unrolled under the
+      // ceilings, and as the loop at the run-time shape, whose SASS K2, B4
+      // and the 128-thread bodies keep)
+      if constexpr (Cfg::kFixed) {
+        slot_turns<Cfg::kK / (2 * kSG), 2 * kSG>(hq, k, [&](int cc) {
+          const int j = list[cc];
+          const float dj = dsl[j] * used[j], gj = g_p[j];
 #pragma unroll
-        for (int p = 0; p < kSG; ++p) {
-          const float eij = E[off[p] + j];
-          s1[p] += eij * dj;
-          s2[p] += eij * gj;
+          for (int p = 0; p < kSG; ++p) {
+            const float eij = E[off[p] + j];
+            s1[p] += eij * dj;
+            s2[p] += eij * gj;
+          }
+        });
+      } else {
+        for (int cc = hq; cc < k; cc += 2 * kSG) {
+          const int j = list[cc];
+          const float dj = dsl[j] * used[j], gj = g_p[j];
+#pragma unroll
+          for (int p = 0; p < kSG; ++p) {
+            const float eij = E[off[p] + j];
+            s1[p] += eij * dj;
+            s2[p] += eij * gj;
+          }
         }
       }
     }
@@ -522,7 +602,8 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
     float mx = -INFINITY;
     float av[2] = {INFINITY, INFINITY};
     int ai[2] = {INT_MAX, INT_MAX};
-    for (int s = t; s < K; s += kThreads) {
+    for (int s = t; s < (Cfg::kFixed ? t + kThreads : K); s += kThreads) {
+      if (Cfg::kFixed && s >= K) continue;
       const float sdir = -a_p[s] * sgn_p;
       const float dk = pd * sdir + (1.f - pd) * (lstar[s] - lam[s]);
       const float signv = pd * sdir + (1.f - pd) * lstar[s];
@@ -536,17 +617,28 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
       const float cand = elig > 0.f ? ratio : kBig;
       if (better(cand, s, av[0], ai[0])) { av[0] = cand; ai[0] = s; }
     }
-    for (int base = 0; base < n; base += kThreads) {
+    for (int base = 0; base < (Cfg::kFixed ? 1 : n); base += kThreads) {
       const int j0 = base + v8;
       float acc[kSG] = {};
-      if (j0 < n)
-        for (int cc = q; cc < kU; cc += kSG) {
-          const int s = list[cc];
-          const float v = lstar[s] * used[s];
-          const float* Ws = W + s * ldn + j0;    // columns past n dropped
+      if constexpr (Cfg::kFixed) {
+        if (j0 < n)
+          slot_turns<Cfg::kK / kSG, kSG>(q, kU, [&](int cc) {
+            const int s = list[cc];
+            const float v = lstar[s] * used[s];
+            const float* Ws = W + s * ldn + j0;
 #pragma unroll
-          for (int p = 0; p < kSG; ++p) acc[p] += Ws[p] * v;
-        }
+            for (int p = 0; p < kSG; ++p) acc[p] += Ws[p] * v;
+          });
+      } else {
+        if (j0 < n)
+          for (int cc = q; cc < kU; cc += kSG) {
+            const int s = list[cc];
+            const float v = lstar[s] * used[s];
+            const float* Ws = W + s * ldn + j0;    // columns past n dropped
+#pragma unroll
+            for (int p = 0; p < kSG; ++p) acc[p] += Ws[p] * v;
+          }
+      }
       const float sj = slot_tsum8(acc, q);
       const int j = base + vt;
       if (j < n) {
@@ -559,14 +651,15 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
 
     // every warp counts this step's used slots (the last lists them);
     // pricing on mu = M u (:304-337); one reduction for both searches
-    k = slot_list(L, K);
-    for (int base = 0; base < m; base += kThreads) {
+    k = slot_list<Cfg::kK>(L, K);
+    for (int base = 0; base < (Cfg::kFixed ? 1 : m); base += kThreads) {
       float acc[kSG] = {};
       if (base + g8 < m) {
         int off[kSG];
 #pragma unroll
         for (int p = 0; p < kSG; ++p) off[p] = min(base + g8 + p, m - 1) * ldn;
-        slot_rows8(acc, M, off, n, q, kSG, [&](int j) { return u_new[j]; });
+        slot_rows8<Cfg::kN, kSG>(acc, M, off, n, q, kSG,
+                                 [&](int j) { return u_new[j]; });
       }
       const float mu = slot_tsum8(acc, q);
       const int i = base + t;
@@ -616,14 +709,14 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
     // beside them the add's row and its ||.||^2
     float r3[2] = {0.f, 0.f};
     float emax = -INFINITY;
-    for (int base = 0; base < k; base += kPairItems) {
+    for (int base = 0; base < (Cfg::kFixed ? 1 : k); base += kPairItems) {
       const int p0 = base + r16;
       float acc[kSG] = {};
       if (p0 < k) {
         int off[kSG];
 #pragma unroll
         for (int p = 0; p < kSG; ++p) off[p] = list[min(p0 + p, k - 1)] * ldn;
-        slot_rows8(acc, W, off, n, hq, 2 * kSG, xadd);
+        slot_rows8<Cfg::kN, 2 * kSG>(acc, W, off, n, hq, 2 * kSG, xadd);
       }
       slot_pair8(acc);
       const float sg = slot_tsum8(acc, q);
@@ -638,7 +731,8 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
         emax = max_nan(emax, fabsf(es));
       }
     }
-    for (int j = vt; j < n; j += kThreads) {
+    for (int j = vt; j < (Cfg::kFixed ? vt + kThreads : n); j += kThreads) {
+      if (Cfg::kFixed && j >= n) continue;
       const float x = xadd(j);
       add_row[j] = x;
       r3[1] += x * x;
@@ -679,18 +773,27 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
     float fmx = -INFINITY;
     float fv_free[2] = {INFINITY, INFINITY};
     int free_i[2] = {INT_MAX, INT_MAX};
-    for (int base = 0; base < k; base += kPairItems) {
+    for (int base = 0; base < (Cfg::kFixed ? 1 : k); base += kPairItems) {
       const int p0 = base + r16;
       float acc[kSG] = {};
       if (p0 < k) {
         int off[kSG];
 #pragma unroll
         for (int p = 0; p < kSG; ++p) off[p] = list[min(p0 + p, k - 1)] * ldK;
-        for (int cc = hq; cc < k; cc += 2 * kSG) {
-          const int j = list[cc];
-          const float gj = g_k[j];
+        if constexpr (Cfg::kFixed) {
+          slot_turns<Cfg::kK / (2 * kSG), 2 * kSG>(hq, k, [&](int cc) {
+            const int j = list[cc];
+            const float gj = g_k[j];
 #pragma unroll
-          for (int p = 0; p < kSG; ++p) acc[p] += E[off[p] + j] * gj;
+            for (int p = 0; p < kSG; ++p) acc[p] += E[off[p] + j] * gj;
+          });
+        } else {
+          for (int cc = hq; cc < k; cc += 2 * kSG) {
+            const int j = list[cc];
+            const float gj = g_k[j];
+#pragma unroll
+            for (int p = 0; p < kSG; ++p) acc[p] += E[off[p] + j] * gj;
+          }
         }
       }
       slot_pair8(acc);
@@ -703,7 +806,8 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
         r4[0] += g_k[s] * ap;
       }
     }
-    for (int s = t; s < K; s += kThreads) {
+    for (int s = t; s < (Cfg::kFixed ? t + kThreads : K); s += kThreads) {
+      if (Cfg::kFixed && s >= K) continue;
       const float keep = 1.f - (s == rm ? 1.f : 0.f) * do_rm;
       lam[s] = (lam[s] + alpha * delta[s] * used[s]) * keep;
       used[s] *= keep;
@@ -758,7 +862,7 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
     // added row if it was parked, else prow
     if (has_pn) {
       const bool from_add = mk_pend > 0.f;
-      for (int base = 0; base < kN; base += kThreads) {
+      for (int base = 0; base < (Cfg::kFixed ? 1 : kN); base += kThreads) {
         const int p0 = base + g8;
         float acc[kSG] = {};
         if (p0 < kN) {
@@ -771,7 +875,7 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
             off[p] = added(s) || (do_rm > 0.f && s == rm) ? add_off
                                                           : s * ldn;
           }
-          slot_rows8(acc, W, off, n, q, kSG, [&](int j) {
+          slot_rows8<Cfg::kN, kSG>(acc, W, off, n, q, kSG, [&](int j) {
             return from_add ? add_row[j] : prow[j];
           });
         }
@@ -784,90 +888,176 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
       }
     }
 
-    // the add's slot, m-space and pending bookkeeping (:456-462,
-    // :545-581); the W update: the removed row to 0, the added row into
-    // the free slot (W is zero there)
-    if (t == 0) {
-      if (kN > k) list[k] = free_k;
-      if (ok > 0.f) {
-        used[free_k] = fminf(used[free_k] + ok, 1.f);
-        sid[free_k] = sid[free_k] + ok * (add_id + 1.f);
-        slo[free_k] = slo[free_k] + ok * add_lo;
-        dsl[free_k] = dsl[free_k] + ok * add_d;
-        lam[free_k] = lam[free_k] + ok * add_lam;
-      }
-    }
-    for (int j = vt; j < n; j += kThreads) {
-      if (do_rm > 0.f) W[rm * ldn + j] = 0.f;
-      if (ok > 0.f) W[free_k * ldn + j] = add_row[j];
-      if (price > 0.f) u[j] = u_new[j];
-      if (mk_pend > 0.f) prow[j] = add_row[j];
-    }
-    for (int i = vt; i < m; i += kThreads) {
-      const float fi = static_cast<float>(i);
-      const float oh_rm = (fi == rm_id ? 1.f : 0.f) * do_rm;
-      float up = au[i] * (1.f - oh_rm * (1.f - rm_lo));
-      float lo = al[i] * (1.f - oh_rm * rm_lo);
-      // a retry keeps pid (add_id = pid), so pid is the retried row
-      const float add_oh = retry * (fi == pid ? 1.f : 0.f) +
-                           padd * (i == jr ? 1.f : 0.f);
-      au[i] = fminf(up + ok * add_oh * (1.f - add_lo), 1.f);
-      al[i] = fminf(lo + ok * add_oh * add_lo, 1.f);
-    }
-
-    // beside it, E <- (E + c_del e e') o keep keep' + c_add w w'
-    // (:590-596) on the update's list, 8 rows to a pair of groups and
-    // columns by lane, with w = a_post o used - e_free and e zero at the
-    // added slot; from the new values the next step's lam* = -E (dsl o
-    // used) and a_p = E g_p (:604-605)
-    auto e_of = [&](int i) { return added(i) && !rm_free ? 0.f : e[i]; };
-    auto w_of = [&](int i) {
-      return i == free_k ? -1.f : (used[i] > 0.f ? a[i] * used[i] : 0.f);
-    };
-    auto d_of = [&](int i) { return added(i) ? add_d : dsl[i] * used[i]; };
-    for (int base = 0; base < kN; base += kPairItems) {
-      const int p0 = base + r16;
-      float s1[kSG] = {};
-      if (p0 < kN) {
-        int off[kSG];
-        float ce[kSG], ca[kSG];
-        const int rm_off = rm * ldK;
-        const float k_rm = 1.f - do_rm;
-#pragma unroll
-        for (int p = 0; p < kSG; ++p) {
-          const int i = slot_of(min(p0 + p, kN - 1));
-          off[p] = i * ldK;
-          ce[p] = c_del * e_of(i);
-          ca[p] = c_add * w_of(i);
-        }
-        for (int cc = hq; cc < kN; cc += 2 * kSG) {
-          const int j = slot_of(cc);
-          const float kj = 1.f - (j == rm ? 1.f : 0.f) * do_rm;
-          const float ej = e_of(j), wj = w_of(j), dj = d_of(j);
+    if constexpr (Cfg::kLoadsFirst) {
+      // E <- (E + c_del e e') o keep keep' + c_add w w' (:590-596) on the
+      // update's list as below, and the next lam*, first: the add's
+      // bookkeeping, the W update and the act rows after it (the E update
+      // reads none of what they write), each reading its values before it
+      // stores.  Each turn of columns reads its column's records and its 8
+      // entries before it writes the new ones: the same values, summed in
+      // the same order
+      auto e_of = [&](int i) { return added(i) && !rm_free ? 0.f : e[i]; };
+      auto w_of = [&](int i) {
+        return i == free_k ? -1.f : (used[i] > 0.f ? a[i] * used[i] : 0.f);
+      };
+      auto d_of = [&](int i) { return added(i) ? add_d : dsl[i] * used[i]; };
+      {
+        const int p0 = r16;            // one pass: kN <= K <= kPairItems
+        float s1[kSG] = {};
+        if (p0 < kN) {
+          int off[kSG];
+          float ce[kSG], ca[kSG], ki[kSG];
 #pragma unroll
           for (int p = 0; p < kSG; ++p) {
-            float* ep = E + off[p] + j;
-            const float ki = off[p] == rm_off ? k_rm : 1.f;
-            const float v = (*ep + ce[p] * ej) * ki * kj + ca[p] * wj;
-            if (p0 + p < kN) *ep = v;
-            s1[p] += v * dj;
+            const int i = slot_of(min(p0 + p, kN - 1));
+            off[p] = i * ldK;
+            ce[p] = c_del * e_of(i);
+            ca[p] = c_add * w_of(i);
+            ki[p] = i == rm ? 1.f - do_rm : 1.f;
+          }
+          auto turn = [&](int cc) {
+            const int j = slot_of(cc);
+            const float kj = 1.f - (j == rm ? 1.f : 0.f) * do_rm;
+            const float ej = e_of(j), wj = w_of(j), dj = d_of(j);
+            float ev[kSG];
+#pragma unroll
+            for (int p = 0; p < kSG; ++p) ev[p] = E[off[p] + j];
+#pragma unroll
+            for (int p = 0; p < kSG; ++p) {
+              const float v = (ev[p] + ce[p] * ej) * ki[p] * kj + ca[p] * wj;
+              if (p0 + p < kN) E[off[p] + j] = v;
+              s1[p] += v * dj;
+            }
+          };
+          slot_turns<Cfg::kK / (2 * kSG), 2 * kSG>(hq, kN, turn);
+        }
+        if (!last) {
+          slot_pair8(s1);
+          const float l1 = slot_tsum8(s1, q);
+          if (h0 && p0 + q < kN) {
+            const int i = slot_of(p0 + q);
+            lstar[i] = -l1;
+            a_p[i] = 0.f;
           }
         }
       }
-      if (!last) {
-        slot_pair8(s1);
-        const float l1 = slot_tsum8(s1, q);
-        if (h0 && p0 + q < kN) {
-          const int i = slot_of(p0 + q);
-          lstar[i] = -l1;
-          a_p[i] = 0.f;
+      if (t == 0) {
+        if (ok > 0.f) {
+          const float used_f = used[free_k], sid_f = sid[free_k];
+          const float slo_f = slo[free_k], dsl_f = dsl[free_k];
+          const float lam_f = lam[free_k];
+          used[free_k] = fminf(used_f + ok, 1.f);
+          sid[free_k] = sid_f + ok * (add_id + 1.f);
+          slo[free_k] = slo_f + ok * add_lo;
+          dsl[free_k] = dsl_f + ok * add_d;
+          lam[free_k] = lam_f + ok * add_lam;
+        }
+        if (kN > k) list[k] = free_k;
+      }
+      if (const int j = vt; j < n) {
+        const float xj = add_row[j], uj = u_new[j];
+        if (do_rm > 0.f) W[rm * ldn + j] = 0.f;
+        if (ok > 0.f) W[free_k * ldn + j] = xj;
+        if (price > 0.f) u[j] = uj;
+        if (mk_pend > 0.f) prow[j] = xj;
+      }
+      if (const int i = vt; i < m) {
+        const float fi = static_cast<float>(i);
+        const float oh_rm = (fi == rm_id ? 1.f : 0.f) * do_rm;
+        const float up0 = au[i], lo0 = al[i];
+        const float up = up0 * (1.f - oh_rm * (1.f - rm_lo));
+        const float lo = lo0 * (1.f - oh_rm * rm_lo);
+        const float add_oh = retry * (fi == pid ? 1.f : 0.f) +
+                             padd * (i == jr ? 1.f : 0.f);
+        au[i] = fminf(up + ok * add_oh * (1.f - add_lo), 1.f);
+        al[i] = fminf(lo + ok * add_oh * add_lo, 1.f);
+      }
+    } else {
+      // the add's slot, m-space and pending bookkeeping (:456-462,
+      // :545-581); the W update: the removed row to 0, the added row into
+      // the free slot (W is zero there)
+      if (t == 0) {
+        if (kN > k) list[k] = free_k;
+        if (ok > 0.f) {
+          used[free_k] = fminf(used[free_k] + ok, 1.f);
+          sid[free_k] = sid[free_k] + ok * (add_id + 1.f);
+          slo[free_k] = slo[free_k] + ok * add_lo;
+          dsl[free_k] = dsl[free_k] + ok * add_d;
+          lam[free_k] = lam[free_k] + ok * add_lam;
+        }
+      }
+      for (int j = vt; j < n; j += kThreads) {
+        if (do_rm > 0.f) W[rm * ldn + j] = 0.f;
+        if (ok > 0.f) W[free_k * ldn + j] = add_row[j];
+        if (price > 0.f) u[j] = u_new[j];
+        if (mk_pend > 0.f) prow[j] = add_row[j];
+      }
+      for (int i = vt; i < m; i += kThreads) {
+        const float fi = static_cast<float>(i);
+        const float oh_rm = (fi == rm_id ? 1.f : 0.f) * do_rm;
+        float up = au[i] * (1.f - oh_rm * (1.f - rm_lo));
+        float lo = al[i] * (1.f - oh_rm * rm_lo);
+        // a retry keeps pid (add_id = pid), so pid is the retried row
+        const float add_oh = retry * (fi == pid ? 1.f : 0.f) +
+                             padd * (i == jr ? 1.f : 0.f);
+        au[i] = fminf(up + ok * add_oh * (1.f - add_lo), 1.f);
+        al[i] = fminf(lo + ok * add_oh * add_lo, 1.f);
+      }
+
+      // beside it, E <- (E + c_del e e') o keep keep' + c_add w w'
+      // (:590-596) on the update's list, 8 rows to a pair of groups and
+      // columns by lane, with w = a_post o used - e_free and e zero at the
+      // added slot; from the new values the next step's lam* = -E (dsl o
+      // used) and a_p = E g_p (:604-605)
+      auto e_of = [&](int i) { return added(i) && !rm_free ? 0.f : e[i]; };
+      auto w_of = [&](int i) {
+        return i == free_k ? -1.f : (used[i] > 0.f ? a[i] * used[i] : 0.f);
+      };
+      auto d_of = [&](int i) { return added(i) ? add_d : dsl[i] * used[i]; };
+      for (int base = 0; base < kN; base += kPairItems) {
+        const int p0 = base + r16;
+        float s1[kSG] = {};
+        if (p0 < kN) {
+          int off[kSG];
+          float ce[kSG], ca[kSG];
+          const int rm_off = rm * ldK;
+          const float k_rm = 1.f - do_rm;
+#pragma unroll
+          for (int p = 0; p < kSG; ++p) {
+            const int i = slot_of(min(p0 + p, kN - 1));
+            off[p] = i * ldK;
+            ce[p] = c_del * e_of(i);
+            ca[p] = c_add * w_of(i);
+          }
+          for (int cc = hq; cc < kN; cc += 2 * kSG) {
+            const int j = slot_of(cc);
+            const float kj = 1.f - (j == rm ? 1.f : 0.f) * do_rm;
+            const float ej = e_of(j), wj = w_of(j), dj = d_of(j);
+#pragma unroll
+            for (int p = 0; p < kSG; ++p) {
+              float* ep = E + off[p] + j;
+              const float ki = off[p] == rm_off ? k_rm : 1.f;
+              const float v = (*ep + ce[p] * ej) * ki * kj + ca[p] * wj;
+              if (p0 + p < kN) *ep = v;
+              s1[p] += v * dj;
+            }
+          }
+        }
+        if (!last) {
+          slot_pair8(s1);
+          const float l1 = slot_tsum8(s1, q);
+          if (h0 && p0 + q < kN) {
+            const int i = slot_of(p0 + q);
+            lstar[i] = -l1;
+            a_p[i] = 0.f;
+          }
         }
       }
     }
     __syncthreads();
     // with an entry pending, a_p = E g_p (:605) from the new E
     if (has_pn) {
-      for (int base = 0; base < kN; base += kPairItems) {
+      for (int base = 0; base < (Cfg::kFixed ? 1 : kN); base += kPairItems) {
         const int p0 = base + r16;
         float s2[kSG] = {};
         if (p0 < kN) {
@@ -875,11 +1065,20 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
 #pragma unroll
           for (int p = 0; p < kSG; ++p)
             off[p] = slot_of(min(p0 + p, kN - 1)) * ldK;
-          for (int cc = hq; cc < kN; cc += 2 * kSG) {
-            const int j = slot_of(cc);
-            const float gj = g_p[j];
+          if constexpr (Cfg::kFixed) {
+            slot_turns<Cfg::kK / (2 * kSG), 2 * kSG>(hq, kN, [&](int cc) {
+              const int j = slot_of(cc);
+              const float gj = g_p[j];
 #pragma unroll
-            for (int p = 0; p < kSG; ++p) s2[p] += E[off[p] + j] * gj;
+              for (int p = 0; p < kSG; ++p) s2[p] += E[off[p] + j] * gj;
+            });
+          } else {
+            for (int cc = hq; cc < kN; cc += 2 * kSG) {
+              const int j = slot_of(cc);
+              const float gj = g_p[j];
+#pragma unroll
+              for (int p = 0; p < kSG; ++p) s2[p] += E[off[p] + j] * gj;
+            }
           }
         }
         slot_pair8(s2);
@@ -911,12 +1110,13 @@ __device__ __forceinline__ void slot_steps(const Lane& L, Ctl& c,
 // REFACTOR, the in-kernel cold retry (pallas_slot.py:834-870): the lane's
 // table, E, W, lam, u and fval are cleared and the step runs again.
 // `it` is not reset before the retry, so it counts both attempts.
+template <class Cfg = ShapeStep>
 __device__ __forceinline__ void slot_solve_retry(const Lane& L, Ctl& c,
                                                  int m, int n, int K,
                                                  int n_true, int steps,
                                                  const Tol& tol) {
   for (int attempt = 0; attempt < 2; ++attempt) {
-    slot_steps(L, c, L.du, L.dl, m, n, K, n_true, steps, tol);
+    slot_steps<Cfg>(L, c, L.du, L.dl, m, n, K, n_true, steps, tol);
     if (attempt == 1 || (c.stt != kCycle && c.stt != kRefactor)) break;
     SLOT_PROBE_RETRY
     __syncthreads();

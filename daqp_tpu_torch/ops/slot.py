@@ -728,8 +728,13 @@ def run_mpc_segment_plain(s: SlotState, duq, dlq, st: Settings,
             failed.to(duq.dtype))
 
 
+# B3's bodies (mpc_segment.cu mpc_body): by shape (smem.mpc_horizon), the
+# 128-thread step, the horizon step (K, n <= 64, m <= 128); the same bits
+MPC_BODIES = {None: -1, "block": 0, "horizon": 1}
+
+
 def run_mpc_segment(s: SlotState, duq, dlq, st: Settings, n_true: int,
-                    steps: int = 64):
+                    steps: int = 64, body: str | None = None):
     """B3 wrapper: P = duq.shape[1] warm MPC horizon steps in one launch.
 
     ``duq``/``dlq`` (S, P, m) are the per-step bounds in LDP space.
@@ -737,7 +742,10 @@ def run_mpc_segment(s: SlotState, duq, dlq, st: Settings, n_true: int,
     stseq (S, P) int32, failed (S,) f32)``, with the last step's bounds in
     ``s'.dupper``/``s'.dlower``.  A lane with ``failed > 0`` froze
     mid-segment; the driver redoes the segment on the per-step path.  The
-    CUDA kernel runs on CUDA tensors, the plain twin on CPU tensors."""
+    CUDA kernel runs on CUDA tensors, the plain twin on CPU tensors.
+    ``body`` (a key of ``MPC_BODIES``) picks the kernel's body; by default
+    the horizon body where ``smem.mpc_horizon`` holds, else the 128-thread
+    one."""
     global mpc_launches
     dev = s.M.device
     if dev.type == "cpu":
@@ -752,6 +760,10 @@ def run_mpc_segment(s: SlotState, duq, dlq, st: Settings, n_true: int,
            + [("duq", duq, (S, P, m), f32), ("dlq", dlq, (S, P, m), f32)])
     smem.check("run_mpc_segment (B3)", dict(m=m, n=n, K=K),
                smem.slot_floats(m, n, K), dev)
+    if body == "horizon" and not smem.mpc_horizon(m, n, K):
+        raise ValueError(f"run_mpc_segment (B3): the horizon body takes K, "
+                         f"n <= {smem.HORIZON_K}, m <= {smem.HORIZON_M}; "
+                         f"got m={m}, n={n}, K={K}")
     outs = {name: torch.empty_like(getattr(s, name)) for name in STATE}
     useq = torch.empty((S, P, n), dtype=f32, device=dev)
     fvseq = torch.empty((S, P), dtype=f32, device=dev)
@@ -764,7 +776,8 @@ def run_mpc_segment(s: SlotState, duq, dlq, st: Settings, n_true: int,
                 + [getattr(s, name) for name in STATE]
                 + [outs[name] for name in STATE]
                 + [useq, fvseq, itseq, stseq, failed],
-                (S, m, n, K, n_true, steps, P), st, dev)
+                (S, m, n, K, n_true, steps, P), st, dev,
+                tail=(MPC_BODIES[body],))
         mpc_launches += 1
     s2 = s._replace(**outs, dupper=duq[:, -1].contiguous(),
                     dlower=dlq[:, -1].contiguous())

@@ -2,9 +2,9 @@
 launch.
 
 The formulas mirror the kernels' allocators in ``csrc/``:
-``slot_smem_floats`` (``slot_step.cuh``; K2 and B3 as they are, B4-B6 plus
-their own arrays), the warp bodies of B5 and B6 up to ``WARP_MAX_K`` slots
-and columns (``slot_warp_smem_floats``, ``slot_warp.cuh``, plus the
+``slot_smem_floats`` (``slot_step.cuh``; K2 and B3 as they are, both
+of B3's bodies, ``mpc_horizon``; B4-B6 plus their own arrays), the warp
+bodies of B5 and B6 up to ``WARP_MAX_K`` slots and columns (``slot_warp_smem_floats``, ``slot_warp.cuh``, plus the
 kernel's arrays, one lane a block; each C entry takes its warp body where
 that block fits the card's opt-in, ``warp_body``), ``dense_smem_floats``
 (``dense_round.cu``, B7), the packed triangles, a warp each, and the
@@ -23,6 +23,9 @@ F32 = 4                 # bytes per float
 K_WARPS = 4             # slot_step.cuh: kThreads / 32
 RED_STRIDE = 6          # slot_step.cuh: kRedStride
 WARP_MAX_K = 32         # slot_warp.cuh: kWarpMaxK, B5's and B6's warp bodies
+HORIZON_K = 64          # mpc_segment.cu: kHorizonK, kHorizonN, kHorizonM,
+HORIZON_N = 64          # the ceilings of B3's horizon body
+HORIZON_M = 128
 WARP_POS = 6            # slot_warp.cuh: kPosArrays, per-position values
 H100_OPTIN = 232448     # bytes one block may opt in to on an H100
 DENSE_THREADS = 128     # dense_round.cu: kDenseThreads
@@ -41,6 +44,13 @@ def slot_floats(m: int, n: int, K: int) -> int:
     reduction scratch."""
     return (K * (K | 1) + K * (n | 1) + m * (n | 1) + 7 * m + 16 * K + 4 * n
             + 2 * K_WARPS * RED_STRIDE)
+
+
+def mpc_horizon(m: int, n: int, K: int) -> bool:
+    """Whether B3 runs its horizon body at m rows, n columns and K slots
+    (``mpc_segment.cu mpc_body``'s choice by shape), else the 128-thread
+    one; both take ``slot_floats``."""
+    return K <= HORIZON_K and n <= HORIZON_N and m <= HORIZON_M
 
 
 def slot_warp_floats(m: int, n: int, K: int) -> int:

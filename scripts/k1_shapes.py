@@ -27,10 +27,14 @@ commit, its own ``_build.py``), both at their own wrappers' shapes
 (``--parent-shape`` overrides the parent's, default (1, 4) for a batch
 of at most 1320 and (8, 1) past it), in turns with B10 and the library,
 on the grid's batches and config 2's first 256 and all 10240 Hessians:
-Rinv bit for bit, and the SASS of both libraries.  ``--b3 DIR``: B3
-built from this tree's ``csrc`` with DIR's files laid over it, in turns
-with this tree's B3 on ``chip_smoke``'s k3 segment, with both outputs'
-digests.  Each line is one JSON object; the last names the card.
+Rinv bit for bit, and the SASS of both libraries.  ``--b3 DIR``: on
+``chip_smoke``'s k3 segment, in turns, three rounds: B3 built from this
+tree's ``csrc`` with DIR's files laid over it (a parent's ``csrc``; its C
+entry with or without the body argument), and this tree's horizon and
+128-thread bodies; every output's digest and the parent's registers and
+spills.  To time a variant of the horizon body, lay its files over a
+copy of this tree's ``csrc`` and pass that as DIR.
+Each line is one JSON object; the last names the card.
 """
 import ctypes
 import importlib.util
@@ -179,8 +183,22 @@ def parent(dev, gen, tree, shape):
             beats_b10_every=max(t["change"]) < min(t["b10"]))), flush=True)
 
 
-def b3(dev, gen, tree):
-    src = cp.BUILD / "b3_variant" / "csrc"
+class _NoBody:
+    """A B3 library whose C entry takes no body argument (before the
+    horizon body), called as this tree's wrapper calls it."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def mpc_segment_f32(self, *args):
+        return self.lib.mpc_segment_f32(*args[:-2], args[-1])
+
+
+def b3_build(tree):
+    """B3 (``mpc_segment.cu``) built alone from a copy of this tree's
+    ``csrc`` under ``build/b3_parent``, with the ``.cu`` / ``.cuh`` files of
+    ``tree`` laid over it: (the library's path, nvcc's output)."""
+    src = cp.BUILD / "b3_parent" / "csrc"
     shutil.copytree(_build._CSRC, src, dirs_exist_ok=True)
     for f in Path(tree).iterdir():
         if f.suffix in (".cu", ".cuh"):
@@ -191,25 +209,41 @@ def b3(dev, gen, tree):
                          capture_output=True, text=True)
     if out.returncode:
         raise RuntimeError("nvcc failed:\n" + (out.stdout + out.stderr)[-4000:])
-    vlib = ctypes.CDLL(str(so))
-    cp.bind(vlib, "mpc_segment_f32")
+    return so, out.stdout + out.stderr
+
+
+def b3(dev, gen, tree):
     st = dt.as_settings({"iter_limit": 1000}, torch.float32)
     d3 = cs.config3(gen)
     args = [torch.as_tensor(d3[k], device=dev)
             for k in ('H', 'A', 'f_seq', 'bu_seq', 'bl_seq')]
     s1, duq, dlq = cs.mpc_warm_segment(args, st)
 
-    def run():
-        return slot.run_mpc_segment(s1, duq, dlq, st, cs.N, steps=cs.STEPS)
-    variant = cp.swapped(vlib, run)
-    ov, op = variant(), run()
-    t = cs.turns({"parent": run, "variant": variant}, cs.SEG_REPS, rounds=3)
+    def run(body=None):
+        return lambda: slot.run_mpc_segment(s1, duq, dlq, st, cs.N,
+                                            steps=cs.STEPS, body=body)
+    so, log = b3_build(tree)
+    lib = ctypes.CDLL(str(so))
+    cp.bind(lib, "mpc_segment_f32")
+    if "int bland, int body" not in (so.parent / "csrc" /
+                                     "mpc_segment.cu").read_text():
+        lib.mpc_segment_f32.argtypes = [
+            a for i, a in enumerate(_build._SIGNATURES["mpc_segment_f32"])
+            if i != 15]
+        lib = _NoBody(lib)
+    fns = {"parent": cp.swapped(lib, run()), "horizon": run("horizon"),
+           "block": run("block")}
+    digests = {}
+    for name, fn in fns.items():
+        o = fn()
+        digests[name] = cs.digest(*o[0], *o[1:])
+    t = cs.turns(fns, cs.SEG_REPS, rounds=3)
     print(json.dumps(dict(
-        case="b3", ms=t, beats_parent_every=max(t["variant"]) < min(
-            t["parent"]), digest=cs.digest(*op[0], *op[1:]),
-        digest_variant=cs.digest(*ov[0], *ov[1:]),
-        ptxas_variant=cp.ptxas(out.stdout + out.stderr, "mpc_segment"))),
-        flush=True)
+        case="b3", ms=t, digests=digests,
+        all_equal=len(set(digests.values())) == 1,
+        beats_parent_every={k: max(v) < min(t["parent"])
+                            for k, v in t.items() if k != "parent"},
+        ptxas_parent=cp.ptxas(log, "mpc_segment"))), flush=True)
 
 
 def main():

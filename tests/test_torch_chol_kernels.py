@@ -182,6 +182,15 @@ def test_xla_formulations_match_jax(name, B, n, rtol):
     ("K2", smem.slot_floats(893, 50, 51), True),
     ("K2", smem.slot_floats(894, 50, 51), False),
     ("K2", smem.slot_floats(500, 100, 101), False),
+    # B3: both bodies take slot_floats; the horizon body within K, n = 64
+    # and m = 128 (config 3: m = 100, n = 50, K = 51), both sides of each
+    ("B3 horizon m=100 n=50 K=51", smem.slot_floats(100, 50, 51), True),
+    ("B3 horizon m=128 n=64 K=64", smem.slot_floats(128, 64, 64), True),
+    ("B3 block m=129 n=64 K=64", smem.slot_floats(129, 64, 64), True),
+    ("B3 block m=128 n=65 K=64", smem.slot_floats(128, 65, 64), True),
+    ("B3 block m=128 n=63 K=65", smem.slot_floats(128, 63, 65), True),
+    ("B3 block m=893 n=50 K=51", smem.slot_floats(893, 50, 51), True),
+    ("B3 block m=894 n=50 K=51", smem.slot_floats(894, 50, 51), False),
     ("B7", smem.dense_floats(209, 50, False), True),
     ("B7", smem.dense_floats(210, 50, False), False),
     ("B7-sw", smem.dense_floats(205, 50, True), True),
@@ -194,6 +203,10 @@ def test_shared_memory_edges(kernel, floats, fits):
             smem.check(kernel, {}, floats, limit=H100_SMEM)
     if kernel == "K2" and not fits and floats > smem.slot_floats(894, 50, 51):
         assert 4 * floats == 305864
+    if kernel.startswith("B3"):
+        m, n, K = map(int, re.findall(r"=(\d+)", kernel))
+        assert floats == smem.slot_floats(m, n, K)
+        assert smem.mpc_horizon(m, n, K) == kernel.startswith("B3 horizon")
 
 
 def test_dense_mirror_reads_kernel_constants():
@@ -248,6 +261,7 @@ def test_slot_mirror_reads_kernel_constants():
 
 
 @pytest.mark.parametrize("kernel,source,fn,mirror", [
+    ("B3", "mpc_segment.cu", "slot_smem_floats", smem.slot_floats),
     ("B4", "prox_segment.cu", "prox_smem_floats", smem.prox_floats),
     ("B5", "avi_segment.cu", "avi_smem_floats", smem.avi_floats),
     ("B6", "lp_segment.cu", "lp_smem_floats", smem.lp_floats)])
@@ -262,6 +276,9 @@ def test_segment_mirrors_read_kernel_constants(kernel, source, fn, mirror):
     csrc = Path(pchol.__file__).parent / "csrc"
     src = (csrc / source).read_text()
     warp = (csrc / "slot_warp.cuh").read_text()
+    if kernel == "B3":
+        _mpc_mirror(src)
+        return
 
     def formula(text, name):
         body = re.search(
@@ -319,6 +336,38 @@ def test_segment_mirrors_read_kernel_constants(kernel, source, fn, mirror):
         if has_warp:
             assert smem.warp_body(m, n, K, own) == body
         assert want == mirror(m, n, K)
+
+
+def _mpc_mirror(src):
+    # B3's two bodies share slot_smem_floats (held against slot_step.cuh
+    # above); smem.mpc_horizon is mpc_body's switch, its ceilings and its
+    # comparison read from the source, and both the C entry and the
+    # occupancy entry launch mpc_body's pick at slot_smem_floats
+    consts = _consts(src)
+    ceil = (consts["kHorizonK"], consts["kHorizonN"], consts["kHorizonM"])
+    assert ceil == (smem.HORIZON_K, smem.HORIZON_N, smem.HORIZON_M)
+    # the horizon body's step runs at those ceilings, loads-first
+    assert re.search(r"using HorizonStep =\s*StepCfg<kHorizonK, kHorizonN, "
+                     r"kHorizonM, true>;", src)
+    fits = re.search(r"const bool fits = (.*?);", src).group(1)
+    assert re.search(r"if \(body < 0\) body = fits \? 1 : 0;", src)
+    assert re.search(r"if \(body == 0\) return mpc_segment_kernel;", src)
+    assert re.search(r"return body == 1 && fits \? "
+                     r"mpc_segment_horizon_kernel : nullptr;", src)
+    for entry in ("mpc_segment_f32(", "mpc_segment_occupancy("):
+        body = src[src.index(f'extern "C" int {entry}'):]
+        assert re.search(r"const MpcKernel kernel = mpc_body\(m, n, K, "
+                         r"body\);\s*if \(kernel == nullptr\)", body)
+        assert re.search(r"const size_t smem = slot_smem_floats\(m, n, K\) "
+                         r"\* sizeof\(float\);", body)
+    expr = fits.replace("&&", "and")
+    kK, kN, kM = ceil
+    for m, n, K in [(100, 50, 51), (50, 20, 21), (128, 64, 64),
+                    (129, 64, 64), (128, 65, 64), (128, 63, 65), (893, 50, 51),
+                    (24, 10, 11), (160, 80, 81), (127, 63, 63)]:
+        want = eval(expr, dict(kHorizonK=kK, kHorizonN=kN, kHorizonM=kM,
+                               m=m, n=n, K=K))
+        assert smem.mpc_horizon(m, n, K) == want
 
 
 def _consts(src):

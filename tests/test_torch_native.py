@@ -71,6 +71,32 @@ def test_native_mpc_update_warm():
     assert np.linalg.norm(out2['x'] - _np(ref.x)) < 1e-7
 
 
+
+def test_update_f_alone_rebuilds_d():
+    # scripts/fuzz_torch.py's native case at seed 100010 (n = 14, m = 47,
+    # 9 equalities, SOFT rows), its warm step with the new f passed alone:
+    # the binding passes the kept bounds, so the C call rebuilds d on the
+    # new v and the warm solve is the cold one's
+    rng = np.random.default_rng(100010)
+    n = int(rng.integers(2, 16))
+    m = int(rng.integers(n + 1, 3 * n + 6))
+    ms = int(rng.integers(0, n + 1))
+    kappa = float(10 ** rng.integers(1, 4))
+    _, H, f, A, bu, bl, sense = generate_test_qp(
+        n, m, ms, int(rng.integers(1, n + 1)), kappa, rng)
+    sense = sense.copy()
+    sense[rng.random(m) < 0.1] |= dt.SOFT
+    mdl = NativeModel(H, f, A, bu, bl, sense, ms=ms)
+    assert mdl.solve()['exitflag'] == 1
+    f = f * (1.0 + 1e-3 * rng.standard_normal(n))
+    mdl.update(f=f)
+    warm = mdl.solve()
+    cold = NativeModel(H, f, A, bu, bl, sense, ms=ms).solve()
+    assert (n, m, ms) == (14, 47, 9)
+    assert warm['exitflag'] == cold['exitflag'] == 1
+    assert np.linalg.norm(warm['x'] - cold['x']) < 1e-6
+    assert abs(warm['fval'] - cold['fval']) < 1e-6 * (1 + abs(cold['fval']))
+
 def _miqp(rng, n=6, m=14, nb=4):
     Mx = rng.standard_normal((n, n))
     H = Mx.T @ Mx + 0.1 * np.eye(n)
